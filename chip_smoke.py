@@ -8,13 +8,18 @@ Phases, each fatal on failure:
 1. The card: name and power limit (``nvidia-smi``), torch and CUDA
    versions.
 2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
-   ``build/kernels`` (nvcc, sm_90a) and print the build time.
-3. Hold each kernel against its plain torch form on the card at the
-   paper's shape (n=20 agents, P=431,080 LeNet parameters), at ragged
-   P, and on the edge cases (every agent crashed, m - f <= 0, exact norm
-   ties, duplicate values); then time the kernel, the plain form and one
+   ``build/kernels`` (one nvcc per source, all started together, sm_90a)
+   and print the build time and each kernel's registers and spills.
+3. Hold each kernel against its plain torch form on the card. The
+   aggregation kernels at the paper's shape (n=20 agents, P=431,080
+   LeNet parameters), at ragged P, and on the edge cases (every agent
+   crashed, m - f <= 0, exact norm ties, duplicate values); the paged
+   flash-decode at the decode shapes of qwen2-0.5b, qwen2-1.5b and yi-6b,
+   Dv != D, PS = 128 and Pmax = 1, in f32 and bf16, ragged and full, and
+   on kv_len = 0 (exact zeros), -1 and stale table entries and
+   page-boundary lengths. Then time each kernel, its plain form and one
    library call for the same function, each with a cold L2, beside the
-   bytes-over-bandwidth bound.
+   least time the card could take.
 4. The main path: ``AsyncDGDServer`` with the §5 LeNet agents (n=20,
    data partitioned with overlap 2) on the device backend, for the
    mean, cge (one sign-flip agent), trimmed_mean (stale) and quantized
@@ -24,7 +29,22 @@ Phases, each fatal on failure:
    snapshot -> restore -> run bit for bit.
 5. Where the time goes: a few cge iterations under torch.profiler (host
    ms per iteration, device busy time and idle share, copies, kernels).
-6. A JSON line with every kernel's launches, error and times, the
+6. The serving path: ``ServeEngine`` at the full width of qwen2-0.5b
+   (24 layers, d=896, 14 query heads over 2 KV heads, vocab 151,936,
+   bf16, weights from seed 0) serves 24 requests (prompts of 64-512
+   tokens, 16-64 new tokens each) on 8 slots of a paged cache with
+   superstep_k=8. The decode kernel's launch count is zeroed just before
+   and read just after. Every request must finish with exactly its
+   budget, every page must come back, the kernel must run at least once
+   per layer and decode step, the token streams must equal a
+   superstep_k=1 run's, and teacher-forced decode logits through the
+   kernel must match the plain form's. Prints decode tokens/s, ms per
+   superstep, mean TTFT, prefill ms and the kernel's share of device
+   time.
+7. Where the serving time goes: a few supersteps under torch.profiler
+   (host ms per step, device busy time and idle share, device
+   activities per decode step).
+8. A JSON line with every kernel's launches, error and times, the
    ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -38,14 +58,17 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import gradagg  # noqa: E402
 from repro_torch.core.async_engine import (EngineConfig,  # noqa: E402
                                            default_latency)
@@ -53,8 +76,12 @@ from repro_torch.core.server import AsyncDGDServer  # noqa: E402
 from repro_torch.data.partition import partition  # noqa: E402
 from repro_torch.data.synthetic import mnist_like  # noqa: E402
 from repro_torch.kernels import _build, agg  # noqa: E402
+from repro_torch.kernels import decode_attention as dattn  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
 from repro_torch.models.model import classifier_loss  # noqa: E402
+from repro_torch.models.model import apply_model, init_model  # noqa: E402
+from repro_torch.serve import PagedCacheConfig, ServeEngine  # noqa: E402
+from repro_torch.serve.kv_cache import PagedKVCache  # noqa: E402
 
 N_AGENTS, P_LENET = 20, 431_080
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)   # agent-order sum vs torch's order
@@ -63,8 +90,12 @@ REPLACES = {
     "masked_cge_reduce": "src/repro/kernels/agg.py:58",
     "trimmed_mean_tiled": "src/repro/kernels/agg.py:154",
     "dequant_accum": "src/repro/kernels/agg.py:247",
+    "paged_flash_decode": "src/repro/kernels/decode_attention.py:154",
 }
-SOURCE = "src/repro_torch/kernels/csrc/agg.cu"
+CSRC = "src/repro_torch/kernels/csrc"
+SOURCE = {k: f"{CSRC}/agg.cu" for k in REPLACES}
+SOURCE["paged_flash_decode"] = f"{CSRC}/decode_attention.cu"
+BUILDS = ("agg", "decode_attention")
 
 
 def log(*args) -> None:
@@ -133,7 +164,7 @@ def check(name, out, ref, tol, errs):
 
 
 def check_kernels():
-    errs = {k: [] for k in REPLACES}
+    errs = {k: [] for k in REPLACES if k != "paged_flash_decode"}
     shapes = [(N_AGENTS, P_LENET, N_AGENTS - 3, 1), (7, 4097, 5, 1),
               (N_AGENTS, 1_000_003, N_AGENTS, 2), (3, 1, 3, 0)]
     for i, (n, p, m, f) in enumerate(shapes):
@@ -269,6 +300,131 @@ def device_times(fn, calls: int = 20):
     return {e.key.replace("void ", "").replace("(anonymous namespace)::", "")
             .split("(")[0]: e.self_device_time_total / calls
             for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+# ---------------------------------------------------------------------------
+# 3b. the paged flash-decode against its plain form, and its times
+
+
+# (B, H, Hkv, D, Dv, page_size, Pmax, num_pages); the first is the
+# serving path's own shape (qwen2-0.5b, phase 6)
+DECODE_SHAPES = {
+    "qwen2-0.5b": (8, 14, 2, 64, 64, 16, 48, 8 * 48 + 1),
+    "qwen2-1.5b": (8, 12, 2, 128, 128, 16, 12, 8 * 12 + 1),
+    "yi-6b": (4, 32, 4, 128, 128, 16, 12, 4 * 12 + 1),
+    "dv_ne_d": (3, 2, 2, 128, 64, 8, 4, 16),
+    "ps128": (2, 2, 1, 32, 32, 128, 2, 8),
+    "pmax1": (2, 4, 2, 32, 32, 8, 1, 16),
+}
+# f32: tile-wise online softmax against one softmax, sums in another
+# order; bf16: one rounding of the output (2^-7 relative, values of order 1)
+DECODE_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def decode_inputs(shape, dtype, lens=None, seed=0):
+    b, h, hkv, d, dv, ps, pmax, npg = shape
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    k = rng.normal(size=(npg, ps, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(npg, ps, hkv, dv)).astype(np.float32)
+    tbl = (rng.permutation(npg - 1)[: b * pmax] + 1).reshape(b, pmax)
+    if lens is None:
+        lens = rng.integers(1, pmax * ps + 1, size=b)
+    return ([torch.from_numpy(a).to("cuda", dtype) for a in (q, k, v)]
+            + [torch.tensor(tbl, dtype=torch.int32, device="cuda"),
+               torch.tensor(lens, dtype=torch.int32, device="cuda")])
+
+
+def check_decode_kernel():
+    errs = []
+    for name, shape in DECODE_SHAPES.items():
+        b, _, _, _, _, ps, pmax, _ = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind, lens in (("ragged", None),
+                               ("full", np.full(b, pmax * ps))):
+                args = decode_inputs(shape, dtype, lens)
+                e = check(f"paged_flash_decode {name} {dtype} {kind}",
+                          dattn.paged_flash_decode(*args),
+                          dattn.paged_decode_plain(*args),
+                          DECODE_TOL[dtype], errs)
+                log(f"  paged_flash_decode {name:11s} {str(dtype)[6:]:9s} "
+                    f"{kind:6s} max_abs_err={e:.3e}")
+    # kv_len 0, one token, on a page boundary, one past it, the full
+    # table, more than the table holds
+    lens = np.array([0, 1, 16, 17, 96, 500])
+    used = -(-np.maximum(lens, 1) // 16)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, tbl, ln = decode_inputs((6, 14, 2, 64, 64, 16, 6, 64),
+                                         dtype, lens, seed=3)
+        out = dattn.paged_flash_decode(q, k, v, tbl, ln)
+        check(f"paged_flash_decode edge lengths {dtype}", out,
+              dattn.paged_decode_plain(q, k, v, tbl, ln), DECODE_TOL[dtype],
+              errs)
+        if not torch.equal(out[0], torch.zeros_like(out[0])):
+            raise AssertionError("kv_len = 0 must give exact zeros")
+        for fill in (-1, 5):
+            stale = tbl.clone()
+            for i, u in enumerate(used):
+                stale[i, min(u, 6):] = fill
+            if not torch.equal(dattn.paged_flash_decode(q, k, v, stale, ln),
+                               out):
+                raise AssertionError(f"table entries {fill} past the "
+                                     "length changed the output")
+    log("  edge cases kv_len 0 (exact zeros), 1, 16, 17, 96, 500; -1 and "
+        "stale entries past the length (bit-identical): ok")
+    torch.cuda.synchronize()
+    return max(errs)
+
+
+def library_decode(q, k_pages, v_pages, tbl_used, mask):
+    """One PyTorch composite for the same function (timed only): gather
+    the used pages, then scaled_dot_product_attention with the length
+    mask and grouped KV heads."""
+    b, h, d = q.shape
+    hkv = k_pages.shape[2]
+    k = k_pages[tbl_used].reshape(b, -1, hkv, d).transpose(1, 2)
+    v = v_pages[tbl_used].reshape(b, -1, hkv, v_pages.shape[-1])
+    return F.scaled_dot_product_attention(
+        q[:, :, None], k, v.transpose(1, 2), attn_mask=mask[:, None, None],
+        enable_gqa=True)[:, :, 0]
+
+
+def time_decode_kernel(mem_rate: float, f32_rate: float):
+    """The kernel at the serving path's shape (qwen2-0.5b, 8 slots, bf16)
+    and lengths like phase 6's (prompts of 64-512 plus up to 64 new
+    tokens). Bound: the valid tokens' K and V rows read once plus q and
+    out, over the memory rate; operations: the f32 multiply-adds of the valid
+    tokens' scores and weighted values."""
+    shape = DECODE_SHAPES["qwen2-0.5b"]
+    b, h, hkv, d, dv, ps, pmax, _ = shape
+    lens = np.random.default_rng(1).integers(64, 577, size=b)
+    args = decode_inputs(shape, torch.bfloat16, lens, seed=1)
+    q, k, v, tbl, ln = args
+    used = -(-lens // ps)
+    tbl_used = tbl[:, :used.max()].long()
+    mask = (torch.arange(used.max() * ps, device="cuda")[None]
+            < ln.long()[:, None])
+    nbytes = int(lens.sum()) * hkv * (d + dv) * 2 + 2 * b * h * (d + dv)
+    nops = 2 * int(lens.sum()) * h * (d + dv)
+    byte_ms, op_ms = nbytes / mem_rate * 1e3, nops / f32_rate * 1e3
+    flush = torch.zeros(64 * 2**20, dtype=torch.float32, device="cuda")
+    r = dict(ms=time_ms(lambda: dattn.paged_flash_decode(*args), flush),
+             plain_ms=time_ms(lambda: dattn.paged_decode_plain(*args), flush),
+             library_ms=time_ms(lambda: library_decode(q, k, v, tbl_used,
+                                                       mask), flush),
+             bound_ms=max(byte_ms, op_ms),
+             bound_by="bytes" if byte_ms >= op_ms else "operations")
+    warm = time_ms(lambda: dattn.paged_flash_decode(*args))
+    log(f"  {'paged_flash_decode':20s} kernel {r['ms']*1e3:7.2f} us (L2 warm "
+        f"{warm*1e3:6.2f})  plain {r['plain_ms']*1e3:7.2f} us  library "
+        f"{r['library_ms']*1e3:7.2f} us  bound {r['bound_ms']*1e3:5.2f} us "
+        f"({r['bound_by']}, {nbytes/1e6:.2f} MB at {mem_rate/1e12:.2f} TB/s;"
+        f" lens {lens.tolist()})")
+    for kname, us in device_times(
+            lambda: dattn.paged_flash_decode(*args)).items():
+        log(f"      {kname:40s} {us:6.2f} us on the device (L2 warm)")
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -425,6 +581,238 @@ def where_time_goes(data, iters: int = 3):
 
 
 # ---------------------------------------------------------------------------
+# 6. the serving path at full qwen2-0.5b width
+
+
+SERVE_ARCH = "qwen2-0.5b"
+SERVE_CCFG = PagedCacheConfig(num_slots=8, page_size=16, max_pages_per_seq=48,
+                              num_pages=8 * 48 + 1)
+# teacher-forced decode logits, kernel against plain form, both bf16: the
+# attention outputs differ by rounding (f32 sums in another order, then a
+# bf16 cast), which 24 layers carry into logits of order 1 to 10, whose
+# own bf16 step is 2^-7 to 2^-4
+LOGIT_TOL = 0.125
+
+
+class TimedEngine(ServeEngine):
+    """ServeEngine with host-clock totals of its prefills and of whole
+    steps. Both end in a host sync, so the clock covers the device work;
+    decode time is step time minus prefill time."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.prefill_s = self.step_s = 0.0
+
+    def _admit_grouped(self, admitted):
+        t0 = time.perf_counter()
+        super()._admit_grouped(admitted)
+        self.prefill_s += time.perf_counter() - t0
+
+    def step(self):
+        t0 = time.perf_counter()
+        super().step()
+        self.step_s += time.perf_counter() - t0
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def serve_requests(cfg, n: int = 24, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513)))
+             .astype(np.int32), int(rng.integers(16, 65))) for _ in range(n)]
+
+
+@torch.no_grad()
+def teacher_forced_logits(params, cfg, prompts, streams, impl):
+    """(T, B, vocab) paged-decode logits along ``streams`` (B, T) with
+    attention form ``impl``: prompt i prefilled into slot i of a fresh
+    cache, then ``streams[:, t]`` fed at step t."""
+    kv = PagedKVCache(cfg, SERVE_CCFG, device="cuda")
+    for slot, prompt in enumerate(prompts):
+        _, _, cache = apply_model(params, torch.tensor(prompt[None],
+                                                       device="cuda"),
+                                  cfg, mode="prefill", logits_chunk=1)
+        kv.admit(slot, cache, len(prompt), len(prompt) + streams.shape[1])
+    slots = list(range(len(prompts)))
+    out = []
+    for t in range(streams.shape[1]):
+        tokens = np.zeros((SERVE_CCFG.num_slots, 1), np.int32)
+        tokens[slots, 0] = streams[:, t]
+        logits, _, _ = apply_model(
+            params, torch.tensor(tokens, device="cuda"), cfg, mode="decode",
+            cache=kv.cache, cache_index=kv.kv_lens_dev,
+            page_table=kv.page_table_dev, impl=impl)
+        kv.commit_token(slots)
+        out.append(logits[slots, 0])
+    return torch.stack(out)
+
+
+def run_engine(params, cfg, reqs, k):
+    eng = TimedEngine(params, cfg, SERVE_CCFG, superstep_k=k)
+    rids = [eng.submit(p, n) for p, n in reqs]
+    out = eng.run()
+    torch.cuda.synchronize()
+    return eng, rids, out
+
+
+def drive_serving():
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, want "
+                             f"{cfg.param_count()}")
+    log(f"  {SERVE_ARCH}: {n_params:,} parameters (bf16) initialised on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    reqs = serve_requests(cfg)
+    run_engine(params, cfg, serve_requests(cfg, n=2, seed=1), 8)  # warm-up
+
+    dattn.reset_launches()
+    eng, rids, out = run_engine(params, cfg, reqs, 8)
+    launches = dattn.LAUNCHES["paged_flash_decode"]
+    st = eng.stats
+    for rid, (prompt, budget) in zip(rids, reqs):
+        toks = out[rid]
+        if toks.shape != (budget,) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {rid}: {toks.shape} tokens, "
+                                 f"budget {budget}")
+    if eng.kv.alloc.n_used or not eng.kv.alloc.check_invariants():
+        raise AssertionError(f"{eng.kv.alloc.n_used} pages still used")
+    if launches < st["decode_steps"] * cfg.n_layers:
+        raise AssertionError(f"paged_flash_decode launched {launches} times "
+                             f"for {st['decode_steps']} decode steps")
+    decode_s = eng.step_s - eng.prefill_s
+    decode_tokens = sum(len(t) - 1 for t in out.values())
+    ttft = np.mean([s.ttft for s in eng.sched.finished.values()])
+    metrics = dict(decode_tok_s=decode_tokens / decode_s,
+                   ms_per_superstep=decode_s / st["supersteps"] * 1e3,
+                   ms_per_decode_step=decode_s / st["decode_steps"] * 1e3,
+                   mean_ttft_ms=ttft * 1e3,
+                   prefill_ms=eng.prefill_s / st["prefill_calls"] * 1e3)
+    log(f"  24 requests, {sum(n for _, n in reqs)} tokens, superstep_k=8: "
+        f"{st['decode_steps']} decode steps in {st['supersteps']} supersteps,"
+        f" {st['prefill_calls']} prefill calls, {st['host_syncs']} host "
+        f"syncs; paged_flash_decode launched {launches} times")
+    log(f"  decode {metrics['decode_tok_s']:.1f} tok/s, "
+        f"{metrics['ms_per_superstep']:.2f} ms per superstep "
+        f"({metrics['ms_per_decode_step']:.2f} ms per decode step), mean "
+        f"TTFT {metrics['mean_ttft_ms']:.1f} ms, prefill "
+        f"{metrics['prefill_ms']:.2f} ms per call "
+        f"({eng.prefill_s * 1e3:.1f} ms in all)")
+
+    ref, ref_rids, ref_out = run_engine(params, cfg, reqs, 1)
+    for a, b in zip(rids, ref_rids):
+        if not np.array_equal(out[a], ref_out[b]):
+            raise AssertionError(f"request {a}: superstep_k=8 and 1 differ")
+    log(f"  token streams identical to the superstep_k=1 run "
+        f"({ref.stats['decode_steps']} decode steps, "
+        f"{ref.stats['host_syncs']} host syncs)")
+
+    # teacher-forced logits through the kernel and the plain form
+    t_len = 16
+    prompts = [p for p, _ in reqs[:8]]
+    streams = np.stack([out[r][:t_len] for r in rids[:8]])
+    lg_k = teacher_forced_logits(params, cfg, prompts, streams,
+                                 "cuda").float()
+    lg_p = teacher_forced_logits(params, cfg, prompts, streams,
+                                 "plain").float()
+    diff = float((lg_k - lg_p).abs().max())
+    top2 = lg_p.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    clear = margin > LOGIT_TOL
+    agree = lg_k.argmax(-1) == lg_p.argmax(-1)
+    log(f"  teacher-forced decode, 8 slots x {t_len} steps: max |logit "
+        f"diff| {diff:.4f} (logits up to {float(lg_p.abs().max()):.2f}, "
+        f"tolerance {LOGIT_TOL}); argmax agrees at {int(agree.sum())} of "
+        f"{agree.numel()} positions, {int(clear.sum())} with a top-2 margin "
+        "above the tolerance")
+    if not torch.isfinite(lg_k).all() or diff > LOGIT_TOL or \
+            not bool(agree[clear].all()):
+        raise AssertionError("teacher-forced logits: kernel and plain form "
+                             "disagree")
+
+    share = kernel_share(params, cfg, reqs)
+    log(f"  paged_flash_decode: {share:.3f} of device busy time over the "
+        "same run (torch.profiler)")
+    metrics["kernel_share"] = share
+    return launches, params, metrics
+
+
+def device_spans(prof):
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def busy_us(spans):
+    busy, end = 0.0, -np.inf
+    for a, b, _ in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def kernel_share(params, cfg, reqs):
+    """The decode kernel's share of device busy time over a replay of
+    the phase-6 workload (device activities only)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_engine(params, cfg, reqs, 8)
+    spans = device_spans(prof)
+    mine = sum(b - a for a, b, nm in spans if "paged_decode_kernel" in nm)
+    return mine / busy_us(spans)
+
+
+def where_serving_time_goes(params, steps: int = 3):
+    """Profile a few full supersteps (8 slots, K=8): host ms per step,
+    device busy time and idle share, and device activities per decode
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(SERVE_ARCH)
+    eng = ServeEngine(params, cfg, SERVE_CCFG, superstep_k=8)
+    rng = np.random.default_rng(2)
+    for _ in range(8):
+        eng.submit(rng.integers(0, cfg.vocab_size, 256).astype(np.int32), 64)
+    eng.step()                              # admissions + first superstep
+    torch.cuda.synchronize()
+    k0 = eng.stats["decode_steps"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    n_dec = eng.stats["decode_steps"] - k0
+    spans = device_spans(prof)
+    busy = busy_us(spans) / 1e3
+    mine = sum(b - a for a, b, nm in spans if "paged_decode_kernel" in nm)
+    log(f"  {steps} supersteps ({n_dec} decode steps) under the profiler: "
+        f"{wall / n_dec:.2f} ms per decode step on the host clock, device "
+        f"busy {busy / n_dec:.3f} ms per decode step (idle share "
+        f"{1 - busy / wall:.3f}), {len(spans) / n_dec:.0f} device "
+        f"activities per decode step, paged_flash_decode "
+        f"{mine / n_dec:.1f} us per decode step")
+    by_name = {}
+    for a, b, nm in spans:
+        n, us = by_name.get(nm[:60], (0, 0.0))
+        by_name[nm[:60]] = (n + 1, us + b - a)
+    for nm, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        log(f"      {nm:60s} {n / n_dec:5.1f} per step {us / n_dec:8.1f} us"
+            " per step")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -450,15 +838,20 @@ def main() -> int:
 
     log("== 2. build")
     t0 = time.perf_counter()
-    _, out = _build.build("agg")
-    log(f"  built csrc/agg.cu in {time.perf_counter() - t0:.1f} s")
-    for line in out.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  " + line.strip())
+    with ThreadPoolExecutor(len(BUILDS)) as ex:    # one nvcc per source
+        outs = list(ex.map(_build.build, BUILDS))
+    log(f"  built {', '.join(f'csrc/{b}.cu' for b in BUILDS)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for _, out in outs:
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log("  " + line.strip())
 
     log("== 3. kernels vs plain forms")
     errs = check_kernels()
+    errs["paged_flash_decode"] = check_decode_kernel()
     timing = time_kernels(*peaks)
+    timing["paged_flash_decode"] = time_decode_kernel(*peaks)
 
     log("== 4. main path: AsyncDGDServer + LeNet, device backend")
     counts, data = drive_main_path(half=5)
@@ -466,7 +859,13 @@ def main() -> int:
     log("== 5. where the time goes")
     where_time_goes(data)
 
-    rows = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
+    log(f"== 6. serving path: ServeEngine, {SERVE_ARCH} at full width, bf16")
+    counts["paged_flash_decode"], params, _ = drive_serving()
+
+    log("== 7. where the serving time goes")
+    where_serving_time_goes(params)
+
+    rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],
                  ms=timing[k]["ms"], plain_ms=timing[k]["plain_ms"],
                  bound_ms=timing[k]["bound_ms"],

@@ -1,0 +1,183 @@
+"""Architecture configuration schema (counterpart of ``repro.configs.base``).
+
+Every architecture is an ``ArchConfig``; the model code
+(``repro_torch.models``) reads only this schema. ``reduced()`` gives the
+small same-family variant the CPU tests run. Plain frozen dataclasses,
+field for field the reference's, so a config means the same in both
+packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    dense_residual: bool = False      # arctic: dense MLP in parallel with MoE
+    capacity_factor: float = 1.25
+    every_k_layers: int = 1           # MoE on layers where (idx % k == k-1)
+    router_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 multi-head latent attention."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 selective SSM (as used in Jamba)."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                  # 0 -> ceil(d_model/16)
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV-6 'Finch' time-mix / channel-mix."""
+    head_dim: int = 64
+    decay_lora: int = 64
+    ddlerp_lora: int = 32
+    chunk: int = 0          # 0 = sequential WKV scan; >0 = chunked-parallel
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                       # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    attention: str = "gqa"            # gqa | mla | none
+    layer_pattern: Tuple[str, ...] = ("attn",)
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
+    rope: str = "rope"                # rope | mrope | learned | none
+    rope_theta: float = 10_000.0
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
+    encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_seq: int = 1500
+    frontend: Optional[str] = None    # audio | vision
+    norm: str = "rmsnorm"             # rmsnorm | layernorm
+    act: str = "swiglu"               # swiglu | gelu
+    tie_embeddings: bool = False
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def period(self) -> int:
+        return len(self.layer_pattern)
+
+    @property
+    def n_periods(self) -> int:
+        if self.n_layers % self.period:
+            raise ValueError(f"{self.name}: n_layers={self.n_layers} not "
+                             f"divisible by period={self.period}")
+        return self.n_layers // self.period
+
+    @property
+    def sub_quadratic(self) -> bool:
+        return any(k in ("mamba", "rwkv") for k in self.layer_pattern)
+
+    @property
+    def has_decode(self) -> bool:
+        return True
+
+    def moe_on_layer(self, idx: int) -> bool:
+        if self.moe is None:
+            return False
+        k = self.moe.every_k_layers
+        return idx % k == k - 1
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family config for CPU tests (the reference's
+        ``reduced()``, field for field)."""
+        moe = self.moe
+        if moe is not None:
+            moe = dataclasses.replace(
+                moe, num_experts=min(4, moe.num_experts),
+                top_k=min(2, moe.top_k), d_ff_expert=64,
+                num_shared_experts=min(1, moe.num_shared_experts))
+        mla = self.mla
+        if mla is not None:
+            mla = MLAConfig(kv_lora_rank=32, q_lora_rank=48,
+                            qk_nope_head_dim=16, qk_rope_head_dim=8,
+                            v_head_dim=16)
+        ssm = self.ssm
+        if ssm is not None:
+            ssm = SSMConfig(d_state=8, d_conv=4, expand=2, dt_rank=8)
+        rwkv = self.rwkv
+        if rwkv is not None:
+            rwkv = RWKVConfig(head_dim=16, decay_lora=8, ddlerp_lora=8)
+        return dataclasses.replace(
+            self,
+            n_layers=self.period if not self.encoder_decoder else 2,
+            encoder_layers=2 if self.encoder_decoder else 0,
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=(min(self.n_kv_heads, 2)
+                        if self.n_kv_heads < self.n_heads else 4),
+            d_ff=128,
+            vocab_size=256,
+            head_dim=16,
+            encoder_seq=24,
+            moe=moe, mla=mla, ssm=ssm, rwkv=rwkv,
+            param_dtype="float32", compute_dtype="float32",
+        )
+
+    def param_count(self) -> int:
+        """Total parameter count (embeddings included)."""
+        from repro_torch.models.model import count_params  # avoids a cycle
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.model import count_params
+        return count_params(self, active_only=True)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

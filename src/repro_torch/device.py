@@ -7,10 +7,13 @@ import torch
 
 def resolve(device) -> torch.device:
     """``torch.device(device)``, raising if it names CUDA on a machine
-    without it."""
+    without it. A bare ``"cuda"`` gets the current card's index, so the
+    result compares equal to the ``.device`` of tensors made on it."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={str(device)!r} but CUDA is not available; pass "
             "device='cpu' to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

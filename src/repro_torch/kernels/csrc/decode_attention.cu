@@ -1,0 +1,304 @@
+// Hopper (sm_90a) flash-decode over a paged KV cache: one query token per
+// sequence, grouped-query attention. Replaces the Pallas TPU kernel
+// src/repro/kernels/decode_attention.py:paged_flash_decode (its _kernel).
+// Plain C entry point, bound from Python with ctypes
+// (repro_torch/kernels/decode_attention.py); it launches one kernel on the
+// caller's stream and returns cudaGetLastError().
+//
+// Contract (decode_attention.py:154-220): q (B, H, D), k_pages
+// (N, PS, Hkv, D), v_pages (N, PS, Hkv, Dv), page_table (B, Pmax) int32,
+// kv_lens (B,) int32 -> out (B, H, Dv) in q's dtype (f32 or bf16).
+// Softmax and accumulation run in f32 with scale D^-0.5. Head h reads KV
+// head h / G (G = H / Hkv), so each KV row is read once per KV head, not
+// once per query head. Token j of sequence b lives in physical page
+// clamp(page_table[b, j / PS], 0, N - 1), slot j % PS: -1 and stale
+// entries read page 0 (the null page) and are masked by the length.
+// Only tokens j < min(kv_len, Pmax * PS) are read at all, so the walk
+// stops at ceil(kv_len / PS) pages; kv_len <= 0 gives exact zeros
+// (acc = 0 and the 1e-30 floor on the row sum, decode_attention.py:150).
+//
+// What bounds it: at serving shapes (B = 8 sequences, a few hundred
+// tokens, Hkv = 2, D = 64, bf16) one call reads about a megabyte of K/V,
+// well under a microsecond at 3.35 TB/s, so a call is bound by the
+// latency of its dependent loads (table -> K rows -> V rows) and by the
+// launch, not by bytes. The design keeps it simple and keeps many loads
+// in flight per thread:
+// - one block per (sequence, KV head): the G query rows of the group sit
+//   in shared memory as f32 and are broadcast to every thread;
+// - the sequence is walked in tiles of kThreads tokens regardless of the
+//   page size (PS = 8 .. 128 alike): thread t owns token j0 + t, looks up
+//   its page in the table, reads its K row with 16-byte loads and scores
+//   it against all G query rows, keeping G partial sums in registers (no
+//   lane layout assumes G divides 32: G = 7 and 6 are common);
+// - one warp per query row turns the tile's scores into probabilities
+//   with the online-softmax update (running max m, sum l, correction
+//   exp(m_prev - m_new)), with tokens past the length re-masked to 0;
+// - for P @ V, Dv / 8 neighbouring threads cover one V row with 16-byte
+//   loads and the block covers kThreads * 8 / Dv tokens at once; each
+//   thread walks its tokens of the tile a few at a time (loads issued
+//   before the multiply-adds) and keeps (G, 8) f32 accumulators in
+//   registers across the whole walk, so the block holds partial sums
+//   over disjoint token sets, which one pass through shared memory adds
+//   up at the end.
+// One build covers G <= 8 and D, Dv <= 128, every ported config (G in
+// {1, 6, 7, 8}, head_dim 64 or 128); the wrapper refuses more. Split-K
+// over long contexts (more blocks than B * Hkv), cp.async/TMA prefetch of
+// the next tile and wgmma are left for later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;        // threads per block = tokens per tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxG = 8;             // query heads / KV head (wrapper checks)
+constexpr int kMaxD = 128;           // D and Dv (wrapper checks)
+constexpr int kVec = 8;              // elements per 16-byte bf16 load
+constexpr int kUnroll = 4;           // V rows in flight per thread
+constexpr float kNegInf = -1e30f;    // decode_attention.py NEG_INF
+
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                      float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                    const T* __restrict__ vp, const int* __restrict__ tbl,
+                    const int* __restrict__ lens, T* __restrict__ out,
+                    int H, int Hkv, int D, int Dv, int N, int PS, int Pmax,
+                    float scale) {
+  __shared__ __align__(16) float q_s[kMaxG * kMaxD];
+  __shared__ float p_s[kMaxG][kThreads];    // scores, then probabilities
+  __shared__ long long row_s[kThreads];    // KV row of each tile token
+  __shared__ float red_s[kThreads * kVec]; // partial sums of one row
+  __shared__ float m_s[kMaxG], l_s[kMaxG], corr_s[kMaxG];
+
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int G = H / Hkv;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // P @ V layout: `cpr` threads per V row, `rpar` rows at once
+  const int cpr = Dv / kVec;
+  const int rpar = kThreads / cpr;
+  const int my_row = tid / cpr;
+  const int my_col = (tid % cpr) * kVec;
+  const bool pv = my_row < rpar;
+
+  const T* qb = q + ((long long)b * H + (long long)kvh * G) * D;
+  for (int i = tid; i < G * D; i += kThreads) q_s[i] = to_f32(qb[i]);
+  if (tid < G) {
+    m_s[tid] = kNegInf;
+    l_s[tid] = 0.f;
+  }
+  const int len = max(min(lens[b], Pmax * PS), 0);
+  const int* tb = tbl + (long long)b * Pmax;
+
+  float acc[kMaxG][kVec];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g)
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
+  __syncthreads();
+
+  for (int j0 = 0; j0 < len; j0 += kThreads) {
+    const int ntok = min(kThreads, len - j0);
+
+    // 1. scores of token j0 + tid against the G query rows
+    if (tid < ntok) {
+      const int j = j0 + tid;
+      const int page = min(max(tb[j / PS], 0), N - 1);
+      const long long row = ((long long)page * PS + j % PS) * Hkv + kvh;
+      row_s[tid] = row;
+      const T* kr = kp + row * D;
+      float s[kMaxG];
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
+      for (int d = 0; d < D; d += 8) {
+        float kv[8];
+        load8(kr + d, kv);
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g) {
+          if (g < G) {
+            const float4* q4 =
+                reinterpret_cast<const float4*>(q_s + g * D + d);
+            const float4 a = q4[0], c = q4[1];
+            s[g] = fmaf(a.x, kv[0], s[g]);
+            s[g] = fmaf(a.y, kv[1], s[g]);
+            s[g] = fmaf(a.z, kv[2], s[g]);
+            s[g] = fmaf(a.w, kv[3], s[g]);
+            s[g] = fmaf(c.x, kv[4], s[g]);
+            s[g] = fmaf(c.y, kv[5], s[g]);
+            s[g] = fmaf(c.z, kv[6], s[g]);
+            s[g] = fmaf(c.w, kv[7], s[g]);
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g)
+        if (g < G) p_s[g][tid] = s[g] * scale;
+    }
+    __syncthreads();
+
+    // 2. online softmax, one warp per query row; tokens past the tile's
+    //    valid count are re-masked to probability 0
+    for (int g = warp; g < G; g += kWarps) {
+      float mx = kNegInf;
+      for (int t = lane; t < ntok; t += 32) mx = fmaxf(mx, p_s[g][t]);
+      mx = warp_max(mx);
+      const float m_prev = m_s[g];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int t = lane; t < kThreads; t += 32) {
+        const float p = t < ntok ? expf(p_s[g][t] - m_new) : 0.f;
+        p_s[g][t] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float corr = expf(m_prev - m_new);
+        corr_s[g] = corr;
+        l_s[g] = l_s[g] * corr + sum;
+        m_s[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // 3. acc = acc * corr + P @ V over this thread's tokens of the tile
+    if (pv) {
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g < G) {
+          const float c = corr_s[g];
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) acc[g][e] *= c;
+        }
+      }
+      for (int t0 = my_row; t0 < ntok; t0 += kUnroll * rpar) {
+        float v[kUnroll][kVec];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int t = t0 + u * rpar;
+          if (t < ntok) {
+            load8(vp + row_s[t] * Dv + my_col, v[u]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) v[u][e] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int t = min(t0 + u * rpar, kThreads - 1);  // p = 0 past ntok
+#pragma unroll
+          for (int g = 0; g < kMaxG; ++g) {
+            if (g < G) {
+              const float p = p_s[g][t];
+#pragma unroll
+              for (int e = 0; e < kVec; ++e)
+                acc[g][e] = fmaf(p, v[u][e], acc[g][e]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // 4. add up the rpar partial sums of each query row and normalise
+  T* ob = out + ((long long)b * H + (long long)kvh * G) * Dv;
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+    if (g < G) {
+      if (pv) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          red_s[my_row * Dv + my_col + e] = acc[g][e];
+      }
+      __syncthreads();
+      const float inv = 1.f / fmaxf(l_s[g], 1e-30f);
+      for (int c = tid; c < Dv; c += kThreads) {
+        float sum = 0.f;
+        for (int r = 0; r < rpar; ++r) sum += red_s[r * Dv + c];
+        store(ob + (long long)g * Dv + c, sum * inv);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <typename T>
+void launch(const void* q, const void* k_pages, const void* v_pages,
+            const int* page_table, const int* kv_lens, void* out, int B,
+            int H, int Hkv, int D, int Dv, int N, int PS, int Pmax,
+            float scale, cudaStream_t stream) {
+  const dim3 grid(B, Hkv);
+  const T* qq = static_cast<const T*>(q);
+  const T* kk = static_cast<const T*>(k_pages);
+  const T* vv = static_cast<const T*>(v_pages);
+  T* oo = static_cast<T*>(out);
+  paged_decode_kernel<T><<<grid, kThreads, 0, stream>>>(
+      qq, kk, vv, page_table, kv_lens, oo, H, Hkv, D, Dv, N, PS, Pmax, scale);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16 (q, pages and out share it).
+int paged_decode(const void* q, const void* k_pages, const void* v_pages,
+                 const int* page_table, const int* kv_lens, void* out, int B,
+                 int H, int Hkv, int D, int Dv, int N, int PS, int Pmax,
+                 float scale, int dtype, cudaStream_t stream) {
+  if (dtype == 1) {
+    launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, kv_lens, out, B,
+                          H, Hkv, D, Dv, N, PS, Pmax, scale, stream);
+  } else {
+    launch<float>(q, k_pages, v_pages, page_table, kv_lens, out, B, H, Hkv,
+                  D, Dv, N, PS, Pmax, scale, stream);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,19 +1,21 @@
-"""Dispatchers for the aggregation kernels, with ``repro.kernels.ops``'s
-``impl=`` contract:
+"""Dispatchers for the kernels, with ``repro.kernels.ops``'s ``impl=``
+contract:
 
 - ``"ref"``    the torch oracle (``kernels/ref.py``),
-- ``"plain"``  the plain torch form of the kernel (``kernels/agg.py``),
+- ``"plain"``  the plain torch form of the kernel (``kernels/agg.py``,
+               ``kernels/decode_attention.py``),
 - ``"cuda"``   the CUDA kernel; its wrapper raises for a tensor that is
                not on a card,
 - ``"auto"``   decided by the tensor's device: a CUDA tensor gets the
                kernel (or an exception), a CPU tensor the plain form.
 
 This is the one place that decides by device; the wrappers in
-``kernels/agg.py`` only launch.
+``kernels/agg.py`` and ``kernels/decode_attention.py`` only launch.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import agg as _agg
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import ref as _ref
 
 IMPLS = ("auto", "ref", "plain", "cuda")
@@ -59,3 +61,19 @@ def dequant_accum(q, scale, received, *, impl: str = "auto"):
     if impl == "plain":
         return _agg.dequant_dot(q, scale, received)
     return _agg.dequant_accum(q, scale, received)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
+                           impl: str = "auto"):
+    """Single-query attention over paged KV (the serving decode hot path).
+    q: (B, H, D); k_pages/v_pages: (N, PS, Hkv, D|Dv); page_table:
+    (B, Pmax) int32; kv_lens: (B,) int32. Returns (B, H, Dv). Every form
+    is KV-head grouped: head h reads KV head h // (H // Hkv)."""
+    impl = _route(impl, q)
+    if impl == "ref":
+        return _ref.ref_paged_decode_attention(q, k_pages, v_pages,
+                                               page_table, kv_lens)
+    if impl == "plain":
+        return _da.paged_decode_plain(q, k_pages, v_pages, page_table,
+                                      kv_lens)
+    return _da.paged_flash_decode(q, k_pages, v_pages, page_table, kv_lens)

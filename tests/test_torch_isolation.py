@@ -40,7 +40,7 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20        # every module imported
+    assert int(out.stdout.split()[-1]) >= 39        # every module imported
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -65,6 +65,23 @@ def test_default_device_raises_without_cuda(monkeypatch):
         lenet.make_agent_grad_fn([], 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         lenet.init_lenet(torch.Generator().manual_seed(0))
+
+
+def test_serving_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import init_cache, init_model
+    from repro_torch.serve import PagedKVCache, PagedCacheConfig, ServeEngine
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_model(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedKVCache(cfg, PagedCacheConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_cache(cfg, 2, 8)
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

@@ -1,14 +1,19 @@
-"""The CUDA aggregation kernels against their plain torch forms on the
-card, at the paper's shape (n=20, P=431,080), at ragged P and on the edge
-cases, plus the wrappers' launch counts and input checks. Every test here
-needs a GPU and skips without one, and the file imports no JAX: on the GPU
-machine run ``python -m pytest -q tests/test_torch_kernels_cuda.py``."""
+"""The CUDA kernels against their plain torch forms on the card: the
+aggregation kernels at the paper's shape (n=20, P=431,080), at ragged P
+and on the edge cases; the paged flash-decode at the serving shapes of
+qwen2-0.5b, qwen2-1.5b and yi-6b, Dv != D, PS = 128 and Pmax = 1, in f32
+and bf16, with kv_len = 0, -1 table entries and page-boundary lengths;
+the wrappers' launch counts and input checks; and the engines on the card
+against the same engines on the CPU. Every test here needs a GPU and
+skips without one, and the file imports no JAX: on the GPU machine run
+``python -m pytest -q tests/test_torch_kernels_cuda.py``."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import gradagg as tg
 from repro_torch.kernels import agg as tagg
+from repro_torch.kernels import decode_attention as tda
 
 # the CUDA kernel vs its plain form on the same card: agent-order f32 sums
 # against torch's reduction order, a few ulps of values of order 10
@@ -138,3 +143,176 @@ def test_engine_device_backend_on_card_matches_cpu(rule, f, mode):
         assert getattr(h_gpu, name) == getattr(h_cpu, name), name
     np.testing.assert_allclose(h_gpu.loss, h_cpu.loss, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(x_gpu, x_cpu, rtol=1e-3, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# paged flash-decode
+
+
+# (B, H, Hkv, D, Dv, page_size, Pmax, num_pages)
+DECODE_SHAPES = {
+    "qwen2-0.5b": (8, 14, 2, 64, 64, 16, 48, 8 * 48 + 1),
+    "qwen2-1.5b": (8, 12, 2, 128, 128, 16, 12, 8 * 12 + 1),
+    "yi-6b": (4, 32, 4, 128, 128, 16, 12, 4 * 12 + 1),
+    "dv_ne_d": (3, 2, 2, 128, 64, 8, 4, 16),
+    "ps128": (2, 2, 1, 32, 32, 128, 2, 8),
+    "pmax1": (2, 4, 2, 32, 32, 8, 1, 16),
+}
+# f32: the kernel's tile-wise online softmax against the plain form's one
+# softmax, sums in another order; bf16: one rounding of the output
+DECODE_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _decode_inputs(shape, dtype, lens=None, seed=0, device="cuda"):
+    b, h, hkv, d, dv, ps, pmax, npg = shape
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(b, h, d)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(npg, ps, hkv, d)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(npg, ps, hkv, dv))
+                         .astype(np.float32))
+    tbl = (rng.permutation(npg - 1)[: b * pmax] + 1).reshape(b, pmax)
+    if lens is None:
+        lens = rng.integers(1, pmax * ps + 1, size=b)
+    return ([t.to(device, dtype) for t in (q, k, v)]
+            + [torch.tensor(tbl, dtype=torch.int32, device=device),
+               torch.tensor(lens, dtype=torch.int32, device=device)])
+
+
+@needs_cuda
+@pytest.mark.parametrize("name", list(DECODE_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_flash_decode_matches_plain(name, dtype):
+    shape = DECODE_SHAPES[name]
+    b, _, _, _, _, ps, pmax, _ = shape
+    before = tda.LAUNCHES["paged_flash_decode"]
+    for lens in (None, np.full(b, pmax * ps)):       # ragged, full
+        args = _decode_inputs(shape, dtype, lens)
+        out = tda.paged_flash_decode(*args)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (b, shape[1], shape[4])
+        torch.testing.assert_close(out.float(),
+                                   tda.paged_decode_plain(*args).float(),
+                                   **DECODE_TOL[dtype])
+    assert tda.LAUNCHES["paged_flash_decode"] == before + 2
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_flash_decode_edge_cases(dtype):
+    shape = (6, 14, 2, 64, 64, 16, 6, 64)
+    # kv_len 0 (exact zeros), one token, on a page boundary, one past it,
+    # the full table, and more than the table holds (clamped)
+    lens = np.array([0, 1, 16, 17, 96, 500])
+    q, k, v, tbl, ln = _decode_inputs(shape, dtype, lens, seed=3)
+    out = tda.paged_flash_decode(q, k, v, tbl, ln)
+    torch.testing.assert_close(out.float(),
+                               tda.paged_decode_plain(q, k, v, tbl,
+                                                      ln).float(),
+                               **DECODE_TOL[dtype])
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    # entries past each length: -1 or live-looking stale pages change
+    # nothing, bit for bit
+    used = -(-np.maximum(lens, 1) // 16)
+    for fill in (-1, 5):
+        stale = tbl.clone()
+        for i, u in enumerate(used):
+            stale[i, min(u, 6):] = fill
+        torch.testing.assert_close(tda.paged_flash_decode(q, k, v, stale,
+                                                          ln), out,
+                                   rtol=0, atol=0)
+
+
+@needs_cuda
+def test_paged_flash_decode_validates_inputs():
+    q, k, v, tbl, ln = _decode_inputs((2, 4, 2, 32, 32, 8, 2, 8),
+                                      torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tda.paged_flash_decode(q.cpu(), k.cpu(), v.cpu(), tbl.cpu(),
+                               ln.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        tda.paged_flash_decode(q.transpose(0, 1).contiguous()
+                               .transpose(0, 1), k, v, tbl, ln)
+    with pytest.raises(ValueError, match="share a dtype"):
+        tda.paged_flash_decode(q, k.bfloat16(), v, tbl, ln)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        tda.paged_flash_decode(q[:, :3].contiguous(), k, v, tbl, ln)
+    with pytest.raises(ValueError, match="at most 8"):      # G = 9
+        tda.paged_flash_decode(torch.zeros((2, 18, 32), device="cuda"), k, v,
+                               tbl, ln)
+    big = torch.zeros((2, 2, 136), device="cuda")
+    with pytest.raises(ValueError, match="at most 128"):
+        tda.paged_flash_decode(big, torch.zeros((8, 8, 2, 136),
+                                                device="cuda"),
+                               torch.zeros((8, 8, 2, 136), device="cuda"),
+                               tbl, ln)
+    with pytest.raises(ValueError, match="int32"):
+        tda.paged_flash_decode(q, k, v, tbl.long(), ln)
+
+
+@torch.no_grad()
+def _teacher_forced_logits(params, cfg, ccfg, prompts, streams):
+    """(T, B, vocab) paged-decode logits along ``streams`` (B, T): prompt
+    i prefilled into slot i of a fresh cache on the params' device, then
+    ``streams[:, t]`` fed at step t."""
+    from repro_torch.models.model import apply_model
+    from repro_torch.serve.kv_cache import PagedKVCache
+    device = params["embed"]["tok"].device
+    kv = PagedKVCache(cfg, ccfg, device=device)
+    for slot, prompt in enumerate(prompts):
+        _, _, cache = apply_model(params, torch.tensor(prompt[None],
+                                                       device=device),
+                                  cfg, mode="prefill", logits_chunk=1)
+        kv.admit(slot, cache, len(prompt), len(prompt) + streams.shape[1])
+    slots = list(range(len(prompts)))
+    out = []
+    for t in range(streams.shape[1]):
+        tokens = np.zeros((ccfg.num_slots, 1), np.int32)
+        tokens[slots, 0] = streams[:, t]
+        logits, _, _ = apply_model(
+            params, torch.tensor(tokens, device=device), cfg, mode="decode",
+            cache=kv.cache, cache_index=kv.kv_lens_dev,
+            page_table=kv.page_table_dev)
+        kv.commit_token(slots)
+        out.append(logits[slots, 0])
+    return torch.stack(out)
+
+
+@needs_cuda
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "yi-6b"])
+def test_serve_engine_on_card_matches_cpu_plain_path(arch):
+    """A reduced-config ServeEngine on the card (the kernel) and on the
+    CPU (the plain form), same weights: identical token streams and
+    stats, and teacher-forced decode logits along those streams within
+    f32 tolerance; the kernel launched once per layer and decode step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import init_model, tree_to
+    from repro_torch.serve import PagedCacheConfig, ServeEngine
+    cfg = get_config(arch).reduced()
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu",
+                        max_pos=64)
+    ccfg = PagedCacheConfig(num_slots=2, page_size=4, num_pages=24,
+                            max_pages_per_seq=8)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, s).astype(np.int32) for s in (5, 9, 3, 6)]
+    budgets = [4, 7, 2, 5]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        before = tda.LAUNCHES["paged_flash_decode"]
+        eng = ServeEngine(tree_to(params, device), cfg, ccfg, superstep_k=8,
+                          device=device)
+        for p, n in zip(prompts, budgets):
+            eng.submit(p, n)
+        runs[device] = (eng.run(), dict(eng.stats),
+                        tda.LAUNCHES["paged_flash_decode"] - before)
+    (out_c, st_c, n_c), (out_g, st_g, n_g) = runs["cpu"], runs["cuda"]
+    assert st_g == st_c and n_c == 0
+    assert n_g == st_g["decode_steps"] * cfg.n_layers
+    for rid in out_c:
+        np.testing.assert_array_equal(out_g[rid], out_c[rid])
+    streams = np.stack([out_c[0][:4], out_c[3][:4]])
+    lg = {d: _teacher_forced_logits(tree_to(params, d), cfg, ccfg,
+                                    [prompts[0], prompts[3]], streams)
+          for d in ("cpu", "cuda")}
+    torch.testing.assert_close(lg["cuda"].cpu(), lg["cpu"], rtol=1e-4,
+                               atol=1e-4)
