@@ -20,6 +20,15 @@ Phases, each fatal on failure:
    page-boundary lengths. Then time each kernel, its plain form and one
    library call for the same function, each with a cold L2, beside the
    least time the card could take.
+   3c. Flash attention, the CGE squared norms and the masked scaling
+   against their plain forms on the cases of ``kernels/cases.py``: flash
+   attention on the shapes of the JAX tests, ragged S = T = 100, T = 2 S
+   under the top-left causal mask, Dv != D, inputs scaled x8, 4096
+   tokens, D = 192 and D = Dv = 256, causal and not, f32 and bf16; the
+   norms and the scaling on the JAX sweep and ragged widths, with zero
+   and one scales. Then each timed at phase 8's shapes (flash attention
+   also at yi-6b's head shape) beside its bound and a library call
+   (SDPA, ``vector_norm``, ``torch.mul`` into x's dtype).
 4. The main path: ``AsyncDGDServer`` with the §5 LeNet agents (n=20,
    data partitioned with overlap 2) on the device backend, for the
    mean, cge (one sign-flip agent), trimmed_mean (stale) and quantized
@@ -44,7 +53,16 @@ Phases, each fatal on failure:
 7. Where the serving time goes: a few supersteps under torch.profiler
    (host ms per step, device busy time and idle share, device
    activities per decode step).
-8. A JSON line with every kernel's launches, error and times, the
+8. The kernels API at full width (``kernels/ops.py``), launch counts
+   zeroed just before and read just after: flash attention on layer 0's
+   q, k, v of qwen2-0.5b (phase 6's weights) over a 4096-token prompt,
+   against its plain form and the model's chunked attention; the CGE
+   squared norms and masked scaling over the whole qwen2-0.5b parameter
+   tree bucketed as bf16 (241,227 rows of 2048), against the plain forms
+   and an f64 sum of squares; and the CGE keep-set of one cge iteration
+   of the §5 LeNet agents from bucketed norms, against the plain form's
+   on the same buckets and the f32 ledger's.
+9. A JSON line with every kernel's launches, error and times, the
    ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -72,12 +90,20 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import gradagg  # noqa: E402
 from repro_torch.core.async_engine import (EngineConfig,  # noqa: E402
                                            default_latency)
+from repro_torch.core.ledger import tree_flatten  # noqa: E402
 from repro_torch.core.server import AsyncDGDServer  # noqa: E402
 from repro_torch.data.partition import partition  # noqa: E402
 from repro_torch.data.synthetic import mnist_like  # noqa: E402
-from repro_torch.kernels import _build, agg  # noqa: E402
+from repro_torch.kernels import _build, agg, ops  # noqa: E402
+from repro_torch.kernels import cge_norms as cgen  # noqa: E402
 from repro_torch.kernels import decode_attention as dattn  # noqa: E402
+from repro_torch.kernels import flash_attention as fattn  # noqa: E402
+from repro_torch.kernels.cases import (CGE_SHAPES, FLASH_CASES,  # noqa: E402
+                                       FLASH_TOL, NORM_TOL)
+from repro_torch.models import attention as mattn  # noqa: E402
+from repro_torch.models import layers as mlayers  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
+from repro_torch.models import model as mmodel  # noqa: E402
 from repro_torch.models.model import classifier_loss  # noqa: E402
 from repro_torch.models.model import apply_model, init_model  # noqa: E402
 from repro_torch.serve import PagedCacheConfig, ServeEngine  # noqa: E402
@@ -91,11 +117,16 @@ REPLACES = {
     "trimmed_mean_tiled": "src/repro/kernels/agg.py:154",
     "dequant_accum": "src/repro/kernels/agg.py:247",
     "paged_flash_decode": "src/repro/kernels/decode_attention.py:154",
+    "flash_attention": "src/repro/kernels/flash_attention.py:73",
+    "block_sq_norms": "src/repro/kernels/cge_norms.py:32",
+    "masked_scale": "src/repro/kernels/cge_norms.py:69",
 }
 CSRC = "src/repro_torch/kernels/csrc"
 SOURCE = {k: f"{CSRC}/agg.cu" for k in REPLACES}
 SOURCE["paged_flash_decode"] = f"{CSRC}/decode_attention.cu"
-BUILDS = ("agg", "decode_attention")
+SOURCE["flash_attention"] = f"{CSRC}/flash_attention.cu"
+SOURCE["block_sq_norms"] = SOURCE["masked_scale"] = f"{CSRC}/cge_norms.cu"
+BUILDS = ("agg", "decode_attention", "flash_attention", "cge_norms")
 
 
 def log(*args) -> None:
@@ -107,11 +138,12 @@ def log(*args) -> None:
 
 
 def card_peaks(name: str):
-    """(memory bytes/s, f32 FLOP/s outside the tensor cores) of an H100
-    SXM from NVIDIA's data sheet: 3.35 TB/s and 67 TFLOP/s. Another card
-    has other peaks, which this script does not guess."""
+    """(memory bytes/s, f32 FLOP/s outside the tensor cores, bf16 dense
+    tensor-core FLOP/s) of an H100 SXM from NVIDIA's data sheet: 3.35
+    TB/s, 67 and 989 TFLOP/s. Another card has other peaks, which this
+    script does not guess."""
     if "H100" in name and ("HBM3" in name or "SXM" in name):
-        return 3.35e12, 67e12
+        return 3.35e12, 67e12, 989e12
     raise RuntimeError(f"no data-sheet peaks for {name!r}: the bounds are "
                        "stated for an H100 SXM")
 
@@ -164,7 +196,8 @@ def check(name, out, ref, tol, errs):
 
 
 def check_kernels():
-    errs = {k: [] for k in REPLACES if k != "paged_flash_decode"}
+    errs = {k: [] for k in ("masked_cge_reduce", "trimmed_mean_tiled",
+                            "dequant_accum")}
     shapes = [(N_AGENTS, P_LENET, N_AGENTS - 3, 1), (7, 4097, 5, 1),
               (N_AGENTS, 1_000_003, N_AGENTS, 2), (3, 1, 3, 0)]
     for i, (n, p, m, f) in enumerate(shapes):
@@ -239,6 +272,19 @@ def library_trimmed(g, rx, m, f):
     return srt[f:m - f].sum(0) / max(m - 2 * f, 1)
 
 
+def timing_row(kern, plain, lib, nbytes, nops, mem_rate, op_rate, flush):
+    """Cold times of a kernel, its plain form and a library call for the
+    same function (None where there is none), beside the bound: the
+    larger of the bytes over the memory rate and the operations over
+    ``op_rate``."""
+    byte_ms = nbytes / mem_rate * 1e3
+    op_ms = nops / op_rate * 1e3
+    return dict(ms=time_ms(kern, flush), plain_ms=time_ms(plain, flush),
+                library_ms=None if lib is None else time_ms(lib, flush),
+                bound_ms=max(byte_ms, op_ms),
+                bound_by="bytes" if byte_ms >= op_ms else "operations")
+
+
 def time_kernels(mem_rate: float, f32_rate: float):
     n, p, f = N_AGENTS, P_LENET, 1
     m = N_AGENTS - 3
@@ -269,13 +315,8 @@ def time_kernels(mem_rate: float, f32_rate: float):
     }
     rows = {}
     for k, (kern, plain, lib, nbytes, nops) in jobs.items():
-        byte_ms = nbytes / mem_rate * 1e3
-        op_ms = nops / f32_rate * 1e3
-        rows[k] = r = dict(
-            ms=time_ms(kern, flush), plain_ms=time_ms(plain, flush),
-            library_ms=time_ms(lib, flush),
-            bound_ms=max(byte_ms, op_ms),
-            bound_by="bytes" if byte_ms >= op_ms else "operations")
+        rows[k] = r = timing_row(kern, plain, lib, nbytes, nops, mem_rate,
+                                 f32_rate, flush)
         warm = time_ms(kern)
         log(f"  {k:20s} kernel {r['ms']*1e3:7.2f} us (L2 warm "
             f"{warm*1e3:6.2f})  plain {r['plain_ms']*1e3:7.2f} us  library "
@@ -407,14 +448,11 @@ def time_decode_kernel(mem_rate: float, f32_rate: float):
             < ln.long()[:, None])
     nbytes = int(lens.sum()) * hkv * (d + dv) * 2 + 2 * b * h * (d + dv)
     nops = 2 * int(lens.sum()) * h * (d + dv)
-    byte_ms, op_ms = nbytes / mem_rate * 1e3, nops / f32_rate * 1e3
     flush = torch.zeros(64 * 2**20, dtype=torch.float32, device="cuda")
-    r = dict(ms=time_ms(lambda: dattn.paged_flash_decode(*args), flush),
-             plain_ms=time_ms(lambda: dattn.paged_decode_plain(*args), flush),
-             library_ms=time_ms(lambda: library_decode(q, k, v, tbl_used,
-                                                       mask), flush),
-             bound_ms=max(byte_ms, op_ms),
-             bound_by="bytes" if byte_ms >= op_ms else "operations")
+    r = timing_row(lambda: dattn.paged_flash_decode(*args),
+                   lambda: dattn.paged_decode_plain(*args),
+                   lambda: library_decode(q, k, v, tbl_used, mask),
+                   nbytes, nops, mem_rate, f32_rate, flush)
     warm = time_ms(lambda: dattn.paged_flash_decode(*args))
     log(f"  {'paged_flash_decode':20s} kernel {r['ms']*1e3:7.2f} us (L2 warm "
         f"{warm*1e3:6.2f})  plain {r['plain_ms']*1e3:7.2f} us  library "
@@ -425,6 +463,146 @@ def time_decode_kernel(mem_rate: float, f32_rate: float):
             lambda: dattn.paged_flash_decode(*args)).items():
         log(f"      {kname:40s} {us:6.2f} us on the device (L2 warm)")
     return r
+
+
+# ---------------------------------------------------------------------------
+# 3c. flash attention and the CGE bucketed passes against their plain
+#     forms, and their times
+
+
+# phase 8's shapes: qwen2-0.5b's layer 0 over a 4096-token prompt (B, H,
+# S, T, D, Dv), yi-6b's head shape, and the qwen2-0.5b parameter tree
+# bucketed into rows of 2048
+FLASH_QWEN = (1, 14, 4096, 4096, 64, 64)
+FLASH_YI = (1, 32, 4096, 4096, 128, 128)
+TREE_ROWS = (241_227, 2048)
+
+
+def flash_inputs(shape, dtype, mult=1.0, seed=0):
+    b, h, s, t, d, dv = shape[:6]
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(size=(b, h, s, d)) * mult,
+              rng.normal(size=(b, h, t, d)) * mult,
+              rng.normal(size=(b, h, t, dv)))
+    return [torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+            for a in arrays]
+
+
+def check_flash_kernel():
+    errs = {torch.float32: [], torch.bfloat16: []}
+    for case in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(case, dtype, case[6])
+            for causal in (True, False):
+                e = check(f"flash_attention {case} {dtype} causal={causal}",
+                          fattn.flash_attention(q, k, v, causal=causal),
+                          fattn.flash_attention_plain(q, k, v, causal=causal),
+                          FLASH_TOL[dtype], errs[dtype])
+            log(f"  flash_attention {str(case[:6]):30s} x{case[6]:<3} "
+                f"{str(dtype)[6:]:9s} max_abs_err={e:.3e} (causal and not)")
+    torch.cuda.synchronize()
+    log(f"  flash_attention: f32 max_abs_err {max(errs[torch.float32]):.3e}"
+        f" ({FLASH_TOL[torch.float32]}), bf16 "
+        f"{max(errs[torch.bfloat16]):.3e} ({FLASH_TOL[torch.bfloat16]})")
+    return max(max(v) for v in errs.values())
+
+
+def check_cge_norm_kernels():
+    errs = []
+    for n, w in CGE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            rng = np.random.default_rng(n * w)
+            x = torch.from_numpy(rng.normal(size=(n, w)).astype(np.float32)
+                                 ).to("cuda", dtype)
+            norms = cgen.block_sq_norms(x)
+            e = check(f"block_sq_norms {n}x{w} {dtype}", norms,
+                      cgen.block_sq_norms_plain(x), NORM_TOL, errs)
+            if not torch.equal(cgen.block_sq_norms(x), norms):
+                raise AssertionError("block_sq_norms differs run to run")
+            for scale in (rng.uniform(size=n), np.zeros(n), np.ones(n)):
+                s = torch.tensor(scale, dtype=torch.float32, device="cuda")
+                if not torch.equal(cgen.masked_scale(x, s),
+                                   cgen.masked_scale_plain(x, s)):
+                    raise AssertionError(f"masked_scale {n}x{w} {dtype} is "
+                                         "not bit-identical")
+            log(f"  block_sq_norms {n}x{w:<5d} {str(dtype)[6:]:9s} "
+                f"max_abs_err={e:.3e} (rtol 1e-5), run to run identical; "
+                "masked_scale bit-identical (uniform, 0, 1)")
+    torch.cuda.synchronize()
+    return {"block_sq_norms": max(errs), "masked_scale": 0.0}
+
+
+def flash_work(shape, causal, elt):
+    """(bytes, operations) flash attention must move and do: q, k, v read
+    once and the output written once; 2 (D + Dv) operations per (query,
+    key) pair the mask lets through."""
+    b, h, s, t, d, dv = shape
+    if causal:
+        pairs = t * (t + 1) // 2 + (s - t) * t if s > t else s * (s + 1) // 2
+    else:
+        pairs = s * t
+    return (b * h * (s * d + t * d + t * dv + s * dv) * elt,
+            2 * (d + dv) * pairs * b * h)
+
+
+def log_row(name, r, what, kern):
+    lib = ("none" if r["library_ms"] is None
+           else f"{r['library_ms'] * 1e3:9.2f} us")
+    log(f"  {name:20s} kernel {r['ms'] * 1e3:9.2f} us  plain "
+        f"{r['plain_ms'] * 1e3:9.2f} us  library {lib}  bound "
+        f"{r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']}; {what})")
+    for kname, us in device_times(kern, calls=5).items():
+        log(f"      {kname:40s} {us:9.2f} us on the device (L2 warm)")
+
+
+def time_new_kernels(mem_rate, f32_rate, bf16_rate):
+    """Flash attention (bf16, causal) at qwen2-0.5b's and yi-6b's
+    long-prompt head shapes, the squared norms and the masked scaling on
+    the qwen2-0.5b tree's 241,227 rows of 2048 bf16; seed-0 inputs."""
+    flush = torch.zeros(64 * 2**20, dtype=torch.float32, device="cuda")
+    rows = {}
+    for label, shape in (("qwen2-0.5b", FLASH_QWEN), ("yi-6b", FLASH_YI)):
+        q, k, v = flash_inputs(shape, torch.bfloat16)
+        nbytes, nops = flash_work(shape, True, 2)
+        kern = lambda: fattn.flash_attention(q, k, v)  # noqa: E731
+        r = timing_row(
+            kern, lambda: fattn.flash_attention_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            nbytes, nops, mem_rate, bf16_rate, flush)
+        log_row("flash_attention", r, f"{label} {shape} bf16 causal, "
+                f"{nops / 1e9:.2f} GFLOP at {bf16_rate / 1e12:.0f} TFLOP/s, "
+                f"{nbytes / 1e6:.1f} MB", kern)
+        log(f"      achieved {nops / r['ms'] / 1e9:.2f} TFLOP/s; at the f32 "
+            f"rate ({f32_rate / 1e12:.0f} TFLOP/s) the bound would be "
+            f"{nops / f32_rate * 1e6:.1f} us")
+        if label == "qwen2-0.5b":
+            rows["flash_attention"] = r
+        del q, k, v
+    n, w = TREE_ROWS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((n, w), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    s = (torch.rand(n, generator=gen, device="cuda") < 0.5).float()
+    kern = lambda: cgen.block_sq_norms(x)  # noqa: E731
+    rows["block_sq_norms"] = r = timing_row(
+        kern, lambda: cgen.block_sq_norms_plain(x),
+        lambda: torch.linalg.vector_norm(x, dim=1, dtype=torch.float32),
+        n * w * 2 + n * 4, 2 * n * w, mem_rate, f32_rate, flush)
+    log_row("block_sq_norms", r, f"{n} x {w} bf16, {(n * w * 2 + n * 4) / 1e6:.2f}"
+            f" MB at {mem_rate / 1e12:.2f} TB/s", kern)
+    # one torch.mul computes x * s in f32 and rounds once into x's dtype,
+    # the same function bit for bit
+    o = torch.empty_like(x)
+    lib = lambda: torch.mul(x, s[:, None], out=o)  # noqa: E731
+    kern = lambda: cgen.masked_scale(x, s)  # noqa: E731
+    if not torch.equal(lib(), kern()):
+        raise AssertionError("torch.mul is not masked_scale's function")
+    rows["masked_scale"] = r = timing_row(
+        kern, lambda: cgen.masked_scale_plain(x, s), lib,
+        2 * n * w * 2 + n * 4, n * w, mem_rate, f32_rate, flush)
+    log_row("masked_scale", r, f"{n} x {w} bf16, {(2 * n * w * 2 + n * 4) / 1e6:.2f}"
+            f" MB at {mem_rate / 1e12:.2f} TB/s", kern)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -614,14 +792,6 @@ class TimedEngine(ServeEngine):
         self.step_s += time.perf_counter() - t0
 
 
-def leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in leaves(v)]
-    if isinstance(tree, (tuple, list)):
-        return [x for v in tree for x in leaves(v)]
-    return [tree]
-
-
 def serve_requests(cfg, n: int = 24, seed: int = 0):
     rng = np.random.default_rng(seed)
     return [(rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513)))
@@ -666,7 +836,7 @@ def drive_serving():
     t0 = time.perf_counter()
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in leaves(params))
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
     if n_params != cfg.param_count():
         raise AssertionError(f"{n_params} parameters, want "
                              f"{cfg.param_count()}")
@@ -813,6 +983,153 @@ def where_serving_time_goes(params, steps: int = 3):
 
 
 # ---------------------------------------------------------------------------
+# 8. the kernels API at full width
+
+
+FLASH_PROMPT = 4096
+# ops.flash_attention (f32 inside, one bf16 rounding of the output) against
+# the model's chunked attention, which rounds p to bf16 and carries its
+# accumulator in bf16 across its 4 chunks of 1024 keys: outputs of order 1
+# differ by a few bf16 steps, the whole output by about 2^-8 in L2
+CHUNKED_BOUND = 5e-2
+CHUNKED_REL_L2 = 2e-2
+TOTAL_RTOL = 1e-5       # the norms' f32 total against an f64 sum of squares
+
+
+@torch.no_grad()
+def layer0_qkv(params, cfg, n_tokens):
+    """Layer 0's q, k, v over a seed-0 prompt, through the model's own
+    embedding, norm, projections and RoPE, with the KV heads expanded as
+    ``apply_gqa`` does: (B, S, H, hd) bf16 each."""
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, n_tokens)[None], device="cuda")
+    layer = mmodel._unstack(params["blocks"][0], cfg.n_periods)[0]
+    x = mlayers.embed_tokens(params["embed"], tokens, cfg)
+    h = mlayers.apply_norm(layer["norm1"], x, cfg)
+    q, k, v = mattn._proj_qkv(layer["mixer"], h, cfg)
+    pos = mmodel._positions_for(cfg, 1, n_tokens, 0, tokens.device)
+    rope = mlayers.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    q, k = mlayers.rotate(q, *rope), mlayers.rotate(k, *rope)
+    g = cfg.n_heads // cfg.n_kv_heads
+    return (q, torch.repeat_interleave(k, g, dim=2),
+            torch.repeat_interleave(v, g, dim=2))
+
+
+@torch.no_grad()
+def flash_on_activations(params, cfg):
+    q, k, v = layer0_qkv(params, cfg, FLASH_PROMPT)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    out = ops.flash_attention(qt, kt, vt, causal=True)
+    plain = fattn.flash_attention_plain(qt, kt, vt, causal=True)
+    e = check("ops.flash_attention on layer 0", out, plain,
+              FLASH_TOL[torch.bfloat16], [])
+    chunked = mattn.chunked_attention(q, k, v, causal=True).transpose(1, 2)
+    delta = out.float() - chunked.float()
+    diff = float(delta.abs().max())
+    rel = float(delta.norm() / chunked.float().norm())
+    mag = plain.float().abs()
+    log(f"  flash attention, qwen2-0.5b layer 0, {FLASH_PROMPT}-token prompt "
+        f"{tuple(qt.shape)} {str(qt.dtype)[6:]} causal: kernel vs plain form "
+        f"max_abs_err {e:.3e} ({FLASH_TOL[torch.bfloat16]}); vs the model's "
+        f"chunked attention max {diff:.3e} (bound {CHUNKED_BOUND}), relative "
+        f"L2 {rel:.3e} (bound {CHUNKED_REL_L2}); |out| median "
+        f"{float(mag.median()):.4f}, max {float(mag.max()):.3f}")
+    if diff > CHUNKED_BOUND or rel > CHUNKED_REL_L2:
+        raise AssertionError(f"flash attention and chunked attention differ "
+                             f"by {diff} (max), {rel} (relative L2)")
+
+
+@torch.no_grad()
+def norms_over_tree(params):
+    rows, n = ops.tree_bucket(params)
+    if rows.shape != TREE_ROWS or n != 494_032_768:
+        raise AssertionError(f"tree_bucket gave {tuple(rows.shape)}, {n}")
+    norms = ops.block_sq_norms(rows)
+    e = check("ops.block_sq_norms on the qwen2-0.5b tree", norms,
+              cgen.block_sq_norms_plain(rows), NORM_TOL, [])
+    total = float(norms.double().sum())
+    want = sum(float(t.to(torch.bfloat16).double().square().sum())
+               for t in tree_flatten(params)[0])
+    rel = abs(total - want) / want
+    scale = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 2, rows.shape[0]).astype(np.float32)).cuda()
+    same = torch.equal(ops.masked_scale(rows, scale),
+                       cgen.masked_scale_plain(rows, scale))
+    log(f"  qwen2-0.5b tree: {n:,} parameters -> {rows.shape[0]:,} rows x "
+        f"{rows.shape[1]} bf16 ({rows.numel() * 2 / 1e6:.2f} MB); squared "
+        f"norms vs plain max_abs_err {e:.3e} (rtol 1e-5), total {total:.6e} "
+        f"vs f64 {want:.6e} (relative {rel:.1e}, limit {TOTAL_RTOL}); "
+        f"masked_scale (keep/drop per row) bit-identical: {same}")
+    if rel > TOTAL_RTOL or not same:
+        raise AssertionError("norms or masked_scale over the tree are wrong")
+
+
+def keepset_on_lenet(data):
+    """One cge iteration of phase 4's run (20 agents, one sign-flip, f=1):
+    the ledger's gradients bucketed through ``tree_bucket`` of each
+    agent's LeNet parameter dict, per-agent squared norms as the sum of
+    its 211 bucket norms, and the CGE keep-set from their square roots."""
+    overrides = RUNS[1][2]
+    srv, _, _ = make_server(*data, "device", overrides)
+    seen = []
+    step = srv.engine._device_step
+
+    def spy(received, eta):
+        seen.append(received.copy())
+        step(received, eta)
+
+    srv.engine._device_step = spy
+    srv.run(1)
+    g = torch.from_numpy(srv.engine.ledger_host()).cuda()
+    rx = torch.from_numpy(seen[0]).cuda()
+    f = overrides["f"]
+    layout = lenet.lenet_layout()
+    rows = torch.cat([ops.tree_bucket(layout.unflatten(g[j]))[0]
+                      for j in range(N_AGENTS)])
+    per = rows.shape[0] // N_AGENTS
+    sq = ops.block_sq_norms(rows).view(N_AGENTS, per).sum(1)
+    sq_plain = cgen.block_sq_norms_plain(rows).view(N_AGENTS, per).sum(1)
+    keep = gradagg.cge_mask_from_norms(sq.sqrt(), rx, f)
+    keep_plain = gradagg.cge_mask_from_norms(sq_plain.sqrt(), rx, f)
+    f32_norms = agg.row_norms(g)
+    keep_f32 = gradagg.cge_mask_from_norms(f32_norms, rx, f)
+    rel = ((sq.sqrt() - f32_norms).abs() / f32_norms)[rx]
+    srt = torch.sort(f32_norms[rx]).values
+    m = int(rx.sum())
+    gap = float((srt[m - f] - srt[m - f - 1]) / srt[m - f - 1])
+    log(f"  LeNet cge iteration: {m} of {N_AGENTS} received, f={f}, "
+        f"{per} rows of 2048 per agent; keep-set from kernel norms equals "
+        f"the plain form's: {torch.equal(keep, keep_plain)}; equals the f32 "
+        f"ledger's: {torch.equal(keep, keep_f32)} (bf16 bucketing moves a "
+        f"norm by at most {float(rel.max()):.2e} relative; the f32 norms "
+        f"at the keep boundary are {gap:.2e} apart, relative)")
+    if not torch.equal(keep, keep_plain):
+        raise AssertionError("keep-set from kernel norms differs from the "
+                             "plain form's")
+    if not torch.equal(keep, keep_f32) and gap > 2 * float(rel.max()):
+        raise AssertionError("bf16 keep-set differs beyond the bucketing's "
+                             "relative error")
+
+
+def drive_kernels_api(params, data):
+    cfg = get_config(SERVE_ARCH)
+    fattn.reset_launches()
+    cgen.reset_launches()
+    t0 = time.perf_counter()
+    flash_on_activations(params, cfg)
+    norms_over_tree(params)
+    keepset_on_lenet(data)
+    torch.cuda.synchronize()
+    counts = {**fattn.LAUNCHES, **cgen.LAUNCHES}
+    log(f"  phase 8 in {time.perf_counter() - t0:.1f} s, kernel launches "
+        f"{counts}")
+    for k, c in counts.items():
+        if c == 0:
+            raise AssertionError(f"{k} was not launched in phase 8")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -834,7 +1151,7 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {name}")
-    peaks = card_peaks(name)
+    mem_rate, f32_rate, bf16_rate = card_peaks(name)
 
     log("== 2. build")
     t0 = time.perf_counter()
@@ -850,8 +1167,15 @@ def main() -> int:
     log("== 3. kernels vs plain forms")
     errs = check_kernels()
     errs["paged_flash_decode"] = check_decode_kernel()
-    timing = time_kernels(*peaks)
-    timing["paged_flash_decode"] = time_decode_kernel(*peaks)
+    timing = time_kernels(mem_rate, f32_rate)
+    timing["paged_flash_decode"] = time_decode_kernel(mem_rate, f32_rate)
+
+    log("== 3c. flash attention and the CGE norm kernels vs plain forms")
+    t0 = time.perf_counter()
+    errs["flash_attention"] = check_flash_kernel()
+    errs.update(check_cge_norm_kernels())
+    timing.update(time_new_kernels(mem_rate, f32_rate, bf16_rate))
+    log(f"  phase 3c in {time.perf_counter() - t0:.1f} s")
 
     log("== 4. main path: AsyncDGDServer + LeNet, device backend")
     counts, data = drive_main_path(half=5)
@@ -864,6 +1188,10 @@ def main() -> int:
 
     log("== 7. where the serving time goes")
     where_serving_time_goes(params)
+
+    log(f"== 8. kernels API at full width: {SERVE_ARCH} activations and "
+        "parameter tree, LeNet keep-set")
+    counts.update(drive_kernels_api(params, data))
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

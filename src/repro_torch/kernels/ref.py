@@ -51,3 +51,32 @@ def ref_dequant_accum(q, scale, received):
     """q: (n, P) int8, scale: (n,) f32 -> (P,) f32 masked dequant sum."""
     w = scale.to(torch.float32) * received.to(torch.float32)
     return torch.sum(q.to(torch.float32) * w[:, None], dim=0)
+
+
+def ref_flash_attention(q, k, v, *, causal: bool = True):
+    """q, k: (B, H, S|T, D); v: (B, H, T, Dv) -> (B, H, S, Dv) in q's
+    dtype, with an f32 softmax and scale D^-0.5. The causal mask is
+    top-left (key j is seen by query i when j <= i), also when T != S."""
+    d = q.shape[-1]
+    s = torch.einsum("bhsd,bhtd->bhst", q.to(torch.float32),
+                     k.to(torch.float32)) * (d ** -0.5)
+    if causal:
+        sq, t = q.shape[2], k.shape[2]
+        mask = (torch.arange(t, device=q.device)[None, :]
+                <= torch.arange(sq, device=q.device)[:, None])
+        s = torch.where(mask[None, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bhtv->bhsv", w,
+                        v.to(torch.float32)).to(q.dtype)
+
+
+def ref_block_sq_norms(x):
+    """x: (n, w) -> (n,) f32 squared row norms."""
+    xf = x.to(torch.float32)
+    return torch.sum(xf * xf, dim=1)
+
+
+def ref_masked_scale(x, scale):
+    """x: (n, w), scale: (n,) f32 -> x * scale[:, None] in f32, cast once
+    to x's dtype."""
+    return (x.to(torch.float32) * scale[:, None]).to(x.dtype)

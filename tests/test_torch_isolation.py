@@ -40,7 +40,7 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 39        # every module imported
+    assert int(out.stdout.split()[-1]) >= 41        # every module imported
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -50,6 +50,44 @@ def test_no_source_line_imports_jax_or_repro():
            for i, line in enumerate(p.read_text().splitlines(), 1)
            if pat.match(line)]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("module", ["flash_attention", "cge_norms"])
+def test_kernel_module_stands_alone_and_needs_a_card(module):
+    """The flash-attention and CGE-norm kernel modules import with ``jax``
+    and ``repro`` made unimportable, and their wrappers refuse a tensor
+    that is not on a card (the plain forms run anywhere)."""
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, {str(SRC)!r})
+import torch
+from repro_torch.kernels import {module} as mod
+x = torch.zeros((2, 2, 8, 8))
+calls = {{"flash_attention": lambda: mod.flash_attention(x, x, x),
+         "cge_norms": lambda: mod.block_sq_norms(x[0, 0])}}
+try:
+    calls[{module!r}]()
+except ValueError as e:
+    assert "CUDA" in str(e), e
+else:
+    raise AssertionError("the wrapper ran on the CPU")
+if {module!r} == "cge_norms":
+    try:
+        mod.masked_scale(x[0, 0], torch.ones(8))
+    except ValueError as e:
+        assert "CUDA" in str(e), e
+    else:
+        raise AssertionError("the wrapper ran on the CPU")
+assert not [k for k, v in sys.modules.items()
+            if v is not None and k.split(".")[0] in ("jax", "jaxlib", "repro")]
+print(sum(mod.LAUNCHES.values()))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "0"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

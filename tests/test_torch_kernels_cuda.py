@@ -3,8 +3,13 @@ aggregation kernels at the paper's shape (n=20, P=431,080), at ragged P
 and on the edge cases; the paged flash-decode at the serving shapes of
 qwen2-0.5b, qwen2-1.5b and yi-6b, Dv != D, PS = 128 and Pmax = 1, in f32
 and bf16, with kv_len = 0, -1 table entries and page-boundary lengths;
-the wrappers' launch counts and input checks; and the engines on the card
-against the same engines on the CPU. Every test here needs a GPU and
+flash attention over the cases of ``kernels/cases.py`` (the JAX test
+shapes, ragged S = T = 100, T = 2 S under the top-left causal mask,
+Dv != D, inputs scaled x8, 4096 tokens, D = 192 and D = Dv = 256),
+causal and not, in f32 and bf16; the CGE squared norms (run to run
+identical) and masked scaling (bit for bit) over the JAX sweep and ragged
+or misaligned rows; the wrappers' launch counts and input checks; and the
+engines on the card against the same engines on the CPU. Every test here needs a GPU and
 skips without one, and the file imports no JAX: on the GPU machine run
 ``python -m pytest -q tests/test_torch_kernels_cuda.py``."""
 import numpy as np
@@ -13,7 +18,11 @@ import torch
 
 from repro_torch.core import gradagg as tg
 from repro_torch.kernels import agg as tagg
+from repro_torch.kernels import cge_norms as tcn
 from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels.cases import (CGE_SHAPES, FLASH_CASES, FLASH_TOL,
+                                       NORM_TOL)
 
 # the CUDA kernel vs its plain form on the same card: agent-order f32 sums
 # against torch's reduction order, a few ulps of values of order 10
@@ -316,3 +325,102 @@ def test_serve_engine_on_card_matches_cpu_plain_path(arch):
           for d in ("cpu", "cuda")}
     torch.testing.assert_close(lg["cuda"].cpu(), lg["cpu"], rtol=1e-4,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the CGE bucketed passes
+
+
+def _flash_inputs(case, dtype, seed=0, device="cuda"):
+    b, h, s, t, d, dv, mult = case
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(size=(b, h, s, d)) * mult,
+              rng.normal(size=(b, h, t, d)) * mult,
+              rng.normal(size=(b, h, t, dv)))
+    return [torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+            for a in arrays]
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(case, dtype):
+    q, k, v = _flash_inputs(case, dtype)
+    before = tfa.LAUNCHES["flash_attention"]
+    for causal in (True, False):
+        out = tfa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (*q.shape[:3], case[5])
+        torch.testing.assert_close(
+            out.float(),
+            tfa.flash_attention_plain(q, k, v, causal=causal).float(),
+            **FLASH_TOL[dtype])
+    assert tfa.LAUNCHES["flash_attention"] == before + 2
+
+
+@needs_cuda
+def test_flash_attention_validates_inputs():
+    q, k, v = _flash_inputs(FLASH_CASES[0], torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    for d in (260, 60):
+        x = torch.zeros((1, 1, 8, d), device="cuda")
+        with pytest.raises(ValueError, match="multiples of 8"):
+            tfa.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                            k, v)
+    with pytest.raises(ValueError, match="share a dtype"):
+        tfa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="do not fit"):
+        tfa.flash_attention(q, k[:, :, :, :32].contiguous(), v)
+
+
+def _rows(n, w, dtype, seed=0, misaligned=False):
+    x = torch.from_numpy(np.random.default_rng(seed).normal(size=(n, w))
+                         .astype(np.float32)).to("cuda", dtype)
+    if misaligned:      # contiguous, base one element past a 16-byte line
+        buf = torch.empty(n * w + 1, dtype=dtype, device="cuda")
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(n, w)
+    return x
+
+
+@needs_cuda
+@pytest.mark.parametrize("n,w", CGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_cge_norm_kernels_match_plain(n, w, dtype, misaligned):
+    x = _rows(n, w, dtype, misaligned=misaligned)
+    before = dict(tcn.LAUNCHES)
+    norms = tcn.block_sq_norms(x)
+    torch.testing.assert_close(norms, tcn.block_sq_norms_plain(x),
+                               **NORM_TOL)
+    assert torch.equal(tcn.block_sq_norms(x), norms)        # run to run
+    rng = np.random.default_rng(1)
+    for scale in (rng.uniform(size=n), rng.integers(0, 2, size=n),
+                  np.zeros(n), np.ones(n)):
+        s = torch.tensor(scale, dtype=torch.float32, device="cuda")
+        out = tcn.masked_scale(x, s)
+        assert out.dtype == dtype and out.shape == x.shape
+        assert torch.equal(out, tcn.masked_scale_plain(x, s))
+    torch.cuda.synchronize()
+    assert tcn.LAUNCHES["block_sq_norms"] == before["block_sq_norms"] + 2
+    assert tcn.LAUNCHES["masked_scale"] == before["masked_scale"] + 4
+
+
+@needs_cuda
+def test_cge_norm_wrappers_validate_inputs():
+    x = _rows(4, 64, torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcn.block_sq_norms(x.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        tcn.masked_scale(x.cpu(), torch.ones(4))
+    with pytest.raises(ValueError, match="contiguous"):
+        tcn.block_sq_norms(x.t())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tcn.block_sq_norms(x.half())
+    with pytest.raises(ValueError, match="scale"):
+        tcn.masked_scale(x, torch.ones(4, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="scale"):
+        tcn.masked_scale(x, torch.ones(3, device="cuda"))
