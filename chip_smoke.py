@@ -9,7 +9,9 @@ Phases, each fatal on failure:
    versions.
 2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels`` (one nvcc per source, all started together, sm_90a)
-   and print the build time and each kernel's registers and spills.
+   and print the build time and each kernel's registers, shared memory
+   and spills (among them the bf16 flash kernel's wgmma builds and the
+   decode's split and combine kernels).
 3. Hold each kernel against its plain torch form on the card. The
    aggregation kernels at the paper's shape (n=20 agents, P=431,080
    LeNet parameters), at ragged P, and on the edge cases (every agent
@@ -17,18 +19,22 @@ Phases, each fatal on failure:
    flash-decode at the decode shapes of qwen2-0.5b, qwen2-1.5b and yi-6b,
    Dv != D, PS = 128 and Pmax = 1, in f32 and bf16, ragged and full, and
    on kv_len = 0 (exact zeros), -1 and stale table entries and
-   page-boundary lengths. Then time each kernel, its plain form and one
-   library call for the same function, each with a cold L2, beside the
-   least time the card could take.
+   page-boundary lengths, then over a 4096-token table walked by many
+   splits (lengths on and past a split boundary), run to run identical;
+   the split plan of each shape is printed. Then time each kernel, its
+   plain form and one library call for the same function, each with a
+   cold L2, beside the least time the card could take.
    3c. Flash attention, the CGE squared norms and the masked scaling
    against their plain forms on the cases of ``kernels/cases.py``: flash
    attention on the shapes of the JAX tests, ragged S = T = 100, T = 2 S
    under the top-left causal mask, Dv != D, inputs scaled x8, 4096
-   tokens, D = 192 and D = Dv = 256, causal and not, f32 and bf16; the
-   norms and the scaling on the JAX sweep and ragged widths, with zero
-   and one scales. Then each timed at phase 8's shapes (flash attention
-   also at yi-6b's head shape) beside its bound and a library call
-   (SDPA, ``vector_norm``, ``torch.mul`` into x's dtype).
+   tokens, D = 192, D = Dv = 256, D = 72 with Dv = 40, S > T, causal and
+   not, f32 (CUDA cores) and bf16 (tensor cores); the norms and the
+   scaling on the JAX sweep and ragged widths, with zero and one scales.
+   Then each timed at phase 8's shapes (flash attention also at yi-6b's
+   head shape, with its achieved TFLOP/s beside SDPA's) beside its bound
+   and a library call (SDPA, ``vector_norm``, ``torch.mul`` into x's
+   dtype).
 4. The main path: ``AsyncDGDServer`` with the §5 LeNet agents (n=20,
    data partitioned with overlap 2) on the device backend, for the
    mean, cge (one sign-flip agent), trimmed_mean (stale) and quantized
@@ -377,10 +383,19 @@ def decode_inputs(shape, dtype, lens=None, seed=0):
                torch.tensor(lens, dtype=torch.int32, device="cuda")])
 
 
+def split_plan(shape):
+    b, _, hkv, _, _, ps, pmax, _ = shape
+    return dattn.split_plan(b, hkv, pmax, ps, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+
+
 def check_decode_kernel():
     errs = []
     for name, shape in DECODE_SHAPES.items():
-        b, _, _, _, _, ps, pmax, _ = shape
+        b, _, hkv, _, _, ps, pmax, _ = shape
+        n_split, per = split_plan(shape)
+        log(f"  paged_flash_decode {name}: split plan {n_split} splits of "
+            f"{per} pages ({per * ps} tokens), {b * hkv * n_split} blocks")
         for dtype in (torch.float32, torch.bfloat16):
             for kind, lens in (("ragged", None),
                                ("full", np.full(b, pmax * ps))):
@@ -414,6 +429,21 @@ def check_decode_kernel():
                                      "length changed the output")
     log("  edge cases kv_len 0 (exact zeros), 1, 16, 17, 96, 500; -1 and "
         "stale entries past the length (bit-identical): ok")
+    # a 4096-token table over many splits: one token, one split exactly,
+    # one split plus a token, the whole table; and run-to-run identity
+    shape = (2, 14, 2, 64, 64, 16, 256, 2 * 256 + 1)
+    n_split, per = split_plan(shape)
+    for dtype in (torch.float32, torch.bfloat16):
+        for lens in ([1, per * 16], [per * 16 + 1, 4096]):
+            args = decode_inputs(shape, dtype, np.array(lens), seed=5)
+            out = dattn.paged_flash_decode(*args)
+            check(f"paged_flash_decode long {dtype} {lens}", out,
+                  dattn.paged_decode_plain(*args), DECODE_TOL[dtype], errs)
+            if not torch.equal(dattn.paged_flash_decode(*args), out):
+                raise AssertionError("paged_flash_decode differs run to run")
+    log(f"  long context (Pmax = 256, {n_split} splits of {per} pages): "
+        f"lengths 1, {per * 16}, {per * 16 + 1}, 4096 within the limits, "
+        "run to run identical: ok")
     torch.cuda.synchronize()
     return max(errs)
 
@@ -439,6 +469,7 @@ def time_decode_kernel(mem_rate: float, f32_rate: float):
     tokens' scores and weighted values."""
     shape = DECODE_SHAPES["qwen2-0.5b"]
     b, h, hkv, d, dv, ps, pmax, _ = shape
+    n_split, per = split_plan(shape)
     lens = np.random.default_rng(1).integers(64, 577, size=b)
     args = decode_inputs(shape, torch.bfloat16, lens, seed=1)
     q, k, v, tbl, ln = args
@@ -458,10 +489,14 @@ def time_decode_kernel(mem_rate: float, f32_rate: float):
         f"{warm*1e3:6.2f})  plain {r['plain_ms']*1e3:7.2f} us  library "
         f"{r['library_ms']*1e3:7.2f} us  bound {r['bound_ms']*1e3:5.2f} us "
         f"({r['bound_by']}, {nbytes/1e6:.2f} MB at {mem_rate/1e12:.2f} TB/s;"
-        f" lens {lens.tolist()})")
+        f" lens {lens.tolist()}; {n_split} splits of {per} pages)")
+    log(f"      kernel {r['ms'] / r['library_ms']:.2f}x the gather + SDPA "
+        "composite's time")
     for kname, us in device_times(
             lambda: dattn.paged_flash_decode(*args)).items():
         log(f"      {kname:40s} {us:6.2f} us on the device (L2 warm)")
+    log("      (the combine starts during the split kernel and waits for "
+        "it: its span includes the wait)")
     return r
 
 
@@ -572,9 +607,10 @@ def time_new_kernels(mem_rate, f32_rate, bf16_rate):
         log_row("flash_attention", r, f"{label} {shape} bf16 causal, "
                 f"{nops / 1e9:.2f} GFLOP at {bf16_rate / 1e12:.0f} TFLOP/s, "
                 f"{nbytes / 1e6:.1f} MB", kern)
-        log(f"      achieved {nops / r['ms'] / 1e9:.2f} TFLOP/s; at the f32 "
-            f"rate ({f32_rate / 1e12:.0f} TFLOP/s) the bound would be "
-            f"{nops / f32_rate * 1e6:.1f} us")
+        log(f"      achieved {nops / r['ms'] / 1e9:.2f} TFLOP/s on the tensor "
+            f"cores, SDPA {nops / r['library_ms'] / 1e9:.2f} TFLOP/s; kernel "
+            f"{r['ms'] / r['library_ms']:.2f}x SDPA's time, "
+            f"{r['ms'] / r['bound_ms']:.2f}x its bound")
         if label == "qwen2-0.5b":
             rows["flash_attention"] = r
         del q, k, v
@@ -763,6 +799,8 @@ def where_time_goes(data, iters: int = 3):
 
 
 SERVE_ARCH = "qwen2-0.5b"
+# the decode's two CUDA kernels (split partials, combine) share this prefix
+DECODE_KERNEL = "paged_decode_"
 SERVE_CCFG = PagedCacheConfig(num_slots=8, page_size=16, max_pages_per_seq=48,
                               num_pages=8 * 48 + 1)
 # teacher-forced decode logits, kernel against plain form, both bf16: the
@@ -932,6 +970,13 @@ def busy_us(spans):
     return busy
 
 
+def decode_spans(spans):
+    """The decode's device spans. The combine kernel is a programmatic
+    dependent launch: it starts during the split kernel and waits there,
+    so the two overlap and their time is the union of their spans."""
+    return [sp for sp in spans if DECODE_KERNEL in sp[2]]
+
+
 def kernel_share(params, cfg, reqs):
     """The decode kernel's share of device busy time over a replay of
     the phase-6 workload (device activities only)."""
@@ -939,8 +984,7 @@ def kernel_share(params, cfg, reqs):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_engine(params, cfg, reqs, 8)
     spans = device_spans(prof)
-    mine = sum(b - a for a, b, nm in spans if "paged_decode_kernel" in nm)
-    return mine / busy_us(spans)
+    return busy_us(decode_spans(spans)) / busy_us(spans)
 
 
 def where_serving_time_goes(params, steps: int = 3):
@@ -966,7 +1010,7 @@ def where_serving_time_goes(params, steps: int = 3):
     n_dec = eng.stats["decode_steps"] - k0
     spans = device_spans(prof)
     busy = busy_us(spans) / 1e3
-    mine = sum(b - a for a, b, nm in spans if "paged_decode_kernel" in nm)
+    mine = busy_us(decode_spans(spans))
     log(f"  {steps} supersteps ({n_dec} decode steps) under the profiler: "
         f"{wall / n_dec:.2f} ms per decode step on the host clock, device "
         f"busy {busy / n_dec:.3f} ms per decode step (idle share "
@@ -1163,6 +1207,9 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("  " + line.strip())
+    log("  flash_wgmma_kernel dynamic shared memory per block: " + ", ".join(
+        f"D = Dv = {d}: {fattn.wgmma_smem_bytes(d, d)} B"
+        for d in (64, 128, 192, 256)))
 
     log("== 3. kernels vs plain forms")
     errs = check_kernels()

@@ -2,8 +2,9 @@
 // sequence, grouped-query attention. Replaces the Pallas TPU kernel
 // src/repro/kernels/decode_attention.py:paged_flash_decode (its _kernel).
 // Plain C entry point, bound from Python with ctypes
-// (repro_torch/kernels/decode_attention.py); it launches one kernel on the
-// caller's stream and returns cudaGetLastError().
+// (repro_torch/kernels/decode_attention.py); it launches two kernels on
+// the caller's stream and returns the first cudaGetLastError() that is
+// not cudaSuccess.
 //
 // Contract (decode_attention.py:154-220): q (B, H, D), k_pages
 // (N, PS, Hkv, D), v_pages (N, PS, Hkv, Dv), page_table (B, Pmax) int32,
@@ -21,29 +22,44 @@
 // tokens, Hkv = 2, D = 64, bf16) one call reads about a megabyte of K/V,
 // well under a microsecond at 3.35 TB/s, so a call is bound by the
 // latency of its dependent loads (table -> K rows -> V rows) and by the
-// launch, not by bytes. The design keeps it simple and keeps many loads
-// in flight per thread:
-// - one block per (sequence, KV head): the G query rows of the group sit
-//   in shared memory as f32 and are broadcast to every thread;
-// - the sequence is walked in tiles of kThreads tokens regardless of the
+// launches, not by bytes. With one block per (sequence, KV head), 16
+// blocks walked up to 551 tokens each in serial 128-token tiles on 132
+// SMs. Split-K puts many short walks in flight at once:
+// - pass 1, paged_decode_split_kernel, grid (B, Hkv, n_split): each
+//   block takes a fixed, contiguous run of `pages_per_split` pages and
+//   writes f32 partials m (G), l (G) and the unnormalised acc (G, Dv) of
+//   its tokens to scratch the wrapper allocates. A split that starts at
+//   or past the length writes m = -1e30, l = 0, acc = 0 and reads no K
+//   or V. n_split and pages_per_split come from the shapes alone
+//   (decode_attention.py split_plan: B, Hkv, Pmax, PS and the SM count),
+//   never from kv_lens or the table, which live on the card;
+// - pass 2, paged_decode_combine_kernel, grid (B, H): merges the
+//   splits in split order, m* = max m_i, out = sum exp(m_i - m*) acc_i /
+//   max(sum exp(m_i - m*) l_i, 1e-30), cast to q's dtype. No atomics
+//   anywhere, so the output is the same bits on every run. It is
+//   launched as a programmatic dependent of pass 1 (griddepcontrol), so
+//   its launch overlaps pass 1's tail and its blocks wait for pass 1's
+//   writes.
+// Inside a split block, many loads stay in flight per thread:
+// - the G query rows of the group sit in shared memory as f32 and are
+//   broadcast to every thread;
+// - the split is walked in tiles of kThreads tokens regardless of the
 //   page size (PS = 8 .. 128 alike): thread t owns token j0 + t, looks up
 //   its page in the table, reads its K row with 16-byte loads and scores
 //   it against all G query rows, keeping G partial sums in registers (no
 //   lane layout assumes G divides 32: G = 7 and 6 are common);
 // - one warp per query row turns the tile's scores into probabilities
 //   with the online-softmax update (running max m, sum l, correction
-//   exp(m_prev - m_new)), with tokens past the length re-masked to 0;
+//   exp(m_prev - m_new)), with tokens past the split re-masked to 0;
 // - for P @ V, Dv / 8 neighbouring threads cover one V row with 16-byte
 //   loads and the block covers kThreads * 8 / Dv tokens at once; each
 //   thread walks its tokens of the tile a few at a time (loads issued
 //   before the multiply-adds) and keeps (G, 8) f32 accumulators in
-//   registers across the whole walk, so the block holds partial sums
-//   over disjoint token sets, which one pass through shared memory adds
-//   up at the end.
+//   registers, so the block holds partial sums over disjoint token sets,
+//   which one pass through shared memory adds up at the end, all G rows
+//   at once.
 // One build covers G <= 8 and D, Dv <= 128, every ported config (G in
-// {1, 6, 7, 8}, head_dim 64 or 128); the wrapper refuses more. Split-K
-// over long contexts (more blocks than B * Hkv), cp.async/TMA prefetch of
-// the next tile and wgmma are left for later work.
+// {1, 6, 7, 8}, head_dim 64 or 128); the wrapper refuses more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +74,7 @@ constexpr int kMaxG = 8;             // query heads / KV head (wrapper checks)
 constexpr int kMaxD = 128;           // D and Dv (wrapper checks)
 constexpr int kVec = 8;              // elements per 16-byte bf16 load
 constexpr int kUnroll = 4;           // V rows in flight per thread
+constexpr int kKChunks = 8;          // 16-byte K loads in flight per thread
 constexpr float kNegInf = -1e30f;    // decode_attention.py NEG_INF
 
 __device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
@@ -79,10 +96,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
   }
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -101,19 +114,27 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Pass 1: one block per (sequence, KV head, split) walks the split's
+// tokens and writes its partial m, l and unnormalised acc (G, Dv) to
+// `part` (one record of G (Dv + 2) floats per block: m[G], l[G],
+// acc[G][Dv]).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ tbl,
-                    const int* __restrict__ lens, T* __restrict__ out,
-                    int H, int Hkv, int D, int Dv, int N, int PS, int Pmax,
-                    float scale) {
+paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                          const T* __restrict__ vp,
+                          const int* __restrict__ tbl,
+                          const int* __restrict__ lens,
+                          float* __restrict__ part, int H, int Hkv, int D,
+                          int Dv, int N, int PS, int Pmax,
+                          int pages_per_split, float scale) {
   __shared__ __align__(16) float q_s[kMaxG * kMaxD];
   __shared__ float p_s[kMaxG][kThreads];    // scores, then probabilities
   __shared__ long long row_s[kThreads];    // KV row of each tile token
-  __shared__ float red_s[kThreads * kVec]; // partial sums of one row
+  __shared__ __align__(16) float red_s[kMaxG][kThreads * kVec];  // partials
   __shared__ float m_s[kMaxG], l_s[kMaxG], corr_s[kMaxG];
 
+  // the combine kernel may be scheduled now; it waits for this grid
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int G = H / Hkv;
@@ -127,13 +148,29 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int my_col = (tid % cpr) * kVec;
   const bool pv = my_row < rpar;
 
+  const int len = max(min(lens[b], Pmax * PS), 0);
+  const int split = blockIdx.z;
+  const int j_begin = split * pages_per_split * PS;
+  const int j_end = min(len, j_begin + pages_per_split * PS);
+  float* rec = part + (((long long)b * Hkv + kvh) * gridDim.z + split) *
+                          (long long)(G * (Dv + 2));
+  if (j_begin >= j_end) {          // past the length: an empty partial
+    for (int i = tid; i < G * (Dv + 2); i += kThreads)
+      rec[i] = i < G ? kNegInf : 0.f;
+    return;
+  }
+
   const T* qb = q + ((long long)b * H + (long long)kvh * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) q_s[i] = to_f32(qb[i]);
+  for (int i = tid; i < G * D / kVec; i += kThreads) {
+    float x[kVec];
+    load8(qb + i * kVec, x);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) q_s[i * kVec + e] = x[e];
+  }
   if (tid < G) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
-  const int len = max(min(lens[b], Pmax * PS), 0);
   const int* tb = tbl + (long long)b * Pmax;
 
   float acc[kMaxG][kVec];
@@ -143,8 +180,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
   __syncthreads();
 
-  for (int j0 = 0; j0 < len; j0 += kThreads) {
-    const int ntok = min(kThreads, len - j0);
+  for (int j0 = j_begin; j0 < j_end; j0 += kThreads) {
+    const int ntok = min(kThreads, j_end - j0);
 
     // 1. scores of token j0 + tid against the G query rows
     if (tid < ntok) {
@@ -156,23 +193,32 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       float s[kMaxG];
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
-      for (int d = 0; d < D; d += 8) {
-        float kv[8];
-        load8(kr + d, kv);
+      // kKChunks 16-byte loads of the row in flight before their
+      // multiply-adds (all of a 64-wide bf16 row)
+      for (int d0 = 0; d0 < D; d0 += kKChunks * kVec) {
+        float kv[kKChunks][kVec];
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) {
-          if (g < G) {
-            const float4* q4 =
-                reinterpret_cast<const float4*>(q_s + g * D + d);
-            const float4 a = q4[0], c = q4[1];
-            s[g] = fmaf(a.x, kv[0], s[g]);
-            s[g] = fmaf(a.y, kv[1], s[g]);
-            s[g] = fmaf(a.z, kv[2], s[g]);
-            s[g] = fmaf(a.w, kv[3], s[g]);
-            s[g] = fmaf(c.x, kv[4], s[g]);
-            s[g] = fmaf(c.y, kv[5], s[g]);
-            s[g] = fmaf(c.z, kv[6], s[g]);
-            s[g] = fmaf(c.w, kv[7], s[g]);
+        for (int u = 0; u < kKChunks; ++u)
+          if (d0 + u * kVec < D) load8(kr + d0 + u * kVec, kv[u]);
+#pragma unroll
+        for (int u = 0; u < kKChunks; ++u) {
+          const int d = d0 + u * kVec;
+          if (d >= D) break;
+#pragma unroll
+          for (int g = 0; g < kMaxG; ++g) {
+            if (g < G) {
+              const float4* q4 =
+                  reinterpret_cast<const float4*>(q_s + g * D + d);
+              const float4 a = q4[0], c = q4[1];
+              s[g] = fmaf(a.x, kv[u][0], s[g]);
+              s[g] = fmaf(a.y, kv[u][1], s[g]);
+              s[g] = fmaf(a.z, kv[u][2], s[g]);
+              s[g] = fmaf(a.w, kv[u][3], s[g]);
+              s[g] = fmaf(c.x, kv[u][4], s[g]);
+              s[g] = fmaf(c.y, kv[u][5], s[g]);
+              s[g] = fmaf(c.z, kv[u][6], s[g]);
+              s[g] = fmaf(c.w, kv[u][7], s[g]);
+            }
           }
         }
       }
@@ -246,59 +292,124 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     __syncthreads();
   }
 
-  // 4. add up the rpar partial sums of each query row and normalise
-  T* ob = out + ((long long)b * H + (long long)kvh * G) * Dv;
+  // 4. add up the rpar partial sums of each query row; write m, l and
+  //    the unnormalised rows
+  if (tid < G) {
+    rec[tid] = m_s[tid];
+    rec[G + tid] = l_s[tid];
+  }
+  if (pv) {
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < G) {
-      if (pv) {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e)
-          red_s[my_row * Dv + my_col + e] = acc[g][e];
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g < G) {
+        float4* dst =
+            reinterpret_cast<float4*>(&red_s[g][my_row * Dv + my_col]);
+        dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+        dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
       }
-      __syncthreads();
-      const float inv = 1.f / fmaxf(l_s[g], 1e-30f);
-      for (int c = tid; c < Dv; c += kThreads) {
-        float sum = 0.f;
-        for (int r = 0; r < rpar; ++r) sum += red_s[r * Dv + c];
-        store(ob + (long long)g * Dv + c, sum * inv);
-      }
-      __syncthreads();
     }
+  }
+  __syncthreads();
+  float* acc_out = rec + 2 * G;
+  for (int i = tid; i < G * Dv; i += kThreads) {
+    const int g = i / Dv;
+    const int c = i - g * Dv;
+    float sum = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < rpar; ++r) sum += red_s[g][r * Dv + c];
+    acc_out[i] = sum;
   }
 }
 
+// Pass 2: one block per (sequence, query head), one thread per output
+// column, merges the n_split records in split order: m* = max m_i,
+// out = sum exp(m_i - m*) acc_i / max(sum exp(m_i - m*) l_i, 1e-30), in
+// q's dtype. No atomics, so the result is the same bits on every run;
+// kv_len = 0 gives exact zeros (every acc_i and l_i is 0).
 template <typename T>
-void launch(const void* q, const void* k_pages, const void* v_pages,
-            const int* page_table, const int* kv_lens, void* out, int B,
-            int H, int Hkv, int D, int Dv, int N, int PS, int Pmax,
-            float scale, cudaStream_t stream) {
-  const dim3 grid(B, Hkv);
-  const T* qq = static_cast<const T*>(q);
-  const T* kk = static_cast<const T*>(k_pages);
-  const T* vv = static_cast<const T*>(v_pages);
-  T* oo = static_cast<T*>(out);
-  paged_decode_kernel<T><<<grid, kThreads, 0, stream>>>(
-      qq, kk, vv, page_table, kv_lens, oo, H, Hkv, D, Dv, N, PS, Pmax, scale);
+__global__ void __launch_bounds__(kMaxD)
+paged_decode_combine_kernel(const float* __restrict__ part,
+                            T* __restrict__ out, int H, int Hkv, int Dv,
+                            int n_split) {
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int G = H / Hkv;
+  const int kvh = h / G;
+  const int g = h - kvh * G;
+  // launched early (programmatic dependent launch): wait until the split
+  // kernel has finished and its partials are visible
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int c = threadIdx.x;
+  if (c >= Dv) return;
+  const long long rec_len = (long long)G * (Dv + 2);
+  const float* rec0 = part + ((long long)b * Hkv + kvh) * n_split * rec_len;
+  float m_star = kNegInf;
+#pragma unroll 4
+  for (int s = 0; s < n_split; ++s)
+    m_star = fmaxf(m_star, rec0[s * rec_len + g]);
+  float l = 0.f, acc = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < n_split; ++s) {
+    const float* rec = rec0 + s * rec_len;
+    const float w = expf(rec[g] - m_star);
+    l = fmaf(w, rec[G + g], l);
+    acc = fmaf(w, rec[2 * G + g * Dv + c], acc);
+  }
+  store(out + ((long long)b * H + h) * Dv + c, acc / fmaxf(l, 1e-30f));
+}
+
+template <typename T>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const int* page_table, const int* kv_lens, float* part, void* out,
+           int B, int H, int Hkv, int D, int Dv, int N, int PS, int Pmax,
+           int n_split, int pages_per_split, float scale,
+           cudaStream_t stream) {
+  paged_decode_split_kernel<T><<<dim3(B, Hkv, n_split), kThreads, 0,
+                                 stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), page_table, kv_lens, part, H, Hkv, D,
+      Dv, N, PS, Pmax, pages_per_split, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // programmatic dependent launch: the combine's launch overlaps the
+  // split kernel's tail instead of following its end
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B, H);
+  cfg.blockDim = dim3(kMaxD);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, paged_decode_combine_kernel<T>,
+                           static_cast<const float*>(part),
+                           static_cast<T*>(out), H, Hkv, Dv, n_split);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pages and out share it).
+// dtype: 0 = float32, 1 = bfloat16 (q, pages and out share it). part:
+// f32 scratch of B * Hkv * n_split * G * (Dv + 2) floats, with
+// n_split * pages_per_split >= Pmax.
 int paged_decode(const void* q, const void* k_pages, const void* v_pages,
-                 const int* page_table, const int* kv_lens, void* out, int B,
-                 int H, int Hkv, int D, int Dv, int N, int PS, int Pmax,
+                 const int* page_table, const int* kv_lens, void* part,
+                 void* out, int B, int H, int Hkv, int D, int Dv, int N,
+                 int PS, int Pmax, int n_split, int pages_per_split,
                  float scale, int dtype, cudaStream_t stream) {
-  if (dtype == 1) {
-    launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, kv_lens, out, B,
-                          H, Hkv, D, Dv, N, PS, Pmax, scale, stream);
-  } else {
-    launch<float>(q, k_pages, v_pages, page_table, kv_lens, out, B, H, Hkv,
-                  D, Dv, N, PS, Pmax, scale, stream);
-  }
-  return (int)cudaGetLastError();
+  float* p = static_cast<float*>(part);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, kv_lens, p,
+                                 out, B, H, Hkv, D, Dv, N, PS, Pmax, n_split,
+                                 pages_per_split, scale, stream);
+  return launch<float>(q, k_pages, v_pages, page_table, kv_lens, p, out, B,
+                       H, Hkv, D, Dv, N, PS, Pmax, n_split, pages_per_split,
+                       scale, stream);
 }
 
 }  // extern "C"

@@ -14,12 +14,16 @@ paged_flash_decode     decode_attention.py:paged_flash_decode     paged_decode_p
 
 The wrapper launches the kernel and raises for a tensor that is not on a
 card; ``kernels/ops.py`` decides between it and the plain form by the
-tensor's device. ``LAUNCHES`` counts kernel launches. The tensor-parallel
-``tp_paged_decode`` comes with the SPMD slice (ROADMAP Queue 1 item 9).
+tensor's device. ``LAUNCHES`` counts calls of the wrapper that launched
+the kernel: one call is two CUDA launches, the split partials and their
+combine. :func:`split_plan` decides the split from the shapes alone. The
+tensor-parallel ``tp_paged_decode`` comes with the SPMD slice (ROADMAP
+Queue 1 item 9).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,13 +32,15 @@ from repro_torch.kernels.ref import NEG_INF
 
 MAX_G = 8           # query heads per KV head (kMaxG in the kernel)
 MAX_D = 128         # head dim of q/k and of v (kMaxD in the kernel)
+SPLIT_TOKENS = 64   # fewest tokens a split walks, where Pmax allows more
+BLOCKS_PER_SM = 2   # split blocks the plan aims for on each SM
 
 LAUNCHES = {"paged_flash_decode": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "paged_decode": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _F, _I, _P]),
+    "paged_decode": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _F, _I, _P]),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -69,12 +75,41 @@ def paged_decode_plain(q, k_pages, v_pages, page_table, kv_lens):
     return torch.matmul(w, v).reshape(b, h, dv).to(q.dtype)
 
 
+def split_plan(b: int, hkv: int, pmax: int, page_size: int,
+               n_sm: int) -> tuple[int, int]:
+    """(n_split, pages_per_split) of the kernel's split-K walk: split s
+    takes pages [s * pages_per_split, (s + 1) * pages_per_split) of each
+    sequence's table, and the splits cover [0, Pmax) exactly once.
+
+    A function of the shapes and the card's SM count only, never of
+    kv_lens or the table: they live on the card, so reading them would
+    cost a sync, and the order of the sum stays the same whatever they
+    hold (stale table entries change nothing, bit for bit). It aims for
+    ``BLOCKS_PER_SM`` blocks of (sequence,
+    KV head, split) on each SM, with splits of at least ``SPLIT_TOKENS``
+    tokens (one page if a page holds more).
+    """
+    if min(b, hkv, pmax, page_size, n_sm) < 1:
+        raise ValueError(f"split_plan: B={b}, Hkv={hkv}, Pmax={pmax}, "
+                         f"PS={page_size}, SMs={n_sm} must be >= 1")
+    min_pages = -(-SPLIT_TOKENS // page_size)
+    want = -(-BLOCKS_PER_SM * n_sm // (b * hkv))
+    n_split = max(1, min(want, -(-pmax // min_pages)))
+    per = -(-pmax // n_split)
+    return -(-pmax // per), per
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrapper
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("decode_attention", _SIGNATURES)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(q, k_pages, v_pages, page_table, kv_lens) -> None:
@@ -132,16 +167,21 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, kv_lens):
     _check(q, k_pages, v_pages, page_table, kv_lens)
     b, h, d = q.shape
     n, ps, hkv, dv = v_pages.shape
+    pmax = page_table.shape[1]
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
+    n_split, per = split_plan(b, hkv, pmax, ps, _sm_count(q.device))
+    # per (sequence, KV head, split): m (G), l (G), acc (G, Dv) in f32
+    part = torch.empty(b * hkv * n_split * (h // hkv) * (dv + 2),
+                       dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().paged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            b, h, hkv, d, dv, n, ps, page_table.shape[1], d ** -0.5,
-            _DTYPE_CODE[q.dtype], stream)
+            page_table.data_ptr(), kv_lens.data_ptr(), part.data_ptr(),
+            out.data_ptr(), b, h, hkv, d, dv, n, ps, pmax, n_split, per,
+            d ** -0.5, _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError {rc}")
     LAUNCHES["paged_flash_decode"] += 1

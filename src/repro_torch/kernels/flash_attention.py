@@ -13,7 +13,10 @@ wrapper (CUDA kernel)  replaces (TPU kernel)                      plain torch fo
 flash_attention        flash_attention.py:flash_attention         flash_attention_plain
 =====================  =========================================  =====================
 
-The wrapper launches the kernel and raises for a tensor that is not on a
+The CUDA source holds two kernels behind one entry point: bf16 inputs run
+on the tensor cores (wgmma, P rounded to bf16 for P.V), f32 inputs on the
+CUDA cores (scalar f32 FMAs, which hold 2e-5 of the plain form). The
+wrapper launches the kernel and raises for a tensor that is not on a
 card; ``kernels/ops.py`` decides between it and the plain form by the
 tensor's device. ``LAUNCHES`` counts kernel launches. The wrapper takes
 any S and T (the JAX function takes S and T of at most 128 or a multiple
@@ -38,6 +41,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_attention_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                  _I, _I, _P]),
+    "flash_wgmma_smem_bytes": (_I, [_I, _I]),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -86,6 +90,13 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
 
 def _lib() -> ctypes.CDLL:
     return _build.load("flash_attention", _SIGNATURES)
+
+
+def wgmma_smem_bytes(d: int, dv: int) -> int:
+    """Dynamic shared memory of one block of the bf16 kernel for head
+    dims D and Dv (built on first use; the compiler reports only static
+    shared memory)."""
+    return _lib().flash_wgmma_smem_bytes(d, dv)
 
 
 def _check(q, k, v) -> None:

@@ -3,10 +3,13 @@ aggregation kernels at the paper's shape (n=20, P=431,080), at ragged P
 and on the edge cases; the paged flash-decode at the serving shapes of
 qwen2-0.5b, qwen2-1.5b and yi-6b, Dv != D, PS = 128 and Pmax = 1, in f32
 and bf16, with kv_len = 0, -1 table entries and page-boundary lengths;
-flash attention over the cases of ``kernels/cases.py`` (the JAX test
-shapes, ragged S = T = 100, T = 2 S under the top-left causal mask,
-Dv != D, inputs scaled x8, 4096 tokens, D = 192 and D = Dv = 256),
-causal and not, in f32 and bf16; the CGE squared norms (run to run
+the decode's split-K over a 4096-token table (lengths of one token, one
+split, one split plus one) and its run-to-run identical output; flash
+attention over the cases of ``kernels/cases.py`` (the JAX test shapes,
+ragged S = T = 100, T = 2 S under the top-left causal mask, Dv != D,
+inputs scaled x8, 4096 tokens, D = 192, D = Dv = 256, D = 72 with Dv =
+40, S > T), causal and not, in f32 and bf16, and the bf16 kernel's
+run-to-run identical output; the CGE squared norms (run to run
 identical) and masked scaling (bit for bit) over the JAX sweep and ragged
 or misaligned rows; the wrappers' launch counts and input checks; and the
 engines on the card against the same engines on the CPU. Every test here needs a GPU and
@@ -233,6 +236,37 @@ def test_paged_flash_decode_edge_cases(dtype):
 
 
 @needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_flash_decode_long_context_many_splits(dtype):
+    """A long table walked by many splits: lengths of one token, one
+    split exactly, one split plus a token, and the whole 4096-token
+    table."""
+    shape = (2, 14, 2, 64, 64, 16, 256, 2 * 256 + 1)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_split, per = tda.split_plan(2, 2, 256, 16, n_sm)
+    assert n_split > 8
+    split = per * 16
+    for lens in ([1, split], [split + 1, 4096]):
+        args = _decode_inputs(shape, dtype, np.array(lens), seed=5)
+        out = tda.paged_flash_decode(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(),
+                                   tda.paged_decode_plain(*args).float(),
+                                   **DECODE_TOL[dtype])
+
+
+@needs_cuda
+def test_paged_flash_decode_is_run_to_run_identical():
+    """The fixed-order combine: the serving shape's output is the same
+    bits on every call."""
+    args = _decode_inputs(DECODE_SHAPES["qwen2-0.5b"], torch.bfloat16,
+                          seed=2)
+    first = tda.paged_flash_decode(*args)
+    for _ in range(3):
+        assert torch.equal(tda.paged_flash_decode(*args), first)
+
+
+@needs_cuda
 def test_paged_flash_decode_validates_inputs():
     q, k, v, tbl, ln = _decode_inputs((2, 4, 2, 32, 32, 8, 2, 8),
                                       torch.float32)
@@ -356,6 +390,14 @@ def test_flash_attention_matches_plain(case, dtype):
             tfa.flash_attention_plain(q, k, v, causal=causal).float(),
             **FLASH_TOL[dtype])
     assert tfa.LAUNCHES["flash_attention"] == before + 2
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", [FLASH_CASES[8], FLASH_CASES[11]], ids=str)
+def test_flash_attention_bf16_is_run_to_run_identical(case):
+    q, k, v = _flash_inputs(case, torch.bfloat16)
+    first = tfa.flash_attention(q, k, v)
+    assert torch.equal(tfa.flash_attention(q, k, v), first)
 
 
 @needs_cuda
