@@ -14,8 +14,12 @@ Phases, each fatal on failure:
    decode's split and combine kernels).
 3. Hold each kernel against its plain torch form on the card. The
    aggregation kernels at the paper's shape (n=20 agents, P=431,080
-   LeNet parameters), at ragged P, and on the edge cases (every agent
-   crashed, m - f <= 0, exact norm ties, duplicate values); the paged
+   LeNet parameters), at ragged P, at a shape whose CGE share does not
+   fit on chip (P=1,000,003, every agent received), from a misaligned
+   base, and on the edge cases (every agent crashed, with exact zeros,
+   m - f <= 0, exact norm ties, duplicate values), each CGE and trimmed
+   mean output bit-identical on a repeated call; the plan of each shape
+   (grid, bytes held per block, columns re-read) is printed; the paged
    flash-decode at the decode shapes of qwen2-0.5b, qwen2-1.5b and yi-6b,
    Dv != D, PS = 128 and Pmax = 1, in f32 and bf16, ragged and full, and
    on kv_len = 0 (exact zeros), -1 and stale table entries and
@@ -23,7 +27,10 @@ Phases, each fatal on failure:
    splits (lengths on and past a split boundary), run to run identical;
    the split plan of each shape is printed. Then time each kernel, its
    plain form and one library call for the same function, each with a
-   cold L2, beside the least time the card could take.
+   cold L2, beside the least time the card could take, and each kernel's
+   per-launch device time with its inputs warm in L2; for scale, a
+   torch.sum over the aggregation kernels' received rows in the same
+   timing window.
    3c. Flash attention, the CGE squared norms and the masked scaling
    against their plain forms on the cases of ``kernels/cases.py``: flash
    attention on the shapes of the JAX tests, ragged S = T = 100, T = 2 S
@@ -201,23 +208,58 @@ def check(name, out, ref, tol, errs):
     return err
 
 
+def log_plans(n, p, m):
+    """The CGE and trimmed-mean kernels' plans for n agents, P columns and
+    m received rows on this card (``agg.cge_plan``, ``agg.trimmed_plan``)."""
+    sms, smem = agg.card_limits(torch.device("cuda"))
+    cp, tp = agg.cge_plan(n, p, sms, smem), agg.trimmed_plan(n, p, sms, smem)
+    held = cp.held[m]
+    widths = [min(cp.share, p - b * cp.share) for b in range(cp.grid)]
+    reread = sum(max(0, w - held) for w in widths)
+    log(f"    plan masked_cge_reduce : grid {cp.grid}, share {cp.share} "
+        f"columns, {min(held, cp.share)} held x {m} rows = "
+        f"{m * min(held, cp.share) * 4} B of rows per block "
+        f"({cp.smem_bytes} B of shared memory asked), {reread} columns "
+        "re-read")
+    log(f"    plan trimmed_mean_tiled: grid {tp.grid}, share {tp.share} "
+        f"columns in chunks of {tp.chunk}, {tp.stages} stages of {n} rows "
+        f"({tp.smem_bytes} B of shared memory), 0 columns re-read")
+
+
+def misaligned(g):
+    """g as a contiguous view one float past its storage's start: every
+    row starts off its 16-byte line."""
+    buf = torch.empty(g.numel() + 1, dtype=g.dtype, device=g.device)
+    buf[1:] = g.reshape(-1)
+    return buf[1:].view(g.shape)
+
+
 def check_kernels():
     errs = {k: [] for k in ("masked_cge_reduce", "trimmed_mean_tiled",
                             "dequant_accum")}
     shapes = [(N_AGENTS, P_LENET, N_AGENTS - 3, 1), (7, 4097, 5, 1),
               (N_AGENTS, 1_000_003, N_AGENTS, 2), (3, 1, 3, 0)]
-    for i, (n, p, m, f) in enumerate(shapes):
+    for i, (n, p, m, f) in enumerate(shapes + [shapes[0]]):
         g, rx = ledger(n, p, m, seed=i)
+        if i == len(shapes):
+            g = misaligned(g)
+        log(f"  n={n} P={p} m={m} f={f}"
+            + (", misaligned base" if i == len(shapes) else ""))
+        log_plans(n, p, m)
         q, s = gradagg.quantize_int8_parts(g)
         for k, kern, plain in (
                 ("masked_cge_reduce", agg.masked_cge_reduce,
                  agg.masked_cge_dot),
                 ("trimmed_mean_tiled", agg.trimmed_mean_tiled,
                  agg.trimmed_mean_running)):
-            e = check(f"{k} n={n} P={p} f={f}", kern(g, rx, f),
-                      plain(g, rx, f), KERNEL_TOL, errs[k])
+            out = kern(g, rx, f)
+            e = check(f"{k} n={n} P={p} f={f}", out, plain(g, rx, f),
+                      KERNEL_TOL, errs[k])
+            if not torch.equal(kern(g, rx, f), out):
+                raise AssertionError(f"{k} n={n} P={p}: not bit-identical "
+                                     "on a repeated call")
             log(f"  {k:20s} n={n:<3d} P={p:<9d} m={m:<3d} f={f} "
-                f"max_abs_err={e:.3e}")
+                f"max_abs_err={e:.3e}, run to run identical")
         e = check(f"dequant_accum n={n} P={p}",
                   agg.dequant_accum(q, s[:, 0], rx),
                   agg.dequant_dot(q, s[:, 0], rx), KERNEL_TOL,
@@ -331,6 +373,13 @@ def time_kernels(mem_rate: float, f32_rate: float):
             f"{mem_rate/1e12:.2f} TB/s)")
         for kname, us in device_times(kern).items():
             log(f"      {kname:40s} {us:6.2f} us on the device (L2 warm)")
+    # for scale, not a bound: one PyTorch reduction reading the same bytes
+    # in the same timing window, launch and ramp-up included
+    rows_rx = g[rx].contiguous()
+    log(f"  for scale: torch.sum over the same {rows_rx.numel() * 4 / 1e6:.1f}"
+        f" MB of received rows, contiguous, "
+        f"{time_ms(rows_rx.sum, flush) * 1e3:.2f} us (L2 warm "
+        f"{time_ms(rows_rx.sum) * 1e3:.2f})")
     return rows
 
 
@@ -653,7 +702,7 @@ RUNS = [  # (label, kernel, cfg overrides)
      dict(rule="trimmed_mean", mode="stale", tau=2, r=3, f=1)),
     ("quantized fresh r=3", "dequant_accum", dict(rule="quantized", r=3)),
 ]
-LAUNCHES_PER_CALL = {"masked_cge_reduce": 3, "trimmed_mean_tiled": 1,
+LAUNCHES_PER_CALL = {"masked_cge_reduce": 1, "trimmed_mean_tiled": 1,
                      "dequant_accum": 1}
 EVENT_FIELDS = ("n_rx", "max_age", "comm_time", "wall", "bytes_tx")
 
@@ -757,8 +806,8 @@ def drive_main_path(half: int):
     return counts, (sets, test, flat0)
 
 
-OUR_KERNELS = ("cge_partial_norms", "cge_keep", "masked_col_sum",
-               "trimmed_mean_kernel")
+OUR_KERNELS = ("masked_cge_kernel", "trimmed_mean_kernel",
+               "masked_col_sum")
 
 
 def where_time_goes(data, iters: int = 3):

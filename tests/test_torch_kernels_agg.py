@@ -163,3 +163,211 @@ def test_bind_device_every_rule_matches_jax_reference():
         out = treg.get_rule(name).bind_device(f=1)(tgt, trx)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL,
                                    err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' plans, and torch mirrors of the kernels that follow them
+
+H100_SMS = 132
+PLAN_SHAPES = ([(n, p) for n, p, _ in SWEEP]
+               + [(3, 1), (7, 3001), (7, 4097), (20, 431_080),
+                  (20, 1_000_003), (64, 4097), (4096, 431_080)])
+
+
+def _received_counts(n):
+    return sorted({m for m in range(min(n, 20) + 1)} | {n, n // 2, 1})
+
+
+def _check_segments(p, starts, widths, rows, strides):
+    """Every (row, segment) split as the kernels split it, for every base
+    word offset of the tensor: the bulk part 16-byte aligned in device
+    memory and in shared memory, a multiple of 16 bytes, the plain edges
+    shorter than a 16-byte line."""
+    c = np.asarray(starts)[:, None, None]
+    w = np.asarray(widths)[:, None, None]
+    r = np.asarray(rows)[None, :, None]
+    j = np.arange(len(rows))[None, :, None]
+    base = np.arange(4)[None, None, :]
+    assert (c % 4 == 0).all()           # a row's offset is the same per chunk
+    shift = tagg.row_shift(base, r, p, c)
+    head, bulk, tail = tagg.row_segments(shift, w)
+    assert (head + bulk + tail == w).all()
+    assert (head <= 3).all() and (tail <= 3).all() and (bulk % 4 == 0).all()
+    live = bulk > 0
+    assert ((base + r * p + c + head) % 4 == 0)[live].all()
+    for stride in strides:
+        assert stride % 4 == 0
+        assert ((j * stride + shift + head) % 4 == 0)[live].all()
+
+
+@pytest.mark.parametrize("n,p", PLAN_SHAPES)
+def test_cge_plan_covers_holds_and_aligns(n, p):
+    plan = tagg.cge_plan(n, p, H100_SMS)
+    assert plan.grid <= H100_SMS and plan.share % 4 == 0
+    assert plan.chunk % 4 == 0 and tagg.cge_header(n) % 16 == 0
+    assert plan.smem_bytes <= tagg.SMEM_LIMIT
+    starts = np.arange(plan.grid) * plan.share
+    widths = np.minimum(plan.share, p - starts)
+    assert (widths > 0).all() and widths.sum() == p     # [0, P) once
+    assert (starts[1:] == starts[:-1] + widths[:-1]).all()
+    rows = np.arange(0, n, max(1, n // 24))
+    for m in _received_counts(n):
+        h = plan.held[m]
+        assert h % 4 == 0 and 0 <= h <= plan.share
+        if m == 0:
+            continue
+        # the kernel's own integer arithmetic (csrc/agg.cu, hb)
+        assert min(max(0, (plan.budget // (4 * m) - 4) & ~3), plan.share) == h
+        if h:
+            assert tagg.cge_header(n) + m * (h + 4) * 4 <= plan.smem_bytes
+        cs, ws, reread = [], [], 0
+        for c0, sb in zip(starts, widths):
+            hb = min(h, sb)
+            chunks = [(c0 + k, min(plan.chunk, hb - k))
+                      for k in range(0, hb, plan.chunk)]
+            assert len(chunks) <= tagg.CGE_CHUNKS
+            held = np.concatenate([np.arange(a, a + w) for a, w in chunks]
+                                  or [np.zeros(0, int)])
+            again = np.arange(c0 + hb, c0 + sb)
+            assert np.array_equal(np.sort(np.concatenate([held, again])),
+                                  np.arange(c0, c0 + sb))
+            assert len(np.intersect1d(held, again)) == 0
+            reread += len(again)
+            cs += [a for a, _ in chunks]
+            ws += [w for _, w in chunks]
+        assert reread == sum(max(0, sb - h) for sb in widths)
+        if cs:
+            _check_segments(p, cs, ws, rows[rows < m], [h + 4])
+    if (n, p) == (20, 431_080):         # the paper's shape: read once
+        assert plan.held[17] == plan.share and plan.grid == H100_SMS
+    if (n, p) == (20, 1_000_003):       # the check shape re-reads
+        assert plan.held[20] < plan.share
+
+
+@pytest.mark.parametrize("n,p", [(n, p) for n, p in PLAN_SHAPES
+                                 if n <= tagg.TRIM_MAX_N] + [(32, 431_080)])
+def test_trimmed_plan_covers_stages_and_aligns(n, p):
+    plan = tagg.trimmed_plan(n, p, H100_SMS)
+    assert plan.grid <= H100_SMS and plan.share % 4 == 0
+    assert plan.chunk % 4 == 0 and 1 <= plan.stages <= tagg.TRIM_STAGES
+    assert plan.smem_bytes == (tagg.TRIM_HEADER
+                               + plan.stages * n * (plan.chunk + 4) * 4)
+    assert plan.smem_bytes <= tagg.SMEM_LIMIT and tagg.TRIM_HEADER % 16 == 0
+    starts = np.arange(plan.grid) * plan.share
+    widths = np.minimum(plan.share, p - starts)
+    assert (widths > 0).all() and widths.sum() == p
+    cs, ws = [], []
+    for c0, sb in zip(starts, widths):
+        cs += list(range(c0, c0 + sb, plan.chunk))
+        ws += [min(plan.chunk, c0 + sb - c) for c in cs[len(ws):]]
+    assert sum(ws) == p
+    _check_segments(p, cs, ws, np.arange(n), [plan.chunk + 4])
+    if p >= 4 * H100_SMS * 4:
+        assert plan.stages >= 2         # a chunk in flight while one is read
+
+
+def _cge_mirror(g, rx, f, n_sm):
+    """The one-launch CGE as the kernel runs it, in torch: per-share
+    partial squared norms in plan order, their sums in block order, the
+    rank keep-set, then the kept rows summed per column in agent order.
+    Returns (out, keep)."""
+    n, p = g.shape
+    plan = tagg.cge_plan(n, p, n_sm)
+    rows = torch.nonzero(rx).flatten()
+    m = len(rows)
+    keep = torch.zeros(n, dtype=torch.bool)
+    out = torch.zeros(p)
+    if m - f <= 0:
+        return out, keep
+    partial = torch.stack([(g[rows, c0:c0 + plan.share] ** 2).sum(1)
+                           for c0 in range(0, p, plan.share)], 1)
+    tot = torch.zeros(m)
+    for b in range(plan.grid):
+        tot = tot + partial[:, b]
+    key = torch.full((n,), float("inf"))
+    key[rows] = torch.sqrt(tot)
+    ids = torch.arange(n)
+    before = (key[None, :] < key[:, None]) | (
+        (key[None, :] == key[:, None]) & (ids[None, :] < ids[:, None]))
+    keep = rx & (before.sum(1) < m - f)
+    for i in torch.nonzero(keep).flatten():
+        out = out + g[i]
+    return out, keep
+
+
+def _cge_case(case):
+    g, _ = _stack(6, 1500, seed=4)
+    f = 1
+    if case == "all_crashed":
+        rx = np.zeros(6, bool)
+    elif case == "m_minus_f_nonpositive":
+        rx, f = np.array([True, True] + [False] * 4), 3
+    elif case == "ties":
+        g, rx, f = _split_tie(1500)
+    else:
+        g = np.repeat(np.array([[1.0], [1.0], [2.0], [3.0], [1.0], [2.0]],
+                               np.float32), 1500, axis=1)
+        rx = np.array([True, True, True, True, False, True])
+    return g, rx, f
+
+
+@pytest.mark.parametrize("shape", SWEEP + ["all_crashed",
+                                           "m_minus_f_nonpositive", "ties",
+                                           "duplicates"], ids=str)
+@pytest.mark.parametrize("f", [0, 1, 2])
+def test_one_launch_cge_mirror_matches_pallas_and_plain(shape, f):
+    if isinstance(shape, str):
+        g, rx, f = _cge_case(shape)
+        tile, tol = 512, dict(rtol=1e-6, atol=1e-6)
+    else:
+        n, p, tile = shape
+        g, rx = _stack(n, p, seed=f)
+        tol = TOL
+    ref = np.asarray(jagg.masked_cge_reduce(jnp.asarray(g), jnp.asarray(rx),
+                                            f, tile=tile, interpret=True))
+    tgt, trx = _t(g, rx)
+    for n_sm in (H100_SMS, 5):
+        out, keep = _cge_mirror(tgt, trx, f, n_sm)
+        np.testing.assert_allclose(out.numpy(), ref, **tol)
+        np.testing.assert_allclose(out.numpy(),
+                                   tagg.masked_cge_dot(tgt, trx, f).numpy(),
+                                   **tol)
+        if isinstance(shape, str):      # the keep-set equal, not close
+            want = tg.cge_mask_from_norms(tagg.row_norms(tgt), trx, f)
+            assert torch.equal(keep, want.to(torch.bool)), shape
+        if shape == "all_crashed":
+            assert not out.any()
+
+
+def _trimmed_mirror(g, rx, f, n_sm):
+    """The chunked trimmed mean as the kernel runs it, in torch: each
+    block's share in plan chunks, the received rows compacted in agent
+    order, their sum, f rounds of min/max extraction, the mean."""
+    n, p = g.shape
+    plan = tagg.trimmed_plan(n, p, n_sm)
+    rows = torch.nonzero(rx).flatten()
+    cnt = len(rows) - 2 * f
+    out = torch.zeros(p)
+    if cnt <= 0:
+        return out
+    for c0 in range(0, p, plan.share):
+        end = min(c0 + plan.share, p)
+        for c in range(c0, end, plan.chunk):
+            x = g[rows, c:min(c + plan.chunk, end)]
+            ssum = torch.zeros(x.shape[1])
+            for row in x:
+                ssum = ssum + row
+            out[c:c + x.shape[1]] = (ssum - tagg._running_cut(x, x, f)) / cnt
+    return out
+
+
+@pytest.mark.parametrize("n,p,tile", SWEEP)
+@pytest.mark.parametrize("f", [0, 1, 2])
+def test_chunked_trimmed_mirror_matches_pallas(n, p, tile, f):
+    g, rx = _stack(n, p, seed=10 + f)
+    ref = np.asarray(jagg.trimmed_mean_tiled(jnp.asarray(g), jnp.asarray(rx),
+                                             f, tile=tile, interpret=True))
+    tgt, trx = _t(g, rx)
+    for n_sm in (H100_SMS, 3):
+        np.testing.assert_allclose(_trimmed_mirror(tgt, trx, f, n_sm).numpy(),
+                                   ref, **TOL)

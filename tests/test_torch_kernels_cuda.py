@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain torch forms on the card: the
-aggregation kernels at the paper's shape (n=20, P=431,080), at ragged P
-and on the edge cases; the paged flash-decode at the serving shapes of
-qwen2-0.5b, qwen2-1.5b and yi-6b, Dv != D, PS = 128 and Pmax = 1, in f32
+aggregation kernels at the paper's shape (n=20, P=431,080), at ragged P,
+at the shape whose CGE share does not fit on chip (n=20, P=1,000,003,
+every row received), from a misaligned base, with 4096 agents (CGE), on
+the edge cases (exact zeros where every agent crashed) and run to run
+bit-identical; the
+paged flash-decode at the serving shapes of qwen2-0.5b, qwen2-1.5b and yi-6b, Dv != D, PS = 128 and Pmax = 1, in f32
 and bf16, with kv_len = 0, -1 table entries and page-boundary lengths;
 the decode's split-K over a 4096-token table (lengths of one token, one
 split, one split plus one) and its run-to-run identical output; flash
@@ -52,10 +55,13 @@ def _t(*arrays, device="cpu"):
 
 
 @needs_cuda
-@pytest.mark.parametrize("n,p", [(20, 431_080), (7, 4097), (3, 1)])
+@pytest.mark.parametrize("n,p", [(20, 431_080), (7, 4097), (3, 1),
+                                 (20, 1_000_003)])
 @pytest.mark.parametrize("f", [0, 1, 2])
 def test_cuda_kernels_match_plain(n, p, f):
     g, rx = _stack(n, p, seed=n + f)
+    if p == 1_000_003:      # m = 20: a CGE share re-reads what it can't hold
+        rx[:] = True
     tgt, trx = _t(g, rx, device="cuda")
     before = dict(tagg.LAUNCHES)
     for kernel, plain in ((tagg.masked_cge_reduce, tagg.masked_cge_dot),
@@ -70,7 +76,7 @@ def test_cuda_kernels_match_plain(n, p, f):
         tagg.dequant_dot(q, s[:, 0], trx).cpu().numpy(), **CUDA_TOL)
     torch.cuda.synchronize()
     assert tagg.LAUNCHES["masked_cge_reduce"] == \
-        before["masked_cge_reduce"] + 3
+        before["masked_cge_reduce"] + 1
     assert tagg.LAUNCHES["trimmed_mean_tiled"] == \
         before["trimmed_mean_tiled"] + 1
     assert tagg.LAUNCHES["dequant_accum"] == before["dequant_accum"] + 1
@@ -105,10 +111,65 @@ def test_cuda_kernels_edge_cases(case):
     for kernel, plain in ((tagg.masked_cge_reduce, tagg.masked_cge_dot),
                           (tagg.trimmed_mean_tiled,
                            tagg.trimmed_mean_running)):
-        np.testing.assert_allclose(kernel(tgt, trx, f).cpu().numpy(),
+        out = kernel(tgt, trx, f)
+        np.testing.assert_allclose(out.cpu().numpy(),
                                    plain(tgt, trx, f).cpu().numpy(),
                                    rtol=1e-6, atol=1e-6,
                                    err_msg=kernel.__name__)
+        if case == "all_crashed":
+            assert not out.any(), kernel.__name__
+
+
+@needs_cuda
+@pytest.mark.parametrize("p", [431_080, 4097])
+def test_cuda_kernels_misaligned_base(p):
+    """A contiguous (n, P) view one float past its storage's start: every
+    row starts off its 16-byte line, so each row's edges go by plain
+    loads around its bulk copy."""
+    g, rx = _stack(20, p, seed=9)
+    buf = torch.empty(20 * p + 1, device="cuda")
+    buf[1:] = torch.from_numpy(g).reshape(-1).cuda()
+    tgt = buf[1:].view(20, p)
+    assert tgt.is_contiguous() and tgt.data_ptr() % 16 == 4
+    trx = torch.from_numpy(rx).cuda()
+    for kernel, plain in ((tagg.masked_cge_reduce, tagg.masked_cge_dot),
+                          (tagg.trimmed_mean_tiled,
+                           tagg.trimmed_mean_running)):
+        np.testing.assert_allclose(kernel(tgt, trx, 1).cpu().numpy(),
+                                   plain(tgt, trx, 1).cpu().numpy(),
+                                   **CUDA_TOL, err_msg=kernel.__name__)
+
+
+@needs_cuda
+def test_cuda_cge_many_agents():
+    """n = MAX_N agents: a share holds a few columns of each received row
+    and re-reads the rest; the keep-set is ranked over every agent."""
+    n = tagg.MAX_N
+    g, rx = _stack(n, 20_000, seed=5)
+    tgt, trx = _t(g, rx, device="cuda")
+    m = int(rx.sum())
+    plan = tagg.cge_plan(n, 20_000, *tagg.card_limits(tgt.device))
+    assert plan.held[m] < plan.share
+    out = tagg.masked_cge_reduce(tgt, trx, 100).cpu().double()
+    # against an f64 sum over the plain form's keep-set: a sum of m f32
+    # terms in any order is off by about sqrt(m) roundings of sum |g|
+    # (16x margin); a row kept or dropped wrongly moves a column by |g|
+    keep = tg.cge_mask_from_norms(tagg.row_norms(tgt), trx, 100).cpu()
+    g64 = torch.from_numpy(g).double()
+    ref = keep.double() @ g64
+    tol = 16 * m ** 0.5 * 2.0 ** -24 * (keep.double() @ g64.abs())
+    assert ((out - ref).abs() <= tol).all()
+
+
+@needs_cuda
+@pytest.mark.parametrize("n,p", [(20, 431_080), (20, 1_000_003)])
+def test_cuda_agg_kernels_are_run_to_run_identical(n, p):
+    g, rx = _stack(n, p, seed=3)
+    tgt, trx = _t(g, rx, device="cuda")
+    for kernel in (tagg.masked_cge_reduce, tagg.trimmed_mean_tiled):
+        first = kernel(tgt, trx, 1)
+        for _ in range(3):
+            assert torch.equal(kernel(tgt, trx, 1), first), kernel.__name__
 
 
 @needs_cuda
