@@ -15,11 +15,13 @@ Phases, each fatal on failure:
 3. Hold each kernel against its plain torch form on the card. The
    aggregation kernels at the paper's shape (n=20 agents, P=431,080
    LeNet parameters), at ragged P, at a shape whose CGE share does not
-   fit on chip (P=1,000,003, every agent received), from a misaligned
-   base, and on the edge cases (every agent crashed, with exact zeros,
-   m - f <= 0, exact norm ties, duplicate values), each CGE and trimmed
-   mean output bit-identical on a repeated call; the plan of each shape
-   (grid, bytes held per block, columns re-read) is printed; the paged
+   fit on chip (P=1,000,003, every agent received), with 64 agents (f=2)
+   and with 4097 (held to f64 references, thousands of rows per sum),
+   from a misaligned base (the int8 payload 1 and 8 bytes off too), and
+   on the edge cases (every agent crashed, with exact zeros, m - f <= 0,
+   exact norm ties, duplicate values), each output bit-identical on a
+   repeated call; the plan of each shape (grid, bytes held per block,
+   columns re-read, the dequant's load width) is printed; the paged
    flash-decode at the decode shapes of qwen2-0.5b, qwen2-1.5b and yi-6b,
    Dv != D, PS = 128 and Pmax = 1, in f32 and bf16, ragged and full, and
    on kv_len = 0 (exact zeros), -1 and stale table entries and
@@ -30,7 +32,8 @@ Phases, each fatal on failure:
    cold L2, beside the least time the card could take, and each kernel's
    per-launch device time with its inputs warm in L2; for scale, a
    torch.sum over the aggregation kernels' received rows in the same
-   timing window.
+   timing window; and the aggregation kernels with 4097 and 16,384
+   agents (P = 20,000), cold, beside their bounds.
    3c. Flash attention, the CGE squared norms and the masked scaling
    against their plain forms on the cases of ``kernels/cases.py``: flash
    attention on the shapes of the JAX tests, ragged S = T = 100, T = 2 S
@@ -50,7 +53,9 @@ Phases, each fatal on failure:
    pipeline (the reference rule op by op) on the card, and replay
    snapshot -> restore -> run bit for bit.
 5. Where the time goes: a few cge iterations under torch.profiler (host
-   ms per iteration, device busy time and idle share, copies, kernels).
+   ms per iteration, device busy time and idle share, copies, kernels),
+   then a few quantized iterations: device us per iteration of the int8
+   quantization's PyTorch operations beside ``dequant_accum``'s.
 6. The serving path: ``ServeEngine`` at the full width of qwen2-0.5b
    (24 layers, d=896, 14 query heads over 2 KV heads, vocab 151,936,
    bf16, weights from seed 0) serves 24 requests (prompts of 64-512
@@ -208,11 +213,13 @@ def check(name, out, ref, tol, errs):
     return err
 
 
-def log_plans(n, p, m):
-    """The CGE and trimmed-mean kernels' plans for n agents, P columns and
-    m received rows on this card (``agg.cge_plan``, ``agg.trimmed_plan``)."""
+def log_plans(n, p, m, q):
+    """The aggregation kernels' plans for n agents, P columns, m received
+    rows and the int8 payload ``q`` on this card (``agg.cge_plan``,
+    ``agg.trimmed_plan``, ``agg.dequant_plan``)."""
     sms, smem = agg.card_limits(torch.device("cuda"))
     cp, tp = agg.cge_plan(n, p, sms, smem), agg.trimmed_plan(n, p, sms, smem)
+    dp = agg.dequant_plan(n, p, q.data_ptr() % 16, sms)
     held = cp.held[m]
     widths = [min(cp.share, p - b * cp.share) for b in range(cp.grid)]
     reread = sum(max(0, w - held) for w in widths)
@@ -220,52 +227,104 @@ def log_plans(n, p, m):
         f"columns, {min(held, cp.share)} held x {m} rows = "
         f"{m * min(held, cp.share) * 4} B of rows per block "
         f"({cp.smem_bytes} B of shared memory asked), {reread} columns "
-        "re-read")
+        "re-read" + (", per-agent lists in a device workspace"
+                     if cp.workspace else ""))
+    ring = (f"{tp.stages} stages of {n} rows ({tp.smem_bytes} B of shared "
+            "memory)" if tp.stages else "no ring: rows read from device "
+            "memory in agent order")
     log(f"    plan trimmed_mean_tiled: grid {tp.grid}, share {tp.share} "
-        f"columns in chunks of {tp.chunk}, {tp.stages} stages of {n} rows "
-        f"({tp.smem_bytes} B of shared memory), 0 columns re-read")
+        f"columns in chunks of {tp.chunk}, {ring}, 0 columns re-read")
+    log(f"    plan dequant_accum     : base {q.data_ptr() % 16} mod 16, "
+        f"{dp.vec}-byte loads, {dp.cols} columns a thread, grid {dp.grid} x "
+        f"{agg.DQ_THREADS} threads, share {dp.share} columns, the mask "
+        f"walked in {-(-n // agg.DQ_THREADS)} batch(es) per block")
 
 
-def misaligned(g):
-    """g as a contiguous view one float past its storage's start: every
-    row starts off its 16-byte line."""
-    buf = torch.empty(g.numel() + 1, dtype=g.dtype, device=g.device)
-    buf[1:] = g.reshape(-1)
-    return buf[1:].view(g.shape)
+def misaligned(g, elems=1):
+    """g as a contiguous view ``elems`` elements past its storage's start:
+    with one float, every row starts off its 16-byte line."""
+    buf = torch.empty(g.numel() + elems, dtype=g.dtype, device=g.device)
+    buf[elems:] = g.reshape(-1)
+    return buf[elems:].view(g.shape)
+
+
+def f64_references(g, rx, f, q, s):
+    """For thousands of received rows: each kernel's f64 reference and the
+    bound on its f32 error. A sum of m f32 terms in any order is off by
+    about sqrt(m) roundings of the sum of their magnitudes (16x margin);
+    a row kept or dropped wrongly moves a column by a whole |g|."""
+    m = int(rx.sum())
+
+    def bound(w, x):
+        return 16 * m ** 0.5 * 2.0 ** -24 * (w.abs() @ x.abs())
+
+    g64 = g.double()
+    keep = gradagg.cge_mask_from_norms(agg.row_norms(g), rx, f).double()
+    rows = g64[rx]
+    cnt = m - 2 * f
+    srt = torch.sort(rows, dim=0).values
+    ones = torch.ones(m, dtype=torch.float64, device=g.device)
+    w = (s * rx).double()
+    q64 = q.double()
+    return {"masked_cge_reduce": (keep @ g64, bound(keep, g64)),
+            "trimmed_mean_tiled": (srt[f:m - f].sum(0) / cnt,
+                                   bound(ones, rows) / cnt),
+            "dequant_accum": (w @ q64, bound(w, q64))}
+
+
+def check_f64(name, out, ref, bound):
+    """Returns the largest error relative to its bound; raises above 1."""
+    out = out.double()
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: bad output {tuple(out.shape)}")
+    worst = float(((out - ref).abs() / bound.clamp(min=1e-300)).max())
+    if worst > 1:
+        raise AssertionError(f"{name}: {worst:.2f}x its f64 error bound")
+    return worst
 
 
 def check_kernels():
     errs = {k: [] for k in ("masked_cge_reduce", "trimmed_mean_tiled",
                             "dequant_accum")}
     shapes = [(N_AGENTS, P_LENET, N_AGENTS - 3, 1), (7, 4097, 5, 1),
-              (N_AGENTS, 1_000_003, N_AGENTS, 2), (3, 1, 3, 0)]
+              (N_AGENTS, 1_000_003, N_AGENTS, 2), (3, 1, 3, 0),
+              (64, P_LENET, 45, 2), (4097, 20_000, 2868, 1)]
     for i, (n, p, m, f) in enumerate(shapes + [shapes[0]]):
         g, rx = ledger(n, p, m, seed=i)
-        if i == len(shapes):
+        mis = i == len(shapes)
+        if mis:
             g = misaligned(g)
-        log(f"  n={n} P={p} m={m} f={f}"
-            + (", misaligned base" if i == len(shapes) else ""))
-        log_plans(n, p, m)
+        log(f"  n={n} P={p} m={m} f={f}" + (", misaligned base" if mis
+                                           else ""))
         q, s = gradagg.quantize_int8_parts(g)
-        for k, kern, plain in (
+        s = s[:, 0].contiguous()
+        log_plans(n, p, m, q)
+        refs = f64_references(g, rx, f, q, s) if n > 1000 else None
+        # the payload also 1 and 8 bytes past a 16-byte line
+        payloads = [q] + ([misaligned(q, 1), misaligned(q, 8)] if mis else [])
+        for k, kern, plain, args in (
                 ("masked_cge_reduce", agg.masked_cge_reduce,
-                 agg.masked_cge_dot),
+                 agg.masked_cge_dot, [(g, rx, f)]),
                 ("trimmed_mean_tiled", agg.trimmed_mean_tiled,
-                 agg.trimmed_mean_running)):
-            out = kern(g, rx, f)
-            e = check(f"{k} n={n} P={p} f={f}", out, plain(g, rx, f),
-                      KERNEL_TOL, errs[k])
-            if not torch.equal(kern(g, rx, f), out):
-                raise AssertionError(f"{k} n={n} P={p}: not bit-identical "
-                                     "on a repeated call")
-            log(f"  {k:20s} n={n:<3d} P={p:<9d} m={m:<3d} f={f} "
-                f"max_abs_err={e:.3e}, run to run identical")
-        e = check(f"dequant_accum n={n} P={p}",
-                  agg.dequant_accum(q, s[:, 0], rx),
-                  agg.dequant_dot(q, s[:, 0], rx), KERNEL_TOL,
-                  errs["dequant_accum"])
-        log(f"  {'dequant_accum':20s} n={n:<3d} P={p:<9d} m={m:<3d}     "
-            f"max_abs_err={e:.3e}")
+                 agg.trimmed_mean_running, [(g, rx, f)]),
+                ("dequant_accum", agg.dequant_accum, agg.dequant_dot,
+                 [(qq, s, rx) for qq in payloads])):
+            for a in args:
+                out = kern(*a)
+                what = f"{k} n={n} P={p} f={f}"
+                if refs is None:
+                    res = (f"max_abs_err="
+                           f"{check(what, out, plain(*a), KERNEL_TOL, errs[k]):.3e}")
+                else:
+                    res = (f"{check_f64(what, out, *refs[k]):.3f} of its f64 "
+                           "error bound")
+                if not torch.equal(kern(*a), out):
+                    raise AssertionError(f"{what}: not bit-identical on a "
+                                         "repeated call")
+                base = (f" payload base {a[0].data_ptr() % 16} mod 16"
+                        if k == "dequant_accum" else "")
+                log(f"  {k:20s} n={n:<4d} P={p:<9d} m={m:<4d} f={f} {res}, "
+                    f"run to run identical{base}")
     for case, g, rx, f in edge_cases():
         q, s = gradagg.quantize_int8_parts(g)
         for k, kern, plain in (
@@ -280,9 +339,17 @@ def check_kernels():
               errs["dequant_accum"])
         if case == "all_crashed":
             if agg.masked_cge_reduce(g, rx, f).abs().max() != 0 or \
-                    agg.trimmed_mean_tiled(g, rx, f).abs().max() != 0:
+                    agg.trimmed_mean_tiled(g, rx, f).abs().max() != 0 or \
+                    agg.dequant_accum(q, s[:, 0], rx).abs().max() != 0:
                 raise AssertionError("all_crashed must give exact zeros")
         log(f"  edge case {case}: ok")
+    # every agent crashed at the paper's shape: the dequant writes zeros
+    g, rx = ledger(N_AGENTS, P_LENET, 0, seed=0)
+    q, s = gradagg.quantize_int8_parts(g)
+    if agg.dequant_accum(q, s[:, 0], rx).abs().max() != 0:
+        raise AssertionError("dequant_accum: all crashed must give zeros")
+    log(f"  dequant_accum n={N_AGENTS} P={P_LENET}, every agent crashed: "
+        "exact zeros")
     torch.cuda.synchronize()
     return {k: max(v) for k, v in errs.items()}
 
@@ -381,6 +448,36 @@ def time_kernels(mem_rate: float, f32_rate: float):
         f"{time_ms(rows_rx.sum, flush) * 1e3:.2f} us (L2 warm "
         f"{time_ms(rows_rx.sum) * 1e3:.2f})")
     return rows
+
+
+def time_many_agents(mem_rate: float):
+    """Cold times of the aggregation kernels past the shared-memory sizes,
+    written down, not tuned: n = 4097 (CGE lists on chip beside 8 held
+    columns, the trimmed mean through one stage of 8 columns, the mask
+    walked in 33 batches) and n = 16,384 (CGE lists in a device workspace
+    and no held column, the trimmed mean reading rows from device
+    memory), P = 20,000, about 70% of the agents received, f = 1."""
+    flush = torch.zeros(64 * 2**20, dtype=torch.float32, device="cuda")
+    for n in (4097, 16_384):
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        p = 20_000
+        g = torch.randn((n, p), generator=gen, device="cuda")
+        rx = torch.rand(n, generator=gen, device="cuda") > 0.3
+        q, s = gradagg.quantize_int8_parts(g)
+        s = s[:, 0].contiguous()
+        m = int(rx.sum())
+        f32_bytes, i8_bytes = m * p * 4 + p * 4, m * p + p * 4
+        times = {k: time_ms(fn, flush, reps=10, warmup=1) for k, fn in (
+            ("masked_cge_reduce", lambda: agg.masked_cge_reduce(g, rx, 1)),
+            ("trimmed_mean_tiled", lambda: agg.trimmed_mean_tiled(g, rx, 1)),
+            ("dequant_accum", lambda: agg.dequant_accum(q, s, rx)))}
+        log(f"  n={n} P={p} m={m} f=1 (cold, not tuned): masked_cge_reduce "
+            f"{times['masked_cge_reduce'] * 1e3:.2f} us, trimmed_mean_tiled "
+            f"{times['trimmed_mean_tiled'] * 1e3:.2f} us (bound "
+            f"{f32_bytes / mem_rate * 1e6:.2f} us each), dequant_accum "
+            f"{times['dequant_accum'] * 1e3:.2f} us (bound "
+            f"{i8_bytes / mem_rate * 1e6:.2f} us)")
+        del g, q
 
 
 def device_times(fn, calls: int = 20):
@@ -807,7 +904,7 @@ def drive_main_path(half: int):
 
 
 OUR_KERNELS = ("masked_cge_kernel", "trimmed_mean_kernel",
-               "masked_col_sum")
+               "dequant_accum_kernel")
 
 
 def where_time_goes(data, iters: int = 3):
@@ -841,6 +938,62 @@ def where_time_goes(data, iters: int = 3):
         f"{1 - busy / wall:.3f}), copies {per(('Memcpy',)):.2f} ms, "
         f"aggregation kernels {per(OUR_KERNELS) * 1e3:.1f} us, "
         f"{len(spans) / iters:.0f} device activities per iteration")
+
+
+def kernels_under(event):
+    """The device kernels launched under a profiler CPU event."""
+    return list(event.kernels) + [k for ch in event.cpu_children
+                                  for k in kernels_under(ch)]
+
+
+def where_quantized_time_goes(data, iters: int = 3):
+    """Profile a few quantized device-backend iterations and split the
+    aggregate step: the int8 quantization (``gradagg.quantize_int8_parts``,
+    PyTorch operations over the whole (n, P) ledger, run under a
+    ``record_function`` range here) against ``dequant_accum``'s kernel,
+    device us per iteration each."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    parts = gradagg.quantize_int8_parts
+
+    def traced(x):
+        with record_function("quantize_int8_parts"):
+            return parts(x)
+
+    srv, _, _ = make_server(*data, "device", RUNS[3][2])
+    srv.run(1)
+    torch.cuda.synchronize()
+    gradagg.quantize_int8_parts = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            srv.run(iters)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / iters
+    finally:
+        gradagg.quantize_int8_parts = parts
+    quant = [k for e in prof.events() if e.name == "quantize_int8_parts"
+             and e.device_type == torch.autograd.DeviceType.CPU
+             for k in kernels_under(e)]
+    spans = [sp for sp in device_spans(prof)     # not the range's own span
+             if sp[2] != "quantize_int8_parts"]
+    deq = [b - a for a, b, nm in spans if "dequant_accum_kernel" in nm]
+    if not quant or not deq:
+        raise AssertionError(f"quantized profile: {len(quant)} quantize "
+                             f"kernels, {len(deq)} dequant launches")
+    q_us = sum(k.duration for k in quant) / iters
+    d_us = sum(deq) / iters
+    log(f"  quantized device backend under the profiler: {wall:.1f} ms/iter "
+        f"on the host clock, device busy {busy_us(spans) / 1e3 / iters:.2f} "
+        f"ms/iter; aggregate step on the device per iteration: quantize "
+        f"{q_us:.1f} us ({len(quant) / iters:.0f} kernels) vs dequant_accum "
+        f"{d_us:.1f} us ({len(deq) / iters:.0f} launch)")
+    by_name = {}
+    for k in quant:
+        n, us = by_name.get(k.name[:70], (0, 0.0))
+        by_name[k.name[:70]] = (n + 1, us + k.duration)
+    for nm, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        log(f"      {nm:70s} {n / iters:4.1f} per iter {us / iters:8.1f} us")
 
 
 # ---------------------------------------------------------------------------
@@ -1264,6 +1417,7 @@ def main() -> int:
     errs = check_kernels()
     errs["paged_flash_decode"] = check_decode_kernel()
     timing = time_kernels(mem_rate, f32_rate)
+    time_many_agents(mem_rate)
     timing["paged_flash_decode"] = time_decode_kernel(mem_rate, f32_rate)
 
     log("== 3c. flash attention and the CGE norm kernels vs plain forms")
@@ -1278,6 +1432,7 @@ def main() -> int:
 
     log("== 5. where the time goes")
     where_time_goes(data)
+    where_quantized_time_goes(data)
 
     log(f"== 6. serving path: ServeEngine, {SERVE_ARCH} at full width, bf16")
     counts["paged_flash_decode"], params, _ = drive_serving()

@@ -18,11 +18,15 @@ per call each.
 
 The CGE and trimmed-mean kernels stage the received rows of a column
 share into shared memory with bulk asynchronous copies. Their plans
-(:func:`cge_plan`, :func:`trimmed_plan`) are pure functions of the
-shapes, the card's SM count and its shared-memory limit, computed here
+(:func:`cge_plan`, :func:`trimmed_plan`, :func:`dequant_plan`) are pure
+functions of the shapes, the card's SM count and its shared-memory limit
+(and, for ``dequant_accum``, the payload's base address), computed here
 and handed to the kernels, so the plan the CPU tests check is the plan
 the card runs; :func:`row_segments` is the kernels' split of a row
 segment into plain-loaded edges and a 16-byte-aligned bulk interior.
+Every kernel takes any number of agents: where the per-agent lists or
+the rows do not fit in shared memory, the plan moves them to a device
+workspace or reads the rows straight from device memory.
 """
 from __future__ import annotations
 
@@ -37,13 +41,13 @@ from repro_torch.core.gradagg import cge_mask_from_norms
 from repro_torch.kernels import _build
 
 BIG = 1e30          # matches gradagg.BIG (received-masking sentinel)
-TRIM_MAX_N = 32     # the trimmed-mean kernel holds a column in registers
-MAX_N = 4096        # the other kernels list the agents in shared memory
 SMEM_LIMIT = 232_448    # shared memory a block may ask for on an H100
-SMEM_HEADER = 64    # kHeader: a kernel's mbarriers and counters
+SMEM_HEADER = 192   # kHeader: a kernel's mbarriers, counters, warp totals
 CGE_CHUNKS = 4      # kMaxChunks: held chunks of a CGE share, one mbarrier each
+CGE_LISTS = 5       # per-agent lists of the CGE kernel: rows, off, koff, krow, key
 TRIM_STAGES = 3     # kMaxStages: the trimmed-mean ring's stages, at most
-TRIM_HEADER = SMEM_HEADER + 8 * TRIM_MAX_N  # + the rows and their offsets
+DQ_THREADS = 128    # kDqThreads: threads per block of dequant_accum
+DQ_BLOCKS_PER_SM = 4   # dequant_accum blocks an SM takes at once
 
 LAUNCHES = {"masked_cge_reduce": 0, "trimmed_mean_tiled": 0,
             "dequant_accum": 0}
@@ -52,10 +56,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "agg_smem_optin": (_I, [_I]),
     "agg_masked_cge": (_I, [_P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P,
-                            _P]),
+                            _P, _P]),
     "agg_trimmed_mean": (_I, [_P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P,
                               _P]),
-    "agg_dequant_accum": (_I, [_P, _P, _P, _I, _L, _P, _P]),
+    "agg_dequant_accum": (_I, [_P, _P, _P, _I, _L, _I, _I, _I, _P, _P]),
 }
 
 
@@ -172,13 +176,17 @@ class CgePlan:
     ``chunk`` columns (one row of a share at ``held[m] + 4`` words, the 4
     absorbing the row's offset within its 16-byte line) and reads the
     rest again from device memory for the masked sum. The kernel derives
-    ``held[m]`` from ``budget`` as this module does, once it knows m."""
+    ``held[m]`` from ``budget`` as this module does, once it knows m.
+    With ``workspace`` the per-agent lists live in a device workspace of
+    ``CGE_LISTS * n`` ints per block, not in shared memory."""
     grid: int
     share: int
     chunk: int
     budget: int           # bytes for the held rows, after the header
     held: tuple           # (n + 1,) columns held per share, by m
     smem_bytes: int       # dynamic shared memory per block, the most any m needs
+    workspace: bool       # the per-agent lists in device memory
+    header: int           # bytes before the held rows
 
 
 def cge_header(n: int) -> int:
@@ -186,7 +194,13 @@ def cge_header(n: int) -> int:
     the header, then the received rows, their offsets, the kept rows'
     offsets and indices (int) and the keys (f32) of n agents, rounded up
     to 16."""
-    return (SMEM_HEADER + 20 * n + 15) // 16 * 16
+    return (SMEM_HEADER + 4 * CGE_LISTS * n + 15) // 16 * 16
+
+
+def _held(budget: int, m: int, share: int) -> int:
+    """Columns, a multiple of 4, whose m rows of ``held + 4`` words fit in
+    ``budget`` bytes, at most ``share`` (the kernel's ``hb``)."""
+    return max(0, min(share, (budget // (4 * m) - 4) // 4 * 4))
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,18 +209,24 @@ def cge_plan(n: int, p: int, n_sm: int,
     """The CGE kernel's plan for n agents and P columns on a card of
     ``n_sm`` SMs. ``held[m]`` is the most columns, a multiple of 4, whose
     m rows fit beside the header; where that is the whole share the stack
-    is read from device memory once (m = 17 at the paper's shape)."""
+    is read from device memory once (m = 17 at the paper's shape). Where
+    the per-agent lists leave no room for 4 columns of every row (above
+    about 4,460 agents on an H100) they move to a device workspace and
+    shared memory holds rows only."""
     if min(n, p, n_sm) < 1:
         raise ValueError(f"cge_plan: n={n}, P={p}, SMs={n_sm} must be >= 1")
     share, grid = _shares(p, n_sm)
-    budget = smem_limit - cge_header(n)
-    held = [0] + [max(0, min(share, (budget // (4 * m) - 4) // 4 * 4))
+    workspace = _held(smem_limit - cge_header(n), n, 4) < 4
+    header = SMEM_HEADER if workspace else cge_header(n)
+    budget = smem_limit - header
+    held = [0] + [_held(budget, m, share)
                   for m in range(1, n + 1)]     # m = 0 reads nothing
     data = max((m * (h + 4) * 4 for m, h in enumerate(held) if h > 0),
                default=0)
     return CgePlan(grid=grid, share=share,
                    chunk=_round4(_cdiv(share, CGE_CHUNKS)), budget=budget,
-                   held=tuple(held), smem_bytes=cge_header(n) + data)
+                   held=tuple(held), smem_bytes=header + data,
+                   workspace=workspace, header=header)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,7 +234,8 @@ class TrimPlan:
     """``grid`` blocks of ``trimmed_mean_kernel``: block b walks columns
     [b * share, min((b + 1) * share, P)) in chunks of ``chunk`` columns
     through a ring of ``stages`` buffers of n rows of ``chunk + 4``
-    words."""
+    words. ``stages == 0``: no ring, the block reads the received rows of
+    its share straight from device memory, in agent order."""
     grid: int
     share: int
     chunk: int
@@ -222,23 +243,71 @@ class TrimPlan:
     smem_bytes: int
 
 
+def trimmed_header(n: int) -> int:
+    """Bytes before the ring in ``trimmed_mean_kernel``'s shared memory:
+    the header, then the received rows and their offsets (int) of n
+    agents, rounded up to 16."""
+    return (SMEM_HEADER + 8 * n + 15) // 16 * 16
+
+
 @functools.lru_cache(maxsize=None)
 def trimmed_plan(n: int, p: int, n_sm: int,
                  smem_limit: int = SMEM_LIMIT) -> TrimPlan:
     """The trimmed-mean kernel's plan: chunks of about a quarter of a
     share, at most so wide that two stages of n rows fit, and up to
-    ``TRIM_STAGES`` stages in flight."""
+    ``TRIM_STAGES`` stages in flight. Where two stages of 4 columns do
+    not fit, one stage of at least 4 columns (n = 4096: 8 columns); where
+    not even that fits (above about 5,800 agents on an H100), no ring."""
     if min(n, p, n_sm) < 1:
         raise ValueError(f"trimmed_plan: n={n}, P={p}, SMs={n_sm} must be "
                          ">= 1")
     share, grid = _shares(p, n_sm)
-    budget = smem_limit - TRIM_HEADER
-    cap = (budget // (2 * 4 * n) - 4) // 4 * 4
+    budget = smem_limit - trimmed_header(n)
+    for ring in (2, 1):
+        cap = (budget // (ring * 4 * n) - 4) // 4 * 4
+        if cap >= 4:
+            break
+    else:
+        return TrimPlan(grid=grid, share=share, chunk=share, stages=0,
+                        smem_bytes=SMEM_HEADER)
     chunk = min(_round4(_cdiv(share, 4)), cap)
     stage = n * (chunk + 4) * 4
     stages = min(TRIM_STAGES, _cdiv(share, chunk), budget // stage)
     return TrimPlan(grid=grid, share=share, chunk=chunk, stages=stages,
-                    smem_bytes=TRIM_HEADER + stages * stage)
+                    smem_bytes=trimmed_header(n) + stages * stage)
+
+
+@dataclasses.dataclass(frozen=True)
+class DequantPlan:
+    """``grid`` blocks of ``DQ_THREADS`` threads of ``dequant_accum_kernel``:
+    block b takes columns [b * share, min((b + 1) * share, P)); a thread
+    sums ``cols`` adjacent columns at a time, reading each received row's
+    bytes of them with loads of ``vec`` bytes."""
+    vec: int
+    cols: int
+    grid: int
+    share: int
+
+
+@functools.lru_cache(maxsize=None)
+def dequant_plan(n: int, p: int, base: int, n_sm: int) -> DequantPlan:
+    """The dequant kernel's plan for an (n, P) int8 payload at address
+    ``base`` (only ``base % 16`` matters): ``vec`` is the largest of 16,
+    8, 4 and 1 bytes to which every row ``base + i * P`` is aligned
+    (P = 431,080 is 8 mod 16: 8 bytes), a thread's columns are
+    ``max(vec, 4)`` (one f32 ``float4`` store or more), and
+    ``DQ_BLOCKS_PER_SM`` blocks per SM split the columns evenly, each
+    with at least a warp's worth of them."""
+    if min(n, p, n_sm) < 1:
+        raise ValueError(f"dequant_plan: n={n}, P={p}, SMs={n_sm} must be "
+                         ">= 1")
+    vec = next(v for v in (16, 8, 4, 1)
+               if base % v == 0 and (n == 1 or p % v == 0))
+    cols = max(vec, 4)
+    groups = _cdiv(p, cols)
+    grid = min(n_sm * DQ_BLOCKS_PER_SM, _cdiv(groups, 32))
+    share = cols * _cdiv(groups, grid)
+    return DequantPlan(vec=vec, cols=cols, grid=_cdiv(p, share), share=share)
 
 
 # ---------------------------------------------------------------------------
@@ -263,15 +332,13 @@ def card_limits(device: torch.device) -> tuple[int, int]:
             _lib().agg_smem_optin(idx))
 
 
-def _check_ledger(g, received, dtype, max_n: int, name: str):
+def _check_ledger(g, received, dtype, name: str):
     if g.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {g.device}")
     if g.dim() != 2 or g.dtype != dtype or not g.is_contiguous():
         raise ValueError(f"{name}: g must be a contiguous (n, P) {dtype} "
                          f"tensor, got {tuple(g.shape)} {g.dtype}")
     n = g.shape[0]
-    if not 1 <= n <= max_n:
-        raise ValueError(f"{name}: n={n} agents outside [1, {max_n}]")
     if (received.shape != (n,) or received.dtype != torch.bool
             or received.device != g.device):
         raise ValueError(f"{name}: received must be an ({n},) bool tensor "
@@ -284,21 +351,23 @@ def masked_cge_reduce(g, received, f: int):
     smallest-norm received rows (CGE filter, paper eq. (18)), in one
     cooperative launch that reads the received rows once where they fit
     on chip (:func:`cge_plan`)."""
-    rx = _check_ledger(g, received, torch.float32, MAX_N,
-                       "masked_cge_reduce")
+    rx = _check_ledger(g, received, torch.float32, "masked_cge_reduce")
     n, p = g.shape
+    if n == 0 or p == 0:                # no agent or no column: nothing to read
+        return torch.zeros(p, dtype=torch.float32, device=g.device)
     out = torch.empty(p, dtype=torch.float32, device=g.device)
-    if p == 0:
-        return out
     plan = cge_plan(n, p, *card_limits(g.device))
     partial = torch.empty(n * plan.grid, dtype=torch.float32,
                           device=g.device)
+    ws = (torch.empty(CGE_LISTS * n * plan.grid, dtype=torch.int32,
+                      device=g.device) if plan.workspace else None)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         _check(_lib().agg_masked_cge(g.data_ptr(), rx.data_ptr(), n, p,
                                      int(f), plan.grid, plan.share,
                                      plan.chunk, plan.budget,
                                      plan.smem_bytes, partial.data_ptr(),
+                                     None if ws is None else ws.data_ptr(),
                                      out.data_ptr(), stream),
                "agg_masked_cge")
         LAUNCHES["masked_cge_reduce"] += 1
@@ -309,12 +378,11 @@ def trimmed_mean_tiled(g, received, f: int):
     """g: (n, P) f32, received: (n,) bool -> (P,) f32 — per coordinate,
     drop the f largest and f smallest received values, average the rest;
     0 where m - 2f <= 0 (:func:`trimmed_plan`)."""
-    rx = _check_ledger(g, received, torch.float32, TRIM_MAX_N,
-                       "trimmed_mean_tiled")
+    rx = _check_ledger(g, received, torch.float32, "trimmed_mean_tiled")
     n, p = g.shape
+    if n == 0 or p == 0:
+        return torch.zeros(p, dtype=torch.float32, device=g.device)
     out = torch.empty(p, dtype=torch.float32, device=g.device)
-    if p == 0:
-        return out
     plan = trimmed_plan(n, p, *card_limits(g.device))
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -330,22 +398,25 @@ def trimmed_mean_tiled(g, received, f: int):
 
 def dequant_accum(q, scale, received):
     """q: (n, P) int8, scale: (n,) f32, received: (n,) bool -> (P,) f32:
-    sum over received rows of q * scale, accumulated in f32."""
-    rx = _check_ledger(q, received, torch.int8, MAX_N, "dequant_accum")
+    sum over received rows of q * scale, accumulated in f32 in agent
+    order (:func:`dequant_plan`)."""
+    rx = _check_ledger(q, received, torch.int8, "dequant_accum")
     n, p = q.shape
     if (scale.shape != (n,) or scale.dtype != torch.float32
             or scale.device != q.device):
         raise ValueError(f"dequant_accum: scale must be an ({n},) f32 "
                          f"tensor on {q.device}")
+    if n == 0 or p == 0:
+        return torch.zeros(p, dtype=torch.float32, device=q.device)
     scale = scale.contiguous()
     out = torch.empty(p, dtype=torch.float32, device=q.device)
-    if p == 0:
-        return out
+    plan = dequant_plan(n, p, q.data_ptr() % 16, card_limits(q.device)[0])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         _check(_lib().agg_dequant_accum(q.data_ptr(), scale.data_ptr(),
-                                        rx.data_ptr(), n, p, out.data_ptr(),
-                                        stream),
+                                        rx.data_ptr(), n, p, plan.vec,
+                                        plan.grid, plan.share,
+                                        out.data_ptr(), stream),
                "agg_dequant_accum")
         LAUNCHES["dequant_accum"] += 1
     return out

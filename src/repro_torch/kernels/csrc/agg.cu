@@ -15,7 +15,10 @@
 // there. One thread asks for a whole segment, so the bytes in flight do
 // not depend on registers or on how many loads a thread issues. The plan
 // (grid, column shares, chunks, what is held on chip) is computed in
-// Python (agg.py: cge_plan, trimmed_plan) and handed to the kernels.
+// Python (agg.py: cge_plan, trimmed_plan, dequant_plan) and handed to the
+// kernels. Every kernel takes any number of agents n: where its per-agent
+// lists or its rows do not fit in shared memory the plan moves the lists
+// to a device workspace (CGE) or reads the rows from device memory.
 //
 // Every sum runs in a fixed order (agent order per column; per row, fixed
 // lanes and a fixed shuffle tree): results are bit-identical run to run,
@@ -30,15 +33,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;        // threads per block of dequant_accum
-constexpr int kRowBatch = 8;         // rows whose loads are issued together
+constexpr int kDqThreads = 128;      // agg.py DQ_THREADS: a dequant_accum block
 constexpr float kBig = 1e30f;        // received-masking sentinel (agg.py BIG)
-constexpr int kTrimMaxN = 32;        // agents a trimmed-mean column holds
 constexpr int kCgeThreads = 1024;    // one block per SM, 32 warps
 constexpr int kTrimThreads = 512;
 constexpr int kTrimCols = 4;         // columns a trimmed-mean thread sums at once
-constexpr int kHeader = 64;          // agg.py SMEM_HEADER: mbarriers, counters
+constexpr int kHeader = 192;         // agg.py SMEM_HEADER: mbarriers, counters,
+                                     // 32 warp totals at byte 64
 constexpr int kMaxChunks = 4;        // agg.py CGE_CHUNKS: held chunks (mbarriers)
+constexpr int kCgeLists = 5;         // agg.py CGE_LISTS: per-agent lists of CGE
 constexpr int kMaxStages = 3;        // agg.py TRIM_STAGES: the ring's stages
 
 // rows[0..m) = the indices i < n with sel[i] != 0, ascending; returns m
@@ -61,6 +64,28 @@ __device__ int compact_rows(const T* __restrict__ sel, int n, int* rows,
   }
   __syncthreads();
   return *s_m;
+}
+
+// A block-wide step of stream compaction: the number of threads of lower
+// index in the block whose ``take`` is set; *total gets the block's count.
+// The whole block must call it; ``s_warp`` holds one int per warp, and
+// the caller puts a barrier between this call and the next.
+__device__ int block_rank(bool take, int* s_warp, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned b = __ballot_sync(0xffffffffu, take);
+  if (lane == 0) s_warp[warp] = __popc(b);
+  __syncthreads();
+  const int c = lane < (int)(blockDim.x >> 5) ? s_warp[lane] : 0;
+  int incl = c;                                 // scan of the warp totals
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  *total = __shfl_sync(0xffffffffu, incl, 31);
+  return __shfl_sync(0xffffffffu, incl - c, warp) +
+         __popc(b & ((1u << lane) - 1u));
 }
 
 // ---------------------------------------------------------------------------
@@ -210,10 +235,11 @@ __device__ __forceinline__ float warp_sum(float a) {
 //      because the launch is cooperative).
 //   C. Every block sums the m x G partials of each row in the same fixed
 //      order (8 loads a lane in flight) and takes sqrtf; rows not
-//      received keep the key +inf. Warp 0 ranks rank(i) = #{j : key_j <
-//      key_i or (key_j == key_i and j < i)} (agg.py:97-104) and lists
-//      the kept rows in agent order: every block derives the identical
-//      keep-set, and no single block serialises the card.
+//      received keep the key +inf. Thread t ranks received rows t,
+//      t + 1024, ...: rank(i) = #{j : key_j < key_i or (key_j == key_i
+//      and j < i)} over all n keys (agg.py:97-104), and a block-wide scan
+//      lists the kept rows in agent order: every block derives the
+//      identical keep-set, and no single block serialises the card.
 //   D. The block sums its kept rows per column in agent order from shared
 //      memory (16-byte loads where every kept row is aligned), then the
 //      columns it could not hold from device memory, the last read first
@@ -224,23 +250,31 @@ __device__ __forceinline__ float warp_sum(float a) {
 // the f32 norm, and two distinct squared norms can round to one norm.
 // m - f <= 0 (every agent crashed, or too few received) writes zeros
 // and reads nothing; every block decides it alike, before the barrier.
+// The five per-agent lists (rows, off, koff, krow, key) sit in shared
+// memory before the held rows, or, where they leave no room for 4
+// columns of every row (n above about 4,460), in ``ws``: kCgeLists * n
+// ints per block, and shared memory holds rows only (agg.py: cge_plan).
+// kWs picks one of the two at compile time, so shared-memory lists are
+// read with shared-memory loads.
 
+template <bool kWs>
 __global__ void __launch_bounds__(kCgeThreads, 1)
 masked_cge_kernel(const float* __restrict__ g, const uint8_t* __restrict__ rx,
                   int n, long long p, int f, int share, int chunk,
-                  int budget, float* partial, float* __restrict__ out) {
+                  int budget, float* partial, int* ws,
+                  float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);         // kMaxChunks
   int* s_m = reinterpret_cast<int*>(smem + 8 * kMaxChunks);
-  int* s_k = s_m + 1;                           // kept rows
-  int* s_al = s_m + 2;                          // every kept row aligned
-  int* rows = reinterpret_cast<int*>(smem + kHeader);        // (n,) each
+  int* s_warp = reinterpret_cast<int*>(smem + 64);           // 32 warps
+  int* rows = kWs ? ws + (long long)blockIdx.x * kCgeLists * n
+                  : reinterpret_cast<int*>(smem + kHeader);  // (n,) each
   int* off = rows + n;
   int* koff = off + n;                          // kept rows' offsets, rows
   int* krow = koff + n;
   float* key = reinterpret_cast<float*>(krow + n);
-  float* data = reinterpret_cast<float*>(
-      smem + ((kHeader + 20 * n + 15) & ~15));               // agg.py
+  float* data = reinterpret_cast<float*>(                    // agg.py
+      smem + (kWs ? kHeader : ((kHeader + 4 * kCgeLists * n + 15) & ~15)));
 
   const int m = compact_rows(rx, n, rows, s_m);
   const long long c0 = (long long)blockIdx.x * share;
@@ -311,43 +345,36 @@ masked_cge_kernel(const float* __restrict__ g, const uint8_t* __restrict__ rx,
     if (lane == 0) key[rows[j]] = sqrtf(acc);
   }
   __syncthreads();
-  if (warp == 0) {
-    int nkeep = 0;
-    bool aligned = true;
-    for (int j0 = 0; j0 < m; j0 += 32) {
-      const int j = j0 + lane;
-      bool keep = false;
-      if (j < m) {
-        const int i = rows[j];
-        const float ki = key[i];
-        int rank = 0;
+  int nkeep = 0, aligned = 1;
+  for (int j0 = 0; j0 < m; j0 += kCgeThreads) {
+    const int j = j0 + threadIdx.x;
+    bool keep = false;
+    if (j < m) {
+      const int i = rows[j];
+      const float ki = key[i];
+      int rank = 0;
 #pragma unroll 8
-        for (int t = 0; t < n; ++t) {
-          const float kt = key[t];
-          rank += (kt < ki || (kt == ki && t < i)) ? 1 : 0;
-        }
-        keep = rank < kept_max;
+      for (int t = 0; t < n; ++t) {
+        const float kt = key[t];
+        rank += (kt < ki || (kt == ki && t < i)) ? 1 : 0;
       }
-      const unsigned b = __ballot_sync(0xffffffffu, keep);
-      if (keep) {
-        const int q = nkeep + __popc(b & ((1u << lane) - 1u));
-        koff[q] = off[j];
-        krow[q] = rows[j];
-      }
-      aligned = __all_sync(0xffffffffu, aligned && (!keep || !(off[j] & 3)));
-      nkeep += __popc(b);
+      keep = rank < kept_max;
     }
-    if (lane == 0) {
-      *s_k = nkeep;
-      *s_al = aligned;
+    int total;
+    const int q = nkeep + block_rank(keep, s_warp, &total);
+    if (keep) {
+      koff[q] = off[j];
+      krow[q] = rows[j];
     }
+    // also the barrier after which every thread reads koff and krow, and
+    // before block_rank writes s_warp again
+    aligned = __syncthreads_and(aligned && (!keep || !(off[j] & 3)));
+    nkeep += total;
   }
   for (int k = 0; k < nk; ++k) mbar_wait(&bar[k], 0);  // every chunk landed
-  __syncthreads();
-  const int nkeep = *s_k;
 
   // D. the kept rows summed per column, in agent order
-  if (*s_al) {
+  if (aligned) {
     for (int x = 4 * threadIdx.x; x < hb; x += 4 * kCgeThreads) {
       if (x + 4 <= hb) {
         float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -396,39 +423,152 @@ masked_cge_kernel(const float* __restrict__ g, const uint8_t* __restrict__ rx,
 }
 
 // ---------------------------------------------------------------------------
-// out[c] = sum over rows i with sel[i] != 0 of float(g[i, c]) * w[i], in
-// agent order; rows not selected are never read. With T = int8_t, sel =
-// received and w = scale it is dequant_accum, which replaces
-// src/repro/kernels/agg.py:dequant_accum. The int8 stack is read once and
-// never widened in memory. The TPU wrapper folds scale * received into
-// one weight vector before its kernel (agg.py:260-261); here the fold is
-// the row selection itself, so the call is one launch. One thread per
-// column reads down the selected rows (a warp's loads of one row are 32
-// neighbouring bytes), issuing the loads of kRowBatch rows before adding
-// any of them.
+// dequant_accum — replaces src/repro/kernels/agg.py:dequant_accum.
+//
+// out[c] = sum over received rows i of float(q[i, c]) * scale[i], in agent
+// order per column; rows not received are never read, and the int8 stack
+// is read once and never widened in memory. The TPU wrapper folds scale *
+// received into one weight vector before its kernel (agg.py:260-261);
+// here the fold is the row selection itself, so the call is one launch.
+// At the paper's shape (m = 17 of n = 20, P = 431,080) the function moves
+// 7.33 MB of int8 and writes 1.72 MB of f32: 2.70 us at 3.35 TB/s. So few
+// bytes are held back by instructions and by the bytes in flight, not by
+// the memory rate, and the design is about those:
+// - A thread sums C = max(V, 4) adjacent columns, reading each row's
+//   bytes of them with one V-byte load (V = 16, 8 or 4: int4, uint2 or
+//   one word) where every row is V-byte aligned, which the wrapper decides
+//   from the base address and P (agg.py: dequant_plan; P = 431,080 is
+//   8 mod 16, so 8-byte loads), else with 4 byte loads. The 4 values of a
+//   word widen in registers by a byte permute into the mantissa of 2^23
+//   and one subtraction, exact, and are stored as float4.
+// - The loads of R rows (128 to 256 bytes a thread) go out before any of
+//   them is used: at the paper's shape, 4 blocks of 128 threads on each
+//   SM hold the SM's whole 56 KB share of the stack in flight at once.
+// - The block walks the mask once: kDqThreads agents at a time it lists
+//   the received ones and their scales in shared memory (block_rank, in
+//   agent order). Where n > kDqThreads the walk is repeated for each
+//   group of columns a thread takes, batch by batch, so any n works.
+// - DQ_BLOCKS_PER_SM blocks per SM split the columns evenly.
+// An all-crashed mask lists no row and writes exact zeros.
 
-template <typename T, typename S>
-__global__ void masked_col_sum_kernel(const T* __restrict__ g,
-                                      const S* __restrict__ sel,
-                                      const float* __restrict__ w, int n,
-                                      long long p, float* __restrict__ out) {
-  extern __shared__ int rows[];                 // (n,)
-  __shared__ int s_m;
-  const int m = compact_rows(sel, n, rows, &s_m);
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (c >= p) return;
-  float acc = 0.f;
-  int j = 0;
-  for (; j + kRowBatch <= m; j += kRowBatch) {
-    float v[kRowBatch];
+template <int V> struct DqLoad { using T = uint32_t; };
+template <> struct DqLoad<16> { using T = uint4; };
+template <> struct DqLoad<8> { using T = uint2; };
+template <> struct DqLoad<1> { using T = int8_t; };
+
+// acc[0..4) += the 4 int8 values of word x, widened exactly, times w: byte
+// b ^ 0x80 = b + 128 becomes the low mantissa bits of 2^23, and 2^23 +
+// 128 comes off again
+__device__ __forceinline__ void dq_word(uint32_t x, float w, float* acc) {
+  x ^= 0x80808080u;
 #pragma unroll
-    for (int u = 0; u < kRowBatch; ++u)
-      v[u] = (float)g[(long long)rows[j + u] * p + c];
-#pragma unroll
-    for (int u = 0; u < kRowBatch; ++u) acc += v[u] * w[rows[j + u]];
+  for (int k = 0; k < 4; ++k) {
+    const float v =
+        __int_as_float((int)__byte_perm(x, 0x4B000000u, 0x7540u + k)) -
+        8388736.f;
+    acc[k] = fmaf(v, w, acc[k]);
   }
-  for (; j < m; ++j) acc += (float)g[(long long)rows[j] * p + c] * w[rows[j]];
-  out[c] = acc;
+}
+
+template <int V>
+__device__ __forceinline__ void dq_add(const typename DqLoad<V>::T* x,
+                                       float w, float* acc) {
+  if constexpr (V == 1) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = fmaf((float)x[k], w, acc[k]);
+  } else if constexpr (V == 4) {
+    dq_word(x[0], w, acc);
+  } else if constexpr (V == 8) {
+    dq_word(x[0].x, w, acc);
+    dq_word(x[0].y, w, acc + 4);
+  } else {
+    dq_word(x[0].x, w, acc);
+    dq_word(x[0].y, w, acc + 4);
+    dq_word(x[0].z, w, acc + 8);
+    dq_word(x[0].w, w, acc + 12);
+  }
+}
+
+// lists the received agents among [i0, i0 + kDqThreads) and their scales in
+// agent order; returns how many. The whole block calls it.
+__device__ int dq_batch(const uint8_t* __restrict__ rx,
+                        const float* __restrict__ scale, int n, int i0,
+                        int* s_rows, float* s_w, int* s_warp) {
+  __syncthreads();                              // the last batch is read
+  const int i = i0 + (int)threadIdx.x;
+  const bool take = i < n && rx[i] != 0;
+  const float w = i < n ? scale[i] : 0.f;
+  int total;
+  const int j = block_rank(take, s_warp, &total);
+  if (take) {
+    s_rows[j] = i;
+    s_w[j] = w;
+  }
+  __syncthreads();
+  return total;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kDqThreads)
+dequant_accum_kernel(const int8_t* __restrict__ q,
+                     const float* __restrict__ scale,
+                     const uint8_t* __restrict__ rx, int n, long long p,
+                     int share, float* __restrict__ out) {
+  using L = typename DqLoad<V>::T;
+  constexpr int C = V < 4 ? 4 : V;              // columns a thread sums
+  constexpr int NL = C / V < 1 ? 1 : C / V;     // loads per row
+  constexpr int R = V == 8 || V == 4 ? 32 : 16; // rows whose loads go together
+  __shared__ int s_rows[kDqThreads];
+  __shared__ float s_w[kDqThreads];
+  __shared__ int s_warp[kDqThreads / 32];
+  const long long c_lo = (long long)blockIdx.x * share;
+  const long long c_hi = min(c_lo + share, p);
+  const bool once = n <= kDqThreads;
+  int cnt = once ? dq_batch(rx, scale, n, 0, s_rows, s_w, s_warp) : 0;
+  for (long long c0 = c_lo; c0 < c_hi; c0 += (long long)C * kDqThreads) {
+    const long long c = c0 + (long long)C * threadIdx.x;
+    const int width = (int)max(0ll, min((long long)C, c_hi - c));
+    float acc[C];
+#pragma unroll
+    for (int u = 0; u < C; ++u) acc[u] = 0.f;
+    for (int i0 = 0; i0 < n; i0 += kDqThreads) {
+      if (!once) cnt = dq_batch(rx, scale, n, i0, s_rows, s_w, s_warp);
+      if (width == C) {
+        for (int j0 = 0; j0 < cnt; j0 += R) {
+          L x[R][NL];
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            if (j0 + u < cnt) {
+              const L* src = reinterpret_cast<const L*>(
+                  q + (long long)s_rows[j0 + u] * p + c);
+#pragma unroll
+              for (int k = 0; k < NL; ++k) x[u][k] = __ldg(src + k);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < R; ++u)
+            if (j0 + u < cnt) dq_add<V>(x[u], s_w[j0 + u], acc);
+        }
+      } else if (width > 0) {                   // the ragged last columns
+        for (int j = 0; j < cnt; ++j) {
+          const int8_t* src = q + (long long)s_rows[j] * p + c;
+#pragma unroll
+          for (int u = 0; u < C; ++u)
+            if (u < width) acc[u] = fmaf((float)src[u], s_w[j], acc[u]);
+        }
+      }
+    }
+    if (width == C) {
+#pragma unroll
+      for (int u = 0; u < C; u += 4)
+        *reinterpret_cast<float4*>(out + c + u) =
+            make_float4(acc[u], acc[u + 1], acc[u + 2], acc[u + 3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < C; ++u)
+        if (u < width) out[c + u] = acc[u];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -447,18 +587,55 @@ __global__ void masked_col_sum_kernel(const T* __restrict__ g,
 //   received row a candidate, the oracle's one round of extraction
 //   (agg.py:134-151) takes the plain min and max, and removes nothing
 //   that a later round would see.
-// - f >= 2: a kTrimMaxN-entry register array per column (every loop
-//   unrolled to the compile-time kTrimMaxN). Two bit masks stand for the
-//   oracle's two sentinel-masked copies (lo: +1e30 where not received or
-//   already removed, hi: -1e30). f rounds each take the min over lo's
-//   candidates and the max over hi's and remove one occurrence, the
-//   first by agent id, which matches sort semantics under duplicates.
+// - f >= 2: f rounds, each one pass over the column's m values with no
+//   candidate mask, so any m works. Round k's minimum is the smallest
+//   (value, agent id) pair lexicographically greater than round k-1's,
+//   and its maximum the next pair in the order (value descending, id
+//   ascending): exactly the oracle's removal of one occurrence per round,
+//   the first by agent id, under duplicates and +-0 alike. ``cut`` adds
+//   mn + mx in round order, as the oracle does (trimmed_value).
 // The output is (ssum - cut) / (m - 2f), or 0 where m - 2f <= 0: every
 // block decides that alike and reads nothing. The rounds never run out
-// of candidates where m - 2f > 0; where they would, they add the 1e30
-// sentinels as the oracle does, and the output is 0 anyway.
+// of candidates where m - 2f > 0.
+// Where not even one stage of n rows of 4 columns fits beside the header
+// (n above about 5,800; agg.py: trimmed_plan, stages = 0) there is no
+// ring: every thread takes columns of the share and reads their received
+// rows straight from device memory in agent order, 8 rows' loads at a
+// time (trimmed_direct).
 
 constexpr int kTrimConsumers = kTrimThreads - 32;
+
+// One column's trimmed mean. ``each(fn)`` calls fn(id, v) for the
+// column's received values in agent order, ids ascending; the first pass
+// also sums them.
+template <class Each>
+__device__ float trimmed_value(Each each, int f, int cnt) {
+  float ssum = 0.f, cut = 0.f, pmn = 0.f, pmx = 0.f;
+  int imn = -1, imx = -1;                       // last round's pairs
+  for (int k = 0; k == 0 || k < f; ++k) {
+    float mn = 0.f, mx = 0.f;
+    int jmn = -1, jmx = -1;
+    each([&](int j, float v) {
+      if (k == 0) ssum += v;
+      if ((imn < 0 || v > pmn || (v == pmn && j > imn)) &&
+          (jmn < 0 || v < mn)) {
+        mn = v;
+        jmn = j;
+      }
+      if ((imx < 0 || v < pmx || (v == pmx && j > imx)) &&
+          (jmx < 0 || v > mx)) {
+        mx = v;
+        jmx = j;
+      }
+    });
+    if (k < f) cut += mn + mx;
+    pmn = mn;
+    imn = jmn;
+    pmx = mx;
+    imx = jmx;
+  }
+  return (ssum - cut) / (float)cnt;
+}
 
 // columns [0, w) of a staged chunk, by consumer thread ``t``
 __device__ void trimmed_columns(const float* st, const int* off, int m,
@@ -493,29 +670,37 @@ __device__ void trimmed_columns(const float* st, const int* off, int m,
     }
     return;
   }
-  for (int x = t; x < w; x += kTrimConsumers) {
-    float v[kTrimMaxN];
+  for (int x = t; x < w; x += kTrimConsumers)
+    out[x] = trimmed_value(
+        [&](auto&& fn) {
+          for (int j = 0; j < m; ++j) fn(j, st[off[j] + x]);
+        },
+        f, cnt);
+}
+
+// columns [c0, c0 + sb) from device memory, by every thread of the block
+__device__ void trimmed_direct(const float* __restrict__ g,
+                               const uint8_t* __restrict__ rx, int n,
+                               long long p, int f, int cnt, long long c0,
+                               int sb, float* __restrict__ out) {
+  for (int x = threadIdx.x; x < sb; x += blockDim.x) {
+    const float* col = g + c0 + x;
+    out[c0 + x] = trimmed_value(
+        [&](auto&& fn) {
+          for (int i0 = 0; i0 < n; i0 += 8) {
+            float v[8];
+            bool r[8];
 #pragma unroll
-    for (int j = 0; j < kTrimMaxN; ++j) v[j] = j < m ? st[off[j] + x] : 0.f;
-    float ssum = 0.f;
+            for (int u = 0; u < 8; ++u) {
+              r[u] = i0 + u < n && rx[i0 + u] != 0;
+              v[u] = r[u] ? col[(long long)(i0 + u) * p] : 0.f;
+            }
 #pragma unroll
-    for (int j = 0; j < kTrimMaxN; ++j) ssum += v[j];
-    const unsigned all = m >= 32 ? 0xffffffffu : (1u << m) - 1u;
-    unsigned lo = all, hi = all;                // candidates left per side
-    float cut = 0.f;
-    for (int k = 0; k < f; ++k) {
-      float mn = kBig, mx = -kBig;
-      int imn = -1, imx = -1;
-#pragma unroll
-      for (int j = 0; j < kTrimMaxN; ++j) {
-        if (((lo >> j) & 1u) && v[j] < mn) { mn = v[j]; imn = j; }
-        if (((hi >> j) & 1u) && v[j] > mx) { mx = v[j]; imx = j; }
-      }
-      cut += mn + mx;
-      if (imn >= 0) lo &= ~(1u << imn);
-      if (imx >= 0) hi &= ~(1u << imx);
-    }
-    out[x] = (ssum - cut) / (float)cnt;
+            for (int u = 0; u < 8; ++u)
+              if (r[u]) fn(i0 + u, v[u]);
+          }
+        },
+        f, cnt);
   }
 }
 
@@ -528,13 +713,28 @@ trimmed_mean_kernel(const float* __restrict__ g,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);        // kMaxStages
   uint64_t* empty = full + kMaxStages;                       // kMaxStages
   int* s_m = reinterpret_cast<int*>(empty + kMaxStages);
-  int* rows = reinterpret_cast<int*>(smem + kHeader);        // kTrimMaxN
-  int* off = rows + kTrimMaxN;
-  float* ring = reinterpret_cast<float*>(smem + kHeader + 8 * kTrimMaxN);
-
-  const int m = compact_rows(rx, n, rows, s_m);
   const long long c0 = (long long)blockIdx.x * share;
   const int sb = (int)min((long long)share, p - c0);
+  if (stages == 0) {                            // no ring: rows from memory
+    int m = 0;
+    for (int i0 = 0; i0 < n; i0 += blockDim.x) {
+      const int i = i0 + (int)threadIdx.x;
+      m += __syncthreads_count(i < n && rx[i] != 0);
+    }
+    const int cnt = m - 2 * f;
+    if (cnt <= 0) {
+      for (int x = threadIdx.x; x < sb; x += blockDim.x) out[c0 + x] = 0.f;
+      return;
+    }
+    trimmed_direct(g, rx, n, p, f, cnt, c0, sb, out);
+    return;
+  }
+  int* rows = reinterpret_cast<int*>(smem + kHeader);        // (n,) each
+  int* off = rows + n;
+  float* ring = reinterpret_cast<float*>(                    // agg.py
+      smem + ((kHeader + 8 * n + 15) & ~15));
+
+  const int m = compact_rows(rx, n, rows, s_m);
   const int cnt = m - 2 * f;
   if (cnt <= 0) {
     for (int x = threadIdx.x; x < sb; x += blockDim.x) out[c0 + x] = 0.f;
@@ -543,10 +743,8 @@ trimmed_mean_kernel(const float* __restrict__ g,
   const int stride = chunk + 4;
   const int stage_floats = n * stride;
   const int nc = (sb + chunk - 1) / chunk;
-  if (threadIdx.x < kTrimMaxN)                  // rows past m: never read
-    off[threadIdx.x] = (int)threadIdx.x < m
-        ? (int)threadIdx.x * stride + row_shift(g, p, rows[threadIdx.x], c0)
-        : 0;
+  for (int j = threadIdx.x; j < m; j += blockDim.x)
+    off[j] = j * stride + row_shift(g, p, rows[j], c0);
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 64);
@@ -579,10 +777,6 @@ trimmed_mean_kernel(const float* __restrict__ g,
   }
 }
 
-inline unsigned int col_blocks(long long p) {
-  return (unsigned int)((p + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 extern "C" {
@@ -598,17 +792,21 @@ int agg_smem_optin(int device) {
 
 // One cooperative launch of ``grid`` blocks (agg.py: cge_plan). A grid
 // that cannot be resident all at once is refused, and the error returned.
+// ``ws``: null, or kCgeLists * n ints per block where the per-agent lists
+// do not fit in shared memory.
 int agg_masked_cge(const float* g, const uint8_t* rx, int n, long long p,
                    int f, int grid, int share, int chunk, int budget,
-                   int smem, float* partial, float* out, void* stream) {
+                   int smem, float* partial, int* ws, float* out,
+                   void* stream) {
+  const void* kernel = ws ? (const void*)masked_cge_kernel<true>
+                          : (const void*)masked_cge_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      masked_cge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&g, &rx, &n, &p, &f, &share, &chunk, &budget, &partial,
-                  &out};
-  e = cudaLaunchCooperativeKernel((const void*)masked_cge_kernel, dim3(grid),
-                                  dim3(kCgeThreads), args, (size_t)smem,
-                                  (cudaStream_t)stream);
+                  &ws, &out};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kCgeThreads), args,
+                                  (size_t)smem, (cudaStream_t)stream);
   return (int)e;
 }
 
@@ -624,10 +822,32 @@ int agg_trimmed_mean(const float* g, const uint8_t* rx, int n, long long p,
   return (int)cudaGetLastError();
 }
 
+// ``grid`` blocks of kDqThreads, loads of ``vec`` bytes (agg.py:
+// dequant_plan); every row of q is vec-byte aligned.
 int agg_dequant_accum(const int8_t* q, const float* scale, const uint8_t* rx,
-                      int n, long long p, float* out, void* stream) {
-  masked_col_sum_kernel<<<col_blocks(p), kThreads, n * sizeof(int),
-                          (cudaStream_t)stream>>>(q, rx, scale, n, p, out);
+                      int n, long long p, int vec, int grid, int share,
+                      float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (vec) {
+    case 16:
+      dequant_accum_kernel<16><<<grid, kDqThreads, 0, s>>>(q, scale, rx, n, p,
+                                                           share, out);
+      break;
+    case 8:
+      dequant_accum_kernel<8><<<grid, kDqThreads, 0, s>>>(q, scale, rx, n, p,
+                                                          share, out);
+      break;
+    case 4:
+      dequant_accum_kernel<4><<<grid, kDqThreads, 0, s>>>(q, scale, rx, n, p,
+                                                          share, out);
+      break;
+    case 1:
+      dequant_accum_kernel<1><<<grid, kDqThreads, 0, s>>>(q, scale, rx, n, p,
+                                                          share, out);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -183,12 +183,13 @@ def _check_segments(p, starts, widths, rows, strides):
     word offset of the tensor: the bulk part 16-byte aligned in device
     memory and in shared memory, a multiple of 16 bytes, the plain edges
     shorter than a 16-byte line."""
-    c = np.asarray(starts)[:, None, None]
-    w = np.asarray(widths)[:, None, None]
+    assert (np.asarray(starts) % 4 == 0).all()  # a row's offset is the same
+    # per chunk, so a segment's split depends on its width alone
+    w = np.unique(np.asarray(widths))[:, None, None]
+    c = np.zeros_like(w)
     r = np.asarray(rows)[None, :, None]
     j = np.arange(len(rows))[None, :, None]
     base = np.arange(4)[None, None, :]
-    assert (c % 4 == 0).all()           # a row's offset is the same per chunk
     shift = tagg.row_shift(base, r, p, c)
     head, bulk, tail = tagg.row_segments(shift, w)
     assert (head + bulk + tail == w).all()
@@ -244,15 +245,15 @@ def test_cge_plan_covers_holds_and_aligns(n, p):
         assert plan.held[20] < plan.share
 
 
-@pytest.mark.parametrize("n,p", [(n, p) for n, p in PLAN_SHAPES
-                                 if n <= tagg.TRIM_MAX_N] + [(32, 431_080)])
+@pytest.mark.parametrize("n,p", PLAN_SHAPES + [(32, 431_080)])
 def test_trimmed_plan_covers_stages_and_aligns(n, p):
     plan = tagg.trimmed_plan(n, p, H100_SMS)
+    header = tagg.trimmed_header(n)
     assert plan.grid <= H100_SMS and plan.share % 4 == 0
     assert plan.chunk % 4 == 0 and 1 <= plan.stages <= tagg.TRIM_STAGES
-    assert plan.smem_bytes == (tagg.TRIM_HEADER
+    assert plan.smem_bytes == (header
                                + plan.stages * n * (plan.chunk + 4) * 4)
-    assert plan.smem_bytes <= tagg.SMEM_LIMIT and tagg.TRIM_HEADER % 16 == 0
+    assert plan.smem_bytes <= tagg.SMEM_LIMIT and header % 16 == 0
     starts = np.arange(plan.grid) * plan.share
     widths = np.minimum(plan.share, p - starts)
     assert (widths > 0).all() and widths.sum() == p
@@ -262,7 +263,8 @@ def test_trimmed_plan_covers_stages_and_aligns(n, p):
         ws += [min(plan.chunk, c0 + sb - c) for c in cs[len(ws):]]
     assert sum(ws) == p
     _check_segments(p, cs, ws, np.arange(n), [plan.chunk + 4])
-    if p >= 4 * H100_SMS * 4:
+    two_fit = header + 2 * n * 8 * 4 <= tagg.SMEM_LIMIT
+    if p >= 4 * H100_SMS * 4 and two_fit:
         assert plan.stages >= 2         # a chunk in flight while one is read
 
 
@@ -371,3 +373,186 @@ def test_chunked_trimmed_mirror_matches_pallas(n, p, tile, f):
     for n_sm in (H100_SMS, 3):
         np.testing.assert_allclose(_trimmed_mirror(tgt, trx, f, n_sm).numpy(),
                                    ref, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# any number of agents: the plans past the shared-memory sizes, the f >= 2
+# rounds at any m, and dequant_accum's load widths and column walk
+
+
+@pytest.mark.parametrize("n", [33, 64, 4096, 5806, 5807, 16_384])
+def test_trimmed_plan_any_agents(n):
+    """Two stages while they fit, then one stage of at least 4 columns
+    (n = 4096: 8), then no ring where not even that fits beside the
+    header: the consumers read the rows from device memory."""
+    p = 431_080
+    plan = tagg.trimmed_plan(n, p, H100_SMS)
+    header = tagg.trimmed_header(n)
+    starts = np.arange(plan.grid) * plan.share
+    widths = np.minimum(plan.share, p - starts)
+    assert (widths > 0).all() and widths.sum() == p
+    assert plan.smem_bytes <= tagg.SMEM_LIMIT
+    one_fits = header + n * 8 * 4 <= tagg.SMEM_LIMIT
+    two_fit = header + 2 * n * 8 * 4 <= tagg.SMEM_LIMIT
+    if not one_fits:                    # rows straight from device memory
+        assert plan.stages == 0 and plan.smem_bytes == tagg.SMEM_HEADER
+        assert n > 5806
+        return
+    assert plan.chunk >= 4 and plan.chunk % 4 == 0
+    assert plan.smem_bytes == header + plan.stages * n * (plan.chunk + 4) * 4
+    assert plan.stages >= 1
+    if not two_fit:
+        assert plan.stages == 1
+    if n == 4096:
+        assert plan.stages == 1 and plan.chunk == 8
+    if n <= 64:
+        assert plan.stages >= 2
+
+
+@pytest.mark.parametrize("n,p", [(4096, 20_000), (4466, 20_000),
+                                 (4467, 20_000), (16_384, 20_000),
+                                 (100_000, 431_080)])
+def test_cge_plan_moves_lists_to_a_workspace(n, p):
+    """Past about 4,460 agents the five per-agent lists leave no room for
+    4 columns of every row: they move to a device workspace and shared
+    memory holds rows only, so any n has a plan within the limit."""
+    plan = tagg.cge_plan(n, p, H100_SMS)
+    assert plan.workspace == (n > 4466)
+    assert plan.header == (tagg.SMEM_HEADER if plan.workspace
+                           else tagg.cge_header(n))
+    assert plan.budget == tagg.SMEM_LIMIT - plan.header
+    assert plan.smem_bytes <= tagg.SMEM_LIMIT
+    for m in sorted({1, 17, n // 2, n}):
+        h = plan.held[m]
+        assert h % 4 == 0 and 0 <= h <= plan.share
+        assert min(max(0, (plan.budget // (4 * m) - 4) & ~3), plan.share) == h
+        if h:
+            assert plan.header + m * (h + 4) * 4 <= plan.smem_bytes
+
+
+def _widen(q):
+    """int8 -> f32 as the kernel widens a byte: b ^ 0x80 = b + 128 in the
+    low mantissa bits of 2^23, then 2^23 + 128 off again."""
+    u = (q.to(torch.int32) & 0xFF) ^ 0x80
+    return (u | 0x4B000000).view(torch.float32) - 8388736.0
+
+
+def test_dequant_widening_is_exact():
+    b = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    assert torch.equal(_widen(b), b.to(torch.float32))
+
+
+@pytest.mark.parametrize("p", [431_080, 4097, 1, 1_000_003])
+@pytest.mark.parametrize("base", [0, 1, 4, 8])
+def test_dequant_plan_widths_and_coverage(p, base):
+    for n in (1, 20, 4097):
+        plan = tagg.dequant_plan(n, p, base, H100_SMS)
+        ok = [v for v in (16, 8, 4, 1)
+              if base % v == 0 and (n == 1 or p % v == 0)]
+        assert plan.vec == ok[0] and plan.cols == max(plan.vec, 4)
+        rows = np.arange(min(n, 64))
+        # every row's loads aligned: a thread's columns start at a
+        # multiple of cols, itself a multiple of vec
+        assert ((base + rows * p) % plan.vec == 0).all()
+        assert plan.share % plan.cols == 0
+        assert plan.grid <= H100_SMS * tagg.DQ_BLOCKS_PER_SM
+        starts = np.arange(plan.grid) * plan.share
+        widths = np.minimum(plan.share, p - starts)
+        assert (widths > 0).all() and widths.sum() == p     # [0, P) once
+        # balanced: the blocks a card holds at once, each with at least a
+        # warp's worth of columns, none more than one group past its part
+        groups = -(-p // plan.cols)
+        target = min(H100_SMS * tagg.DQ_BLOCKS_PER_SM, -(-groups // 32))
+        assert plan.share <= plan.cols * -(-groups // target)
+    if base == 0:
+        assert tagg.dequant_plan(20, p, 0, H100_SMS).vec == {
+            431_080: 8, 4097: 1, 1: 1, 1_000_003: 1}[p]
+
+
+def _dequant_mirror(q, scale, rx, base=0, n_sm=H100_SMS):
+    """dequant_accum as the kernel walks it, in torch: each block of the
+    plan takes its columns, lists the received agents DQ_THREADS at a time
+    in agent order with their scales, and adds each listed row, widened
+    by the kernel's bit trick, times its scale, in that order."""
+    n, p = q.shape
+    plan = tagg.dequant_plan(n, p, base, n_sm)
+    out = torch.full((p,), float("nan"))
+    for b in range(plan.grid):
+        lo, hi = b * plan.share, min((b + 1) * plan.share, p)
+        acc = torch.zeros(hi - lo)
+        for i0 in range(0, n, tagg.DQ_THREADS):
+            ids = torch.arange(i0, min(i0 + tagg.DQ_THREADS, n))
+            for i in ids[rx[ids]]:
+                acc = acc + _widen(q[i, lo:hi]) * scale[i]
+        out[lo:hi] = acc
+    return out
+
+
+@pytest.mark.parametrize("n,p,tile", SWEEP + [(200, 3001, 1024)])
+def test_dequant_mirror_matches_pallas(n, p, tile):
+    """Over SWEEP, and with 200 agents (two batches of the mask walk)."""
+    g, rx = _stack(n, p, seed=21)
+    qj, sj = jg.quantize_int8_parts(jnp.asarray(g))
+    ref = np.asarray(jagg.dequant_accum(qj, sj[:, 0], jnp.asarray(rx),
+                                        tile=tile, interpret=True))
+    tq, ts, trx = _t(np.asarray(qj), np.asarray(sj)[:, 0], rx)
+    for base in (0, 1):
+        out = _dequant_mirror(tq, ts, trx, base)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+    none = torch.zeros_like(trx)
+    assert not _dequant_mirror(tq, ts, none).any()      # exact zeros
+
+
+def _successor_trimmed(g, rx, f):
+    """The kernel's f >= 2 rounds in torch, with no candidate mask: round
+    k's minimum is the smallest (value, id) pair lexicographically above
+    round k-1's, its maximum the next pair in (value descending, id
+    ascending); the received values summed in agent order; cut adds
+    mn + mx in round order."""
+    x = g[rx]
+    m, p = x.shape
+    cnt = m - 2 * f
+    if cnt <= 0:
+        return torch.zeros(p)
+    ids = torch.arange(m)[:, None]
+    ssum = torch.zeros(p)
+    for row in x:
+        ssum = ssum + row
+    cut = torch.zeros(p)
+    cols = torch.arange(p)
+    pmn = pmx = None
+    for _ in range(f):
+        if pmn is None:
+            cand_mn = cand_mx = torch.ones_like(x, dtype=torch.bool)
+        else:
+            cand_mn = (x > pmn) | ((x == pmn) & (ids > imn))
+            cand_mx = (x < pmx) | ((x == pmx) & (ids > imx))
+        vmn = torch.where(cand_mn, x, float("inf")).amin(0)
+        imn = torch.where(cand_mn & (x == vmn), ids, m).amin(0)
+        vmx = torch.where(cand_mx, x, float("-inf")).amax(0)
+        imx = torch.where(cand_mx & (x == vmx), ids, m).amin(0)
+        pmn, pmx = x[imn, cols], x[imx, cols]    # the element itself (+-0)
+        cut = cut + (pmn + pmx)
+    return (ssum - cut) / cnt
+
+
+@pytest.mark.parametrize("n", [33, 64])
+@pytest.mark.parametrize("f", [0, 1, 2, 3])
+def test_successor_rounds_match_pallas(n, f):
+    """Past 32 agents, with exact duplicates (small integers, one column
+    all equal) and +-0 mixed in a column: the successor rounds remove the
+    same occurrences as the reference's sentinel rounds."""
+    g, rx = _stack(n, 1500, seed=30 + f)
+    rng = np.random.default_rng(n + f)
+    g[:, 0] = rng.integers(-2, 3, n)
+    g[:, 1] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    g[:5, 1] = [1.5, -1.5, 0.25, -0.0, 0.0]
+    g[:, 2] = 7.0
+    ref = np.asarray(jagg.trimmed_mean_tiled(jnp.asarray(g), jnp.asarray(rx),
+                                             f, tile=512, interpret=True))
+    tgt, trx = _t(g, rx)
+    out = _successor_trimmed(tgt, trx, f).numpy()
+    np.testing.assert_allclose(out, ref, **TOL)
+    np.testing.assert_array_equal(out[:3], ref[:3])     # exact on the ties
+    np.testing.assert_allclose(
+        out, tagg.trimmed_mean_running(tgt, trx, f).numpy(), **TOL)

@@ -1,9 +1,12 @@
 """The CUDA kernels against their plain torch forms on the card: the
 aggregation kernels at the paper's shape (n=20, P=431,080), at ragged P,
 at the shape whose CGE share does not fit on chip (n=20, P=1,000,003,
-every row received), from a misaligned base, with 4096 agents (CGE), on
-the edge cases (exact zeros where every agent crashed) and run to run
-bit-identical; the
+every row received), from a misaligned base, with 33 to 16,384 agents
+(the trimmed mean's one-stage ring and rows read from device memory,
+CGE's per-agent lists in a device workspace, dequant_accum's batched
+mask walk, from bases misaligned by 1, 4 and 8 bytes), on the edge cases
+(exact zeros where every agent crashed) and run to run bit-identical;
+the
 paged flash-decode at the serving shapes of qwen2-0.5b, qwen2-1.5b and yi-6b, Dv != D, PS = 128 and Pmax = 1, in f32
 and bf16, with kv_len = 0, -1 table entries and page-boundary lengths;
 the decode's split-K over a 4096-token table (lengths of one token, one
@@ -140,25 +143,139 @@ def test_cuda_kernels_misaligned_base(p):
                                    **CUDA_TOL, err_msg=kernel.__name__)
 
 
+def _many_tol(m, weights, g64):
+    """A sum of m f32 terms in any order is off by about sqrt(m) roundings
+    of the sum of the terms' magnitudes (16x margin); a row kept or
+    dropped wrongly moves a column by a whole |g|."""
+    return 16 * m ** 0.5 * 2.0 ** -24 * (weights.abs() @ g64.abs())
+
+
 @needs_cuda
 def test_cuda_cge_many_agents():
-    """n = MAX_N agents: a share holds a few columns of each received row
+    """n = 4096 agents: a share holds a few columns of each received row
     and re-reads the rest; the keep-set is ranked over every agent."""
-    n = tagg.MAX_N
+    n = 4096
     g, rx = _stack(n, 20_000, seed=5)
     tgt, trx = _t(g, rx, device="cuda")
     m = int(rx.sum())
     plan = tagg.cge_plan(n, 20_000, *tagg.card_limits(tgt.device))
     assert plan.held[m] < plan.share
     out = tagg.masked_cge_reduce(tgt, trx, 100).cpu().double()
-    # against an f64 sum over the plain form's keep-set: a sum of m f32
-    # terms in any order is off by about sqrt(m) roundings of sum |g|
-    # (16x margin); a row kept or dropped wrongly moves a column by |g|
+    # against an f64 sum over the plain form's keep-set
     keep = tg.cge_mask_from_norms(tagg.row_norms(tgt), trx, 100).cpu()
     g64 = torch.from_numpy(g).double()
     ref = keep.double() @ g64
-    tol = 16 * m ** 0.5 * 2.0 ** -24 * (keep.double() @ g64.abs())
-    assert ((out - ref).abs() <= tol).all()
+    assert ((out - ref).abs() <= _many_tol(m, keep.double(), g64)).all()
+
+
+def _big_stack(n, p, seed):
+    """(n, P) f32 rows of per-row scale 0.5-3 and a ~70% received mask,
+    drawn on the card (numpy would take tens of seconds at n = 16,384)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn((n, p), generator=gen, device="cuda")
+    g *= 0.5 + 2.5 * torch.rand((n, 1), generator=gen, device="cuda")
+    rx = torch.rand(n, generator=gen, device="cuda") > 0.3
+    return g, rx
+
+
+@needs_cuda
+@pytest.mark.parametrize("n", [4097, 16_384])
+def test_cuda_cge_any_agents(n):
+    """n = 4097 keeps the per-agent lists in shared memory beside a few
+    held columns; n = 16,384 moves them to the device workspace and holds
+    no column. Both against an f64 sum over the plain keep-set."""
+    g, rx = _big_stack(n, 20_000, seed=n)
+    m = int(rx.sum())
+    plan = tagg.cge_plan(n, 20_000, *tagg.card_limits(g.device))
+    assert plan.workspace == (n == 16_384)
+    f = m // 10
+    out = tagg.masked_cge_reduce(g, rx, f).double()
+    keep = tg.cge_mask_from_norms(tagg.row_norms(g), rx, f).double()
+    g64 = g.double()
+    ref = keep @ g64
+    assert ((out - ref).abs() <= _many_tol(m, keep, g64)).all()
+    assert tagg.masked_cge_reduce(g, rx, m).abs().max() == 0   # m - f = 0
+
+
+@needs_cuda
+@pytest.mark.parametrize("n", [33, 64, 4097, 16_384])
+@pytest.mark.parametrize("f", [0, 1, 2])
+def test_cuda_trimmed_mean_any_agents(n, f):
+    """Past 32 agents: 33 and 64 through a ring of two stages,
+    4097 through one stage of 8 columns, 16,384 with no ring (rows read
+    from device memory). The f >= 2 rounds at any m. Up to 64 agents
+    against the plain form within CUDA_TOL; thousands against an f64
+    sort of the received values."""
+    p = 431_080 if n <= 64 else 20_000
+    g, rx = _big_stack(n, p, seed=n + f)
+    plan = tagg.trimmed_plan(n, p, *tagg.card_limits(g.device))
+    assert plan.stages == {33: 2, 64: 2, 4097: 1, 16_384: 0}[n]
+    out = tagg.trimmed_mean_tiled(g, rx, f)
+    if n <= 64:
+        np.testing.assert_allclose(
+            out.cpu().numpy(),
+            tagg.trimmed_mean_running(g, rx, f).cpu().numpy(), **CUDA_TOL)
+        return
+    m = int(rx.sum())
+    srt = torch.sort(g[rx].double(), dim=0).values
+    ref = srt[f:m - f].sum(0) / (m - 2 * f)
+    tol = _many_tol(m, torch.ones(m, device="cuda", dtype=torch.float64),
+                    g[rx].double()) / (m - 2 * f)
+    assert ((out.double() - ref).abs() <= tol).all()
+
+
+@needs_cuda
+@pytest.mark.parametrize("n,p", [(1, 20_003), (20, 431_080), (20, 20_003),
+                                 (4097, 20_000), (4097, 20_003),
+                                 (16_384, 20_000)])
+@pytest.mark.parametrize("offset", [0, 1, 4, 8])
+def test_cuda_dequant_any_agents_and_alignment(n, p, offset):
+    """dequant_accum from a base ``offset`` bytes past a 16-byte line, at
+    ragged P: every load width of ``dequant_plan`` (16, 8, 4 and 1 bytes)
+    and the ragged last columns, with the mask walked in one batch (n <=
+    128) or in batches of 128 agents."""
+    gen = torch.Generator(device="cuda").manual_seed(n + offset)
+    buf = torch.randint(-127, 128, (n * p + 16,), generator=gen,
+                        device="cuda", dtype=torch.int8)
+    base = buf.data_ptr() % 16
+    q = buf[(offset - base) % 16:][:n * p].view(n, p)
+    assert q.data_ptr() % 16 == offset and q.is_contiguous()
+    scale = torch.rand(n, generator=gen, device="cuda") * 0.1
+    rx = torch.rand(n, generator=gen, device="cuda") > 0.3
+    rx[0] = True
+    plan = tagg.dequant_plan(n, p, offset, tagg.card_limits(q.device)[0])
+    aligned = [v for v in (16, 8, 4, 1)
+               if offset % v == 0 and (n == 1 or p % v == 0)]
+    assert plan.vec == aligned[0]
+    before = tagg.LAUNCHES["dequant_accum"]
+    out = tagg.dequant_accum(q, scale, rx)
+    assert tagg.LAUNCHES["dequant_accum"] == before + 1
+    if n <= 20:
+        np.testing.assert_allclose(
+            out.cpu().numpy(),
+            tagg.dequant_dot(q, scale, rx).cpu().numpy(), **CUDA_TOL)
+        return
+    w = (scale * rx).double()
+    q64 = q.double()
+    ref = w @ q64
+    tol = _many_tol(int(rx.sum()), w, q64)
+    assert ((out.double() - ref).abs() <= tol).all()
+
+
+@needs_cuda
+def test_cuda_dequant_paper_shape_zeros_and_identity():
+    """At the paper's shape: exact zeros when every agent crashed, and the
+    same bits on every call."""
+    g, rx = _stack(20, 431_080, seed=3)
+    tgt, trx = _t(g, rx, device="cuda")
+    q, s = tg.quantize_int8_parts(tgt)
+    s = s[:, 0].contiguous()
+    none = torch.zeros_like(trx)
+    out = tagg.dequant_accum(q, s, none)
+    assert out.shape == (431_080,) and not out.any()
+    first = tagg.dequant_accum(q, s, trx)
+    for _ in range(3):
+        assert torch.equal(tagg.dequant_accum(q, s, trx), first)
 
 
 @needs_cuda
@@ -170,6 +287,10 @@ def test_cuda_agg_kernels_are_run_to_run_identical(n, p):
         first = kernel(tgt, trx, 1)
         for _ in range(3):
             assert torch.equal(kernel(tgt, trx, 1), first), kernel.__name__
+    q, s = tg.quantize_int8_parts(tgt)
+    first = tagg.dequant_accum(q, s[:, 0], trx)
+    for _ in range(3):
+        assert torch.equal(tagg.dequant_accum(q, s[:, 0], trx), first)
 
 
 @needs_cuda
@@ -179,10 +300,25 @@ def test_cuda_wrappers_validate_inputs():
         tagg.masked_cge_reduce(tgt.t().contiguous().t(), trx, 1)
     with pytest.raises(ValueError, match="bool"):
         tagg.trimmed_mean_tiled(tgt, trx.float(), 1)
-    big = torch.zeros((tagg.TRIM_MAX_N + 1, 8), device="cuda")
-    with pytest.raises(ValueError, match="agents"):
-        tagg.trimmed_mean_tiled(big, torch.ones(big.shape[0], dtype=bool,
-                                                device="cuda"), 1)
+    with pytest.raises(ValueError, match="scale"):
+        tagg.dequant_accum(torch.zeros((4, 8), dtype=torch.int8,
+                                       device="cuda"), torch.ones(3,
+                                                                 device="cuda"),
+                           trx)
+    # no agent: nothing to read, zeros of length P and no launch
+    before = dict(tagg.LAUNCHES)
+    none = torch.zeros(0, dtype=torch.bool, device="cuda")
+    empty = torch.zeros((0, 5), device="cuda")
+    assert not tagg.masked_cge_reduce(empty, none, 1).any()
+    assert tagg.trimmed_mean_tiled(empty, none, 0).shape == (5,)
+    assert not tagg.dequant_accum(empty.to(torch.int8), empty[:, 0],
+                                  none).any()
+    assert tagg.LAUNCHES == before
+    # 33 agents, once refused: now the kernel's answer
+    g, rx = _t(*_stack(33, 100, seed=1), device="cuda")
+    np.testing.assert_allclose(
+        tagg.trimmed_mean_tiled(g, rx, 1).cpu().numpy(),
+        tagg.trimmed_mean_running(g, rx, 1).cpu().numpy(), **CUDA_TOL)
 
 
 @needs_cuda
