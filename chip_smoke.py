@@ -80,7 +80,32 @@ Phases, each fatal on failure:
    and an f64 sum of squares; and the CGE keep-set of one cge iteration
    of the §5 LeNet agents from bucketed norms, against the plain form's
    on the same buckets and the f32 ledger's.
-9. A JSON line with every kernel's launches, error and times, the
+9. The simulator (``repro_torch.sim``): ``run_train`` of all 13
+   registered scenarios (n = 8 agents, dim = 4) on the card with the host
+   backend, each against the same run on the CPU in this process (zero
+   conformance violations, the discrete trace fields identical, loss and
+   dist within rtol 1e-4 / 1e-3), and ``run_serve`` of each; then
+   ``byzantine_flip_midrun`` (cge, f = 2, two attack switches, an (8, 4)
+   ledger through ``masked_cge_reduce``) and ``rolling_restart`` (stale,
+   tau = 3, a crash/recover wave) on the device backend, held the same
+   way. The aggregation kernels' counts are zeroed just before and read
+   just after; CGE's kernel must launch at every iteration of its run.
+   Prints per run wall seconds, iterations per second, the final
+   ||x - x*|| against the envelope radius, drops and duplicates.
+10. The e2e harness (``repro_torch.sim.e2e``): one ``EngineFleet`` of 8
+   replicas of qwen2-0.5b at full width over phase 6's weights (2 slots,
+   8-token pages, superstep_k = 4, 8 new tokens a request) replays
+   ``e2e_steady`` (32 requests), then ``crash_cascade`` cut to 16, on the
+   same warm fleet, drained between them. The decode kernel's count is
+   zeroed just before each run and read just after. Both runs must have
+   zero violations, and every delivered stream of ``e2e_steady`` must be
+   the plain attention form's greedy argmax (teacher forced, on the
+   fleet's page size) wherever the top-2 margin exceeds the logit
+   tolerance. Prints per run the native quorum row and each row of the
+   r-sweep (goodput, p50/p99 latency and TTFT in virtual time), wall
+   seconds, and decode steps and supersteps per replica.
+11. A JSON line with every kernel's launches (summed over the phases
+   that drive a path: 4, 6, 8, 9 and 10), error and times, the
    ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -126,6 +151,10 @@ from repro_torch.models.model import classifier_loss  # noqa: E402
 from repro_torch.models.model import apply_model, init_model  # noqa: E402
 from repro_torch.serve import PagedCacheConfig, ServeEngine  # noqa: E402
 from repro_torch.serve.kv_cache import PagedKVCache  # noqa: E402
+from repro_torch.sim.conformance import summarize  # noqa: E402
+from repro_torch.sim.e2e import EngineFleet, run_e2e  # noqa: E402
+from repro_torch.sim.scenario import (SCENARIOS, get_scenario,  # noqa: E402
+                                      run_serve, run_train)
 
 N_AGENTS, P_LENET = 20, 431_080
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)   # agent-order sum vs torch's order
@@ -1039,11 +1068,12 @@ def serve_requests(cfg, n: int = 24, seed: int = 0):
 
 
 @torch.no_grad()
-def teacher_forced_logits(params, cfg, prompts, streams, impl):
+def teacher_forced_logits(params, cfg, prompts, streams, impl,
+                          ccfg=SERVE_CCFG):
     """(T, B, vocab) paged-decode logits along ``streams`` (B, T) with
     attention form ``impl``: prompt i prefilled into slot i of a fresh
-    cache, then ``streams[:, t]`` fed at step t."""
-    kv = PagedKVCache(cfg, SERVE_CCFG, device="cuda")
+    cache of layout ``ccfg``, then ``streams[:, t]`` fed at step t."""
+    kv = PagedKVCache(cfg, ccfg, device="cuda")
     for slot, prompt in enumerate(prompts):
         _, _, cache = apply_model(params, torch.tensor(prompt[None],
                                                        device="cuda"),
@@ -1052,7 +1082,7 @@ def teacher_forced_logits(params, cfg, prompts, streams, impl):
     slots = list(range(len(prompts)))
     out = []
     for t in range(streams.shape[1]):
-        tokens = np.zeros((SERVE_CCFG.num_slots, 1), np.int32)
+        tokens = np.zeros((ccfg.num_slots, 1), np.int32)
         tokens[slots, 0] = streams[:, t]
         logits, _, _ = apply_model(
             params, torch.tensor(tokens, device="cuda"), cfg, mode="decode",
@@ -1376,6 +1406,231 @@ def drive_kernels_api(params, data):
 
 
 # ---------------------------------------------------------------------------
+# 9. the simulator on the card
+
+
+# trace fields from numpy event logic and the transport's own stream:
+# identical on every device; loss and dist come from an f32 rule whose
+# reduction order is the device's (tests/test_torch_engine.py tolerances)
+SIM_EXACT = ("t", "n_rx", "r", "comm", "stale", "amax")
+SIM_LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
+SIM_DIST_TOL = dict(rtol=1e-3, atol=1e-5)
+# the two scenarios run again on the device backend: CGE under two attack
+# switches, and the stale rule through a crash/recover wave
+SIM_DEVICE_RUNS = ("byzantine_flip_midrun", "rolling_restart")
+
+
+def check_sim_train(label, rep, ref):
+    """``rep`` (card) against ``ref`` (CPU, same process): no violation,
+    the discrete fields identical, loss and dist within tolerance."""
+    if rep.violations or ref.violations:
+        raise AssertionError(f"{label}: violations "
+                             f"{summarize(rep.violations + ref.violations)}")
+    for key in SIM_EXACT:
+        if [st[key] for st in rep.trace] != [st[key] for st in ref.trace]:
+            raise AssertionError(f"{label}: trace field {key} differs from "
+                                 "the CPU run")
+    if (rep.hist.bytes_tx, rep.transport.drops, rep.transport.dups) != \
+            (ref.hist.bytes_tx, ref.transport.drops, ref.transport.dups):
+        raise AssertionError(f"{label}: bytes_tx, drops or dups differ")
+    np.testing.assert_allclose([st["loss"] for st in rep.trace],
+                               [st["loss"] for st in ref.trace],
+                               err_msg=label, **SIM_LOSS_TOL)
+    np.testing.assert_allclose([st["dist"] for st in rep.trace],
+                               [st["dist"] for st in ref.trace],
+                               err_msg=label, **SIM_DIST_TOL)
+
+
+def log_sim_train(label, rep, dt):
+    sc = rep.scenario
+    dist = rep.hist.dist[-1]
+    if sc.expect.check_envelope:
+        limit = (f"envelope radius "
+                 f"{rep.envelope.radius(sc.expect.envelope_slack):.4g}")
+    else:
+        limit = f"max_dist {sc.expect.max_dist}"
+    log(f"  {label:36s} {sc.iters} iters {dt:6.2f} s "
+        f"({sc.iters / dt:7.1f} it/s)  ||x - x*|| {dist:.4g} vs {limit}, "
+        f"drops {rep.transport.drops}, dups {rep.transport.dups}")
+
+
+def drive_simulator():
+    """Every registered scenario's ``run_train`` on the card (host
+    backend) against the same run on the CPU, its ``run_serve``, then
+    ``SIM_DEVICE_RUNS`` on the device backend. The aggregation kernels'
+    counts are zeroed just before and read just after."""
+    agg.reset_launches()
+    t_all = time.perf_counter()
+    on_cpu = {}
+    for name in sorted(SCENARIOS):
+        sc = get_scenario(name)
+        t0 = time.perf_counter()
+        rep = run_train(sc, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        on_cpu[name] = run_train(sc, device="cpu")
+        check_sim_train(name, rep, on_cpu[name])
+        log_sim_train(f"{name} (host)", rep, dt)
+        served = run_serve(sc)
+        if served.violations or len(served.trace) != sc.n_requests or \
+                not np.isfinite(served.latencies).all():
+            raise AssertionError(f"{name} serve: {len(served.trace)} "
+                                 f"requests, violations "
+                                 f"{summarize(served.violations)}")
+    for name in SIM_DEVICE_RUNS:
+        sc = get_scenario(name)
+        before = agg.LAUNCHES["masked_cge_reduce"]
+        t0 = time.perf_counter()
+        rep = run_train(sc, device="cuda", agg_backend="device")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = agg.LAUNCHES["masked_cge_reduce"] - before
+        check_sim_train(f"{name} (device)", rep, on_cpu[name])
+        log_sim_train(f"{name} (device)", rep, dt)
+        if sc.rule == "cge" and launched < sc.iters:
+            raise AssertionError(f"{name}: masked_cge_reduce launched "
+                                 f"{launched} times in {sc.iters} iters")
+    counts = dict(agg.LAUNCHES)
+    log(f"  phase 9 in {time.perf_counter() - t_all:.1f} s: 13 scenarios "
+        f"x (train on the card and the CPU, serve), {len(SIM_DEVICE_RUNS)} "
+        f"on the device backend; kernel launches {counts}")
+    if counts["masked_cge_reduce"] == 0:
+        raise AssertionError("masked_cge_reduce was not launched in phase 9")
+    return {"masked_cge_reduce": counts["masked_cge_reduce"]}
+
+
+# ---------------------------------------------------------------------------
+# 10. the e2e harness at full width
+
+
+E2E_RUNS = (("e2e_steady", None), ("crash_cascade", 16))   # (name, cut)
+E2E_REPLICAS = 8
+
+
+def log_quorum(row, label):
+    log(f"    {label:8s} ok {row.n_ok}/{row.n_requests} degraded "
+        f"{row.n_degraded} unanswered {row.n_unanswered}  goodput "
+        f"{row.goodput:.4f}/unit  latency p50 {row.p50_latency:.3f} p99 "
+        f"{row.p99_latency:.3f}  TTFT p50 {row.p50_ttft:.3f} p99 "
+        f"{row.p99_ttft:.3f}")
+
+
+@torch.no_grad()
+def plain_greedy_check(params, cfg, ecfg, report):
+    """Every delivered honest stream of ``report`` against the greedy
+    argmax of its logits through the plain attention form: the first
+    token against the prefill's (which runs no decode kernel), the rest
+    against teacher-forced decode logits on a cache with the fleet's page
+    size. The fleet prefilled prompts in groups, this one at a time, so
+    bf16 roundings differ and a near tie may flip: the stream must be the
+    argmax wherever the top-2 margin exceeds ``LOGIT_TOL``. Returns (max
+    |logit diff| between the kernel and the plain form, positions
+    checked, positions within the margin, positions where the stream is
+    the plain argmax)."""
+    streams = {q.idx: q.delivered()[0].tokens for q in report.requests
+               if q.delivered()}
+    reqs = [q for q in report.requests if q.idx in streams]
+    ccfg = PagedCacheConfig(num_slots=8, page_size=ecfg.page_size,
+                            max_pages_per_seq=ecfg.max_pages_per_seq,
+                            num_pages=8 * ecfg.max_pages_per_seq + 1)
+    diff, checked, close, same = 0.0, 0, 0, 0
+    for i in range(0, len(reqs), ccfg.num_slots):
+        batch = reqs[i:i + ccfg.num_slots]
+        toks = np.stack([streams[q.idx] for q in batch])
+        first = []
+        for q in batch:
+            x, _, _ = apply_model(params, torch.tensor(q.prompt[None],
+                                                       device="cuda"),
+                                  cfg, mode="prefill", logits_chunk=1)
+            first.append(mlayers.unembed(params["embed"], x[0, -1], cfg))
+        prompts = [q.prompt for q in batch]
+        lg_p = teacher_forced_logits(params, cfg, prompts, toks[:, :-1],
+                                     "plain", ccfg).float()
+        lg_k = teacher_forced_logits(params, cfg, prompts, toks[:, :-1],
+                                     "cuda", ccfg).float()
+        diff = max(diff, float((lg_k - lg_p).abs().max()))
+        # position 0: the prefill's logits; then the decode's, teacher forced
+        lg_p = torch.cat([torch.stack(first)[None].float(), lg_p])
+        top2 = lg_p.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL
+        want = torch.as_tensor(toks.T, device="cuda").long()
+        agree = lg_p.argmax(-1) == want
+        if not bool(agree[clear].all()):
+            raise AssertionError("a delivered stream leaves the plain "
+                                 "form's greedy argmax at a clear margin")
+        checked += agree.numel()
+        close += int((~clear).sum())
+        same += int(agree.sum())
+    if diff > LOGIT_TOL:
+        raise AssertionError(f"teacher-forced logits: kernel and plain "
+                             f"form differ by {diff}")
+    return diff, checked, close, same
+
+
+def drive_e2e(params):
+    """``run_e2e`` on one fleet of 8 full-width qwen2-0.5b replicas over
+    phase 6's weights: ``e2e_steady``, then ``crash_cascade`` cut to 16
+    requests, on the same warm fleet. The decode kernel's count is
+    zeroed just before each run and read just after."""
+    cfg = get_config(SERVE_ARCH)
+    fleet = EngineFleet(E2E_REPLICAS, params=params, cfg=cfg, device="cuda")
+    ecfg = fleet.ecfg
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = dattn.split_plan(ecfg.num_slots, cfg.n_kv_heads,
+                            ecfg.max_pages_per_seq, ecfg.page_size, n_sm)
+    log(f"  {E2E_REPLICAS} replicas of {SERVE_ARCH} (full width, one "
+        f"parameter set), {ecfg.num_slots} slots, {ecfg.page_size}-token "
+        f"pages, at most {ecfg.max_pages_per_seq} a sequence, superstep_k="
+        f"{ecfg.superstep_k}, {ecfg.max_new_tokens} new tokens a request; "
+        f"decode split plan (splits, pages a split) {plan}")
+    total, results = 0, {}
+    for name, cut in E2E_RUNS:
+        if not fleet.drained():
+            raise AssertionError(f"fleet not drained before {name}")
+        sc = get_scenario(name)
+        st0 = [dict(e.stats) for e in fleet.engines]
+        dattn.reset_launches()
+        t0 = time.perf_counter()
+        rep = run_e2e(sc, fleet=fleet, n_requests=cut)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dattn.LAUNCHES["paged_flash_decode"]
+        total += launches
+        if rep.violations:
+            raise AssertionError(f"{name}: {summarize(rep.violations)}")
+        if not fleet.drained():
+            raise AssertionError(f"{name}: fleet not drained after the run")
+        dec = [e.stats["decode_steps"] - s["decode_steps"]
+               for e, s in zip(fleet.engines, st0)]
+        sup = [e.stats["supersteps"] - s["supersteps"]
+               for e, s in zip(fleet.engines, st0)]
+        pre = [e.stats["prefill_calls"] - s["prefill_calls"]
+               for e, s in zip(fleet.engines, st0)]
+        if launches == 0 or launches < sum(dec) * cfg.n_layers:
+            raise AssertionError(f"{name}: paged_flash_decode launched "
+                                 f"{launches} times for {sum(dec)} decode "
+                                 "steps")
+        lost = sum(c.status != "delivered" for q in rep.requests
+                   for c in q.copies.values())
+        log(f"  {name}: {len(rep.requests)} requests in {dt:.1f} s on the "
+            f"host clock; paged_flash_decode launched {launches} times; per "
+            f"replica decode steps {dec}, supersteps {sup}, prefill calls "
+            f"{pre}; retries {sum(q.retries for q in rep.requests)}, copies "
+            f"lost or dropped {lost}")
+        log_quorum(rep.native, "native")
+        for r, row in sorted(rep.sweep.items()):
+            log_quorum(row, f"r={r}")
+        results[name] = rep
+    diff, checked, close, same = plain_greedy_check(params, cfg, ecfg,
+                                                    results["e2e_steady"])
+    log(f"  e2e_steady: delivered streams vs the plain form's greedy "
+        f"argmax: equal at {same} of {checked} positions ({close} with a "
+        f"top-2 margin within {LOGIT_TOL}); max |teacher-forced logit "
+        f"diff| kernel vs plain {diff:.4f}")
+    return {"paged_flash_decode": total}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1443,6 +1698,16 @@ def main() -> int:
     log(f"== 8. kernels API at full width: {SERVE_ARCH} activations and "
         "parameter tree, LeNet keep-set")
     counts.update(drive_kernels_api(params, data))
+
+    log("== 9. the simulator: 13 scenarios, train (host backend, then two "
+        "on the device backend) and serve")
+    for k, c in drive_simulator().items():
+        counts[k] += c
+
+    log(f"== 10. the e2e harness: {E2E_REPLICAS} {SERVE_ARCH} replicas at "
+        "full width")
+    for k, c in drive_e2e(params).items():
+        counts[k] += c
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

@@ -1,7 +1,8 @@
 """The port stands alone: every module of ``repro_torch`` and
 ``chip_smoke.py`` import with ``jax`` and ``repro`` made unimportable, no
 source line imports either, and the entry points refuse to run on the
-CPU unless asked: ``device="cuda"`` without CUDA raises, and
+CPU unless asked: ``device="cuda"`` without CUDA raises (the engines,
+the serving stack and the simulator's train runner and fleet), and
 ``chip_smoke.py`` exits non-zero with no result line."""
 import re
 import shutil
@@ -40,7 +41,7 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 41        # every module imported
+    assert int(out.stdout.split()[-1]) >= 50        # every module imported
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -120,6 +121,25 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
         PagedKVCache(cfg, PagedCacheConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_cache(cfg, 2, 8)
+
+
+def test_simulator_entry_points_default_to_cuda(monkeypatch):
+    """``run_train`` and ``EngineFleet`` run on the card unless asked for
+    the CPU; ``run_serve`` is numpy and needs no device."""
+    from repro_torch.sim.e2e import EngineFleet
+    from repro_torch.sim.golden import build_trace
+    from repro_torch.sim.scenario import get_scenario, run_serve, run_train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sc = get_scenario("steady_state")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_train(sc)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_train(sc, agg_backend="device")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EngineFleet(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_trace("steady_state")
+    assert run_serve(sc).violations == []
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

@@ -17,8 +17,11 @@ inputs scaled x8, 4096 tokens, D = 192, D = Dv = 256, D = 72 with Dv =
 40, S > T), causal and not, in f32 and bf16, and the bf16 kernel's
 run-to-run identical output; the CGE squared norms (run to run
 identical) and masked scaling (bit for bit) over the JAX sweep and ragged
-or misaligned rows; the wrappers' launch counts and input checks; and the
-engines on the card against the same engines on the CPU. Every test here needs a GPU and
+or misaligned rows; the wrappers' launch counts and input checks; the
+engines on the card against the same engines on the CPU; and the
+simulator's shapes: CGE at n = 8, P <= 4 (f = 2, a large-norm row), the
+decode at the e2e harness's 8-token pages, ``run_train`` of registered
+scenarios and a 4-replica ``run_e2e`` on the card against the CPU. Every test here needs a GPU and
 skips without one, and the file imports no JAX: on the GPU machine run
 ``python -m pytest -q tests/test_torch_kernels_cuda.py``."""
 import numpy as np
@@ -294,6 +297,68 @@ def test_cuda_agg_kernels_are_run_to_run_identical(n, p):
 
 
 @needs_cuda
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_cuda_cge_simulator_shape(p):
+    """The simulator's ledger: n = 8 agents, P = dim <= 4 columns, far
+    below every tile, f = 2, one Byzantine large-norm row. The kernel
+    matches its plain form, never uses a word past the ledger's end (NaNs
+    follow it in the same allocation), and is bit-identical run to run."""
+    g, rx = _stack(8, p, seed=40 + p)
+    g[5] = 1e3
+    rx[[2, 5]] = True
+    buf = torch.full((8 * p + 64,), float("nan"), device="cuda")
+    buf[:8 * p] = torch.from_numpy(g.reshape(-1)).cuda()
+    tgt = buf[:8 * p].view(8, p)
+    trx = torch.from_numpy(rx).cuda()
+    sm, smem = tagg.card_limits(tgt.device)
+    plan = tagg.cge_plan(8, p, sm, smem)
+    assert (plan.grid, plan.share, plan.held[int(rx.sum())]) == (1, 4, 4)
+    before = tagg.LAUNCHES["masked_cge_reduce"]
+    out = tagg.masked_cge_reduce(tgt, trx, 2)
+    plain = tagg.masked_cge_dot(tgt, trx, 2)
+    assert out.shape == (p,) and torch.isfinite(out).all()
+    np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(),
+                               **CUDA_TOL)
+    assert float(out.abs().max()) < 1e2          # the large row was cut
+    for _ in range(3):
+        assert torch.equal(tagg.masked_cge_reduce(tgt, trx, 2), out)
+    assert tagg.LAUNCHES["masked_cge_reduce"] == before + 4
+
+
+@needs_cuda
+@pytest.mark.parametrize("name,backend", [
+    ("byzantine_flip_midrun", "host"), ("byzantine_flip_midrun", "device"),
+    ("rolling_restart", "device")])
+def test_simulator_on_card_matches_cpu(name, backend):
+    """``run_train`` of a registered scenario on the card against the same
+    run on the CPU: zero violations, identical discrete trace fields,
+    ``loss`` and ``dist`` within the engine suite's tolerances, and on
+    the device backend CGE's kernel launched at every iteration."""
+    from repro_torch.sim.scenario import get_scenario, run_train
+    sc = get_scenario(name)
+    before = tagg.LAUNCHES["masked_cge_reduce"]
+    gpu = run_train(sc, device="cuda", agg_backend=backend)
+    launched = tagg.LAUNCHES["masked_cge_reduce"] - before
+    cpu = run_train(sc, device="cpu", agg_backend=backend)
+    assert gpu.violations == cpu.violations == []
+    for key in ("t", "n_rx", "r", "comm", "stale", "amax"):
+        assert [s[key] for s in gpu.trace] == [s[key] for s in cpu.trace]
+    assert gpu.hist.bytes_tx == cpu.hist.bytes_tx
+    assert (gpu.transport.drops, gpu.transport.dups) == \
+        (cpu.transport.drops, cpu.transport.dups)
+    np.testing.assert_allclose([s["loss"] for s in gpu.trace],
+                               [s["loss"] for s in cpu.trace],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose([s["dist"] for s in gpu.trace],
+                               [s["dist"] for s in cpu.trace],
+                               rtol=1e-3, atol=1e-5)
+    if backend == "device" and sc.rule == "cge":
+        assert launched >= sc.iters
+    else:
+        assert launched == 0
+
+
+@needs_cuda
 def test_cuda_wrappers_validate_inputs():
     tgt, trx = _t(*_stack(4, 100), device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
@@ -453,6 +518,26 @@ def test_paged_flash_decode_long_context_many_splits(dtype):
 
 
 @needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_flash_decode_e2e_page_shape(dtype):
+    """The e2e harness's cache (``E2EConfig``: 2 slots, 8-token pages, at
+    most 8 pages a sequence, 32 pages) at qwen2-0.5b's head shape: one
+    split walks the whole table; lengths of one token, a page, a page
+    plus one, and the full 64."""
+    shape = (2, 14, 2, 64, 64, 8, 8, 32)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert tda.split_plan(2, 2, 8, 8, n_sm) == (1, 8)
+    for lens in ([1, 8], [9, 64], [16, 33]):
+        args = _decode_inputs(shape, dtype, np.array(lens), seed=7)
+        out = tda.paged_flash_decode(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(),
+                                   tda.paged_decode_plain(*args).float(),
+                                   **DECODE_TOL[dtype])
+        assert torch.equal(tda.paged_flash_decode(*args), out)
+
+
+@needs_cuda
 def test_paged_flash_decode_is_run_to_run_identical():
     """The fixed-order combine: the serving shape's output is the same
     bits on every call."""
@@ -556,6 +641,49 @@ def test_serve_engine_on_card_matches_cpu_plain_path(arch):
           for d in ("cpu", "cuda")}
     torch.testing.assert_close(lg["cuda"].cpu(), lg["cpu"], rtol=1e-4,
                                atol=1e-4)
+
+
+@needs_cuda
+def test_e2e_fleet_on_card_matches_cpu():
+    """The e2e harness on a 4-replica reduced fleet on the card (the
+    decode kernel) against the same fleet on the CPU (the plain form),
+    same weights, under a mid-run crash and reply drops: identical
+    copies, quorum rows and r-sweep, no violations, both drained."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import init_model, tree_to
+    from repro_torch.sim import e2e
+    from repro_torch.sim.faults import (CrashWindow, FaultSchedule,
+                                        MessageFaults)
+    from repro_torch.sim.scenario import Scenario
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu",
+                        max_pos=64)
+    sc = Scenario(name="t_card", description="e2e on the card", n_agents=4,
+                  r=1, iters=30, seed=7, n_requests=8,
+                  faults=FaultSchedule(
+                      crashes=(CrashWindow(agent=2, start=1.3, end=6.0),),
+                      messages=MessageFaults(drop_p=0.2)))
+    reps = {}
+    for device in ("cpu", "cuda"):
+        before = tda.LAUNCHES["paged_flash_decode"]
+        fleet = e2e.EngineFleet(4, params=tree_to(params, device), cfg=cfg,
+                                device=device)
+        reps[device] = (e2e.run_e2e(sc, fleet=fleet),
+                        tda.LAUNCHES["paged_flash_decode"] - before)
+        assert fleet.drained()
+    (rc, nc), (rg, ng) = reps["cpu"], reps["cuda"]
+    assert nc == 0 and ng > 0
+    assert rg.violations == rc.violations == []
+    assert rg.native.as_dict() == rc.native.as_dict()
+    assert {r: row.as_dict() for r, row in rg.sweep.items()} == \
+        {r: row.as_dict() for r, row in rc.sweep.items()}
+    for qg, qc in zip(rg.requests, rc.requests):
+        for j, c in qc.copies.items():
+            d = qg.copies[j]
+            assert (d.status, d.t_first, d.t_done, d.t_lost) == \
+                (c.status, c.t_first, c.t_done, c.t_lost)
+            if c.tokens is not None:
+                np.testing.assert_array_equal(d.tokens, c.tokens)
 
 
 # ---------------------------------------------------------------------------
