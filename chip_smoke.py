@@ -22,8 +22,10 @@ Phases, each fatal on failure:
    exact norm ties, duplicate values), each output bit-identical on a
    repeated call; the plan of each shape (grid, bytes held per block,
    columns re-read, the dequant's load width) is printed; the paged
-   flash-decode at the decode shapes of qwen2-0.5b, qwen2-1.5b and yi-6b,
-   Dv != D, PS = 128 and Pmax = 1, in f32 and bf16, ragged and full, and
+   flash-decode at the decode shapes of qwen2-0.5b, qwen2-1.5b, yi-6b and
+   phase 11's jamba (G = 4 over 8 KV heads), qwen2-vl-2b (G = 6) and
+   arctic (G = 7 over 8), Dv != D, PS = 128 and Pmax = 1, in f32 and
+   bf16, ragged and full (each run to run identical), and
    on kv_len = 0 (exact zeros), -1 and stale table entries and
    page-boundary lengths, then over a 4096-token table walked by many
    splits (lengths on and past a split boundary), run to run identical;
@@ -104,8 +106,32 @@ Phases, each fatal on failure:
    tolerance. Prints per run the native quorum row and each row of the
    r-sweep (goodput, p50/p99 latency and TTFT in virtual time), wall
    seconds, and decode steps and supersteps per replica.
-11. A JSON line with every kernel's launches (summed over the phases
-   that drive a path: 4, 6, 8, 9 and 10), error and times, the
+11. The other model families at full width, one config at a time,
+   bf16 weights from seed 0 made on the card and freed before the next:
+   ``ServeEngine`` (4 slots, 16-token pages, superstep_k = 4) serves 8
+   requests (prompts of 16-256 tokens, 8-16 new tokens each) on
+   jamba-v0.1-52b (one period: 8 layers, 7 Mamba, 1 GQA, 4 MoE),
+   deepseek-v2-236b (2 layers: MLA latent pages, 160 experts top-6, 2
+   shared), arctic-480b (1 layer: 128 experts and the dense residual),
+   rwkv6-3b (all 32 layers) and qwen2-vl-2b (all 28, M-RoPE); the cuts in
+   depth are printed as ``reduced``. Each must finish every request with
+   its budget and bring back every page, give the streams of a
+   superstep_k = 1 run, and launch the decode kernel exactly once per
+   GQA layer and decode step (zero for rwkv6 and deepseek-v2), its count
+   zeroed just before and read just after; the GQA configs' teacher-
+   forced decode logits through the kernel must match the plain form's
+   within the logit tolerance. Prints per config the parameter GB, the
+   seconds to make them, decode tok/s, ms per decode step, ms per
+   prefill and the launches, and where two profiled supersteps' time
+   goes (host ms and device busy ms per decode step, idle share, the
+   top device activities). Then whisper-base (full, f32) through
+   ``apply_model``: a prefill over 1,500 frame embeddings and 16
+   dense-cache decode steps on the card against the CPU (rtol = atol =
+   1e-4); and the reduced config of each new family in f32 on the card
+   against the CPU: prefill and decode logits within 1e-4, served
+   streams equal wherever the CPU's top-2 margin exceeds it.
+12. A JSON line with every kernel's launches (summed over the phases
+   that drive a path: 4, 6, 8, 9, 10 and 11), error and times, the
    ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -534,6 +560,10 @@ DECODE_SHAPES = {
     "qwen2-0.5b": (8, 14, 2, 64, 64, 16, 48, 8 * 48 + 1),
     "qwen2-1.5b": (8, 12, 2, 128, 128, 16, 12, 8 * 12 + 1),
     "yi-6b": (4, 32, 4, 128, 128, 16, 12, 4 * 12 + 1),
+    # phase 11's serving shapes: 4 slots, 17 pages of 16 tokens
+    "jamba": (4, 32, 8, 128, 128, 16, 17, 4 * 17 + 1),
+    "qwen2-vl-2b": (4, 12, 2, 128, 128, 16, 17, 4 * 17 + 1),
+    "arctic": (4, 56, 8, 128, 128, 16, 17, 4 * 17 + 1),
     "dv_ne_d": (3, 2, 2, 128, 64, 8, 4, 16),
     "ps128": (2, 2, 1, 32, 32, 128, 2, 8),
     "pmax1": (2, 4, 2, 32, 32, 8, 1, 16),
@@ -575,12 +605,15 @@ def check_decode_kernel():
             for kind, lens in (("ragged", None),
                                ("full", np.full(b, pmax * ps))):
                 args = decode_inputs(shape, dtype, lens)
-                e = check(f"paged_flash_decode {name} {dtype} {kind}",
-                          dattn.paged_flash_decode(*args),
+                out = dattn.paged_flash_decode(*args)
+                e = check(f"paged_flash_decode {name} {dtype} {kind}", out,
                           dattn.paged_decode_plain(*args),
                           DECODE_TOL[dtype], errs)
+                if not torch.equal(dattn.paged_flash_decode(*args), out):
+                    raise AssertionError(f"paged_flash_decode {name} "
+                                         "differs run to run")
                 log(f"  paged_flash_decode {name:11s} {str(dtype)[6:]:9s} "
-                    f"{kind:6s} max_abs_err={e:.3e}")
+                    f"{kind:6s} max_abs_err={e:.3e}, run to run identical")
     # kv_len 0, one token, on a page boundary, one past it, the full
     # table, more than the table holds
     lens = np.array([0, 1, 16, 17, 96, 500])
@@ -1093,8 +1126,8 @@ def teacher_forced_logits(params, cfg, prompts, streams, impl,
     return torch.stack(out)
 
 
-def run_engine(params, cfg, reqs, k):
-    eng = TimedEngine(params, cfg, SERVE_CCFG, superstep_k=k)
+def run_engine(params, cfg, reqs, k, ccfg=SERVE_CCFG):
+    eng = TimedEngine(params, cfg, ccfg, superstep_k=k)
     rids = [eng.submit(p, n) for p, n in reqs]
     out = eng.run()
     torch.cuda.synchronize()
@@ -1223,12 +1256,20 @@ def where_serving_time_goes(params, steps: int = 3):
     """Profile a few full supersteps (8 slots, K=8): host ms per step,
     device busy time and idle share, and device activities per decode
     step."""
-    from torch.profiler import ProfilerActivity, profile
     cfg = get_config(SERVE_ARCH)
     eng = ServeEngine(params, cfg, SERVE_CCFG, superstep_k=8)
     rng = np.random.default_rng(2)
     for _ in range(8):
         eng.submit(rng.integers(0, cfg.vocab_size, 256).astype(np.int32), 64)
+    profile_decode(eng, steps)
+
+
+def profile_decode(eng, steps: int, top: int = 6):
+    """Run the engine's admissions and first superstep, then profile
+    ``steps`` more: host ms per decode step, device busy time and idle
+    share, device activities per decode step and the ``top`` activities
+    by device time."""
+    from torch.profiler import ProfilerActivity, profile
     eng.step()                              # admissions + first superstep
     torch.cuda.synchronize()
     k0 = eng.stats["decode_steps"]
@@ -1253,7 +1294,8 @@ def where_serving_time_goes(params, steps: int = 3):
     for a, b, nm in spans:
         n, us = by_name.get(nm[:60], (0, 0.0))
         by_name[nm[:60]] = (n + 1, us + b - a)
-    for nm, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+    for nm, (n, us) in sorted(by_name.items(),
+                              key=lambda kv: -kv[1][1])[:top]:
         log(f"      {nm:60s} {n / n_dec:5.1f} per step {us / n_dec:8.1f} us"
             " per step")
 
@@ -1282,7 +1324,8 @@ def layer0_qkv(params, cfg, n_tokens):
     layer = mmodel._unstack(params["blocks"][0], cfg.n_periods)[0]
     x = mlayers.embed_tokens(params["embed"], tokens, cfg)
     h = mlayers.apply_norm(layer["norm1"], x, cfg)
-    q, k, v = mattn._proj_qkv(layer["mixer"], h, cfg)
+    q = mattn._proj_q(layer["mixer"], h, cfg)
+    k, v = mattn._proj_kv(layer["mixer"], h, cfg)
     pos = mmodel._positions_for(cfg, 1, n_tokens, 0, tokens.device)
     rope = mlayers.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
     q, k = mlayers.rotate(q, *rope), mlayers.rotate(k, *rope)
@@ -1631,6 +1674,295 @@ def drive_e2e(params):
 
 
 # ---------------------------------------------------------------------------
+# 11. the other model families at full width
+
+
+# (arch, layers run): one whole period of jamba's pattern, deepseek-v2
+# and arctic cut in depth to fit 80 GB with their serving state, rwkv6-3b
+# and qwen2-vl-2b whole
+FAMILY_RUNS = (("jamba-v0.1-52b", 8), ("deepseek-v2-236b", 2),
+               ("arctic-480b", 1), ("rwkv6-3b", 32), ("qwen2-vl-2b", 28))
+FAMILY_CCFG = PagedCacheConfig(num_slots=4, page_size=16,
+                               max_pages_per_seq=17, num_pages=4 * 17 + 1)
+TWIN_ARCHS = ("arctic-480b", "deepseek-v2-236b", "jamba-v0.1-52b",
+              "rwkv6-3b", "qwen2-vl-2b", "whisper-base")
+# f32 on the card against f32 on the CPU: the same operations, reductions
+# in another order (and the Mamba scan's f32 state carried over steps)
+TWIN_TOL = dict(rtol=1e-4, atol=1e-4)
+WHISPER_DECODE_STEPS = 16
+
+
+def family_requests(cfg, n: int = 8, seed: int = 0):
+    """Prompts of 16-256 tokens (never 2, never above 256: the Mamba
+    scan's chunk rule), 8-16 new tokens each."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, cfg.vocab_size, int(rng.integers(16, 257)))
+             .astype(np.int32), int(rng.integers(8, 17))) for _ in range(n)]
+
+
+def gqa_layers(cfg) -> int:
+    if cfg.attention != "gqa":
+        return 0
+    return cfg.layer_pattern.count("attn") * cfg.n_periods
+
+
+def serve_family(name: str, depth: int):
+    """One config at full width, ``depth`` layers, bf16 weights from seed
+    0 made on the card: ``ServeEngine`` (4 slots, 16-token pages,
+    superstep_k = 4) serves 8 requests; every budget met and every page
+    back, streams equal to a superstep_k = 1 run's, the decode kernel
+    launched exactly once per GQA layer and decode step (zero without
+    GQA layers), and for GQA configs teacher-forced decode logits through
+    the kernel within ``LOGIT_TOL`` of the plain form's. Returns the
+    kernel's launches in the superstep_k = 4 run."""
+    full = get_config(name)
+    cfg = dataclasses.replace(full, n_layers=depth)
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    leaves = tree_flatten(params)[0]
+    n_params = sum(t.numel() for t in leaves)
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{name}: {n_params} parameters, want "
+                             f"{cfg.param_count()}")
+    gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    cut = ("none" if depth == full.n_layers
+           else f"n_layers {full.n_layers} -> {depth}")
+    dtypes = "/".join(sorted({str(t.dtype)[6:] for t in leaves}))
+    log(f"  {name}: {n_params:,} parameters ({gb:.2f} GB, {dtypes}) made on "
+        f"the card in {load_s:.1f} s; reduced: {cut}")
+    reqs = family_requests(cfg)
+    dattn.reset_launches()
+    eng, rids, out = run_engine(params, cfg, reqs, 4, FAMILY_CCFG)
+    launches = dattn.LAUNCHES["paged_flash_decode"]
+    st = eng.stats
+    for rid, (_, budget) in zip(rids, reqs):
+        toks = out[rid]
+        if toks.shape != (budget,) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{name} request {rid}: {toks.shape} "
+                                 f"tokens, budget {budget}")
+    if eng.kv.alloc.n_used or not eng.kv.alloc.check_invariants():
+        raise AssertionError(f"{name}: {eng.kv.alloc.n_used} pages used")
+    want = gqa_layers(cfg) * st["decode_steps"]
+    if launches != want:
+        raise AssertionError(f"{name}: paged_flash_decode launched "
+                             f"{launches} times, want {want}")
+    decode_s = eng.step_s - eng.prefill_s
+    decode_tokens = sum(len(t) - 1 for t in out.values())
+    log(f"    8 requests, {sum(n for _, n in reqs)} tokens, superstep_k=4: "
+        f"{st['decode_steps']} decode steps in {st['supersteps']} "
+        f"supersteps, {st['prefill_calls']} prefill calls; decode "
+        f"{decode_tokens / decode_s:.1f} tok/s, "
+        f"{decode_s / st['decode_steps'] * 1e3:.2f} ms per decode step, "
+        f"prefill {eng.prefill_s / st['prefill_calls'] * 1e3:.1f} ms per "
+        f"call; paged_flash_decode launched {launches} times "
+        f"({gqa_layers(cfg)} GQA layers x {st['decode_steps']} steps)")
+    experts = [t for blk in params["blocks"] if "router" in blk["ffn"]
+               for k, t in blk["ffn"].items()
+               if k in ("w_gate", "w_up", "w_down")]
+    if experts:
+        nbytes = sum(t.numel() * t.element_size() for t in experts)
+        mem_rate = card_peaks(torch.cuda.get_device_name(0))[0]
+        log(f"    routed experts' weights {nbytes / 1e9:.2f} GB: drop-free "
+            "capacity runs every expert, so each decode step reads them "
+            f"all, at least {nbytes / mem_rate * 1e3:.2f} ms at "
+            f"{mem_rate / 1e12:.2f} TB/s")
+    ref, ref_rids, ref_out = run_engine(params, cfg, reqs, 1, FAMILY_CCFG)
+    for a, b in zip(rids, ref_rids):
+        if not np.array_equal(out[a], ref_out[b]):
+            raise AssertionError(f"{name} request {a}: superstep_k=4 and 1 "
+                                 "differ")
+    log(f"    token streams identical to the superstep_k=1 run "
+        f"({ref.stats['decode_steps']} decode steps)")
+    if gqa_layers(cfg):
+        steps = min(n for _, n in reqs)
+        prompts = [p for p, _ in reqs[:FAMILY_CCFG.num_slots]]
+        streams = np.stack([out[r][:steps]
+                            for r in rids[:FAMILY_CCFG.num_slots]])
+        lg = [teacher_forced_logits(params, eng.infer_cfg, prompts, streams,
+                                    impl, FAMILY_CCFG).float()
+              for impl in ("cuda", "plain")]
+        diff = float((lg[0] - lg[1]).abs().max())
+        log(f"    teacher-forced decode, {len(prompts)} slots x {steps} "
+            f"steps: max |logit diff| kernel vs plain {diff:.4f} (logits up "
+            f"to {float(lg[1].abs().max()):.2f}, tolerance {LOGIT_TOL})")
+        if not torch.isfinite(lg[0]).all() or diff > LOGIT_TOL:
+            raise AssertionError(f"{name}: teacher-forced logits, kernel "
+                                 "and plain form disagree")
+    # where a decode step's time goes: 4 slots of 128-token prompts
+    prof_eng = ServeEngine(params, cfg, FAMILY_CCFG, superstep_k=4)
+    rng = np.random.default_rng(3)
+    for _ in range(FAMILY_CCFG.num_slots):
+        prof_eng.submit(rng.integers(0, cfg.vocab_size, 128).astype(
+            np.int32), 16)
+    profile_decode(prof_eng, steps=2, top=4)
+    del params, eng, ref, prof_eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_cache(cfg, prefill, batch, max_len, device):
+    """A dense decode cache of ``max_len`` positions holding a prefill's
+    cache: attention rows copied to the front, state and cross leaves
+    whole."""
+    cache = mmodel.init_cache(cfg, batch, max_len, device=device)
+    for blk, pre in zip(cache, prefill):
+        for part, leaves in blk.items():
+            for leaf_name, leaf in leaves.items():
+                src = pre[part][leaf_name]
+                if part == "mixer" and leaf_name in ("k", "v", "ckv", "kr"):
+                    leaf[:, :, :src.shape[2]] = src
+                else:
+                    leaf.copy_(src)
+    return cache
+
+
+@torch.no_grad()
+def twin_logits(params, cfg, prompt, enc, steps, device, feed=None):
+    """Prefill ``prompt`` (B, S) (with frame embeddings ``enc`` for an
+    encoder-decoder), then ``steps`` dense-cache decode steps, each fed
+    ``feed``'s next token, or the step's own argmax. Returns the prefill's
+    logits, the (steps, B, vocab) decode logits and the tokens fed."""
+    b, s = prompt.shape
+    tok = torch.tensor(prompt, device=device)
+    kw = {} if enc is None else {"enc_embed": torch.tensor(enc,
+                                                           device=device)}
+    logits, _, pre = apply_model(params, tok, cfg, mode="prefill", **kw)
+    cache = dense_cache(cfg, pre, b, s + steps, device)
+    nxt = logits[:, -1].argmax(-1)
+    out, fed = [], []
+    for i in range(steps):
+        cur = (torch.tensor(feed[i], device=device) if feed is not None
+               else nxt)
+        fed.append(cur.cpu().numpy())
+        lg, _, _ = apply_model(params, cur[:, None].int(), cfg,
+                               mode="decode", cache=cache, cache_index=s + i)
+        out.append(lg[:, 0])
+        nxt = lg[:, 0].argmax(-1)
+    return logits, torch.stack(out), np.stack(fed)
+
+
+def whisper_card_vs_cpu():
+    """whisper-base at full size in f32: a prefill over 1,500 random frame
+    embeddings and an 8-token prompt, then 16 dense-cache decode steps
+    fed the CPU's greedy tokens, on the card against the CPU."""
+    cfg = dataclasses.replace(get_config("whisper-base"),
+                              param_dtype="float32", compute_dtype="float32")
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    enc = rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    c_pre, c_dec, fed = twin_logits(params, cfg, prompt, enc,
+                                    WHISPER_DECODE_STEPS, "cpu")
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_pre, g_dec, _ = twin_logits(mmodel.tree_to(params, "cuda"), cfg,
+                                  prompt, enc, WHISPER_DECODE_STEPS, "cuda",
+                                  feed=fed)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    diff = max(float((g_pre.cpu() - c_pre).abs().max()),
+               float((g_dec.cpu() - c_dec).abs().max()))
+    log(f"  whisper-base (full, {cfg.param_count():,} parameters, f32): "
+        f"prefill over {cfg.encoder_seq} frames + {WHISPER_DECODE_STEPS} "
+        f"decode steps, card {gpu_s:.2f} s, CPU {cpu_s:.2f} s; max |logit "
+        f"diff| card vs CPU {diff:.3e} (logits up to "
+        f"{float(c_dec.abs().max()):.2f}, rtol = atol = 1e-4)")
+    for a, b in ((g_pre, c_pre), (g_dec, c_dec)):
+        torch.testing.assert_close(a.cpu(), b, **TWIN_TOL)
+
+
+@torch.no_grad()
+def family_twin(name: str):
+    """The reduced config of ``name`` in f32 on the card and on the CPU:
+    prefill and dense-decode logits within ``TWIN_TOL``; for a
+    decoder-only arch, ``ServeEngine`` streams (4 slots, superstep_k = 4)
+    identical wherever the CPU's top-2 margin exceeds the tolerance.
+    Returns (max |logit diff|, stream positions checked, positions equal
+    up to each stream's first divergence)."""
+    cfg = get_config(name).reduced()
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    gparams = mmodel.tree_to(params, "cuda")
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    enc = (rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32) if cfg.encoder_decoder else None)
+    c_pre, c_dec, fed = twin_logits(params, cfg, prompt, enc, 8, "cpu")
+    g_pre, g_dec, _ = twin_logits(gparams, cfg, prompt, enc, 8, "cuda",
+                                  feed=fed)
+    for a, b in ((g_pre, c_pre), (g_dec, c_dec)):
+        torch.testing.assert_close(a.cpu(), b, **TWIN_TOL)
+    diff = max(float((g_pre.cpu() - c_pre).abs().max()),
+               float((g_dec.cpu() - c_dec).abs().max()))
+    if cfg.encoder_decoder:
+        return diff, 0, 0
+    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(16, 65)))
+             .astype(np.int32), int(rng.integers(8, 17))) for _ in range(8)]
+    ccfg = PagedCacheConfig(num_slots=4, page_size=16, max_pages_per_seq=6,
+                            num_pages=25)
+    outs = []
+    for p, dev in ((params, "cpu"), (gparams, "cuda")):
+        eng = ServeEngine(p, cfg, ccfg, superstep_k=4, device=dev)
+        rids = [eng.submit(q, n) for q, n in reqs]
+        out = eng.run()
+        outs.append([out[r] for r in rids])
+    icfg = eng.infer_cfg
+    checked = same = 0
+    for (prompt_i, _), c_toks, g_toks in zip(reqs, *outs):
+        checked += len(c_toks)
+        if np.array_equal(c_toks, g_toks):
+            same += len(c_toks)
+            continue
+        j = int(np.argmax(c_toks != g_toks))       # the first divergence
+        same += j
+        seq = np.concatenate([prompt_i, c_toks[:j]])[None]
+        lg, _, _ = apply_model(params, torch.tensor(seq), icfg)
+        top2 = lg[0, -1].float().topk(2).values
+        if float(top2[0] - top2[1]) > TWIN_TOL["atol"]:
+            raise AssertionError(f"{name}: card and CPU streams diverge at a "
+                                 "clear top-2 margin")
+    return diff, checked, same
+
+
+def drive_families():
+    """Phase 11: the five served configs at full width, whisper-base on
+    the card against the CPU, and the reduced CPU twin of every new
+    family. Returns the decode kernel's launches (the served configs'
+    superstep_k = 4 runs)."""
+    t_all = time.perf_counter()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    total = 0
+    for name, depth in FAMILY_RUNS:
+        cfg = get_config(name)
+        if gqa_layers(cfg):
+            plan = dattn.split_plan(FAMILY_CCFG.num_slots, cfg.n_kv_heads,
+                                    FAMILY_CCFG.max_pages_per_seq,
+                                    FAMILY_CCFG.page_size, n_sm)
+            log(f"  {name}: decode kernel at G = "
+                f"{cfg.n_heads // cfg.n_kv_heads} (H = {cfg.n_heads}, Hkv "
+                f"= {cfg.n_kv_heads}, D = {cfg.resolved_head_dim}), split "
+                f"plan {plan}")
+        t0 = time.perf_counter()
+        total += serve_family(name, depth)
+        log(f"    {name} in {time.perf_counter() - t0:.1f} s")
+    whisper_card_vs_cpu()
+    for name in TWIN_ARCHS:
+        diff, checked, same = family_twin(name)
+        streams = (f"served streams equal at {same} of {checked} positions "
+                   "(any divergence at a CPU top-2 margin within the "
+                   "tolerance)" if checked else "not paged (encoder-decoder)")
+        log(f"  CPU twin {name} (reduced, f32): max |logit diff| card vs "
+            f"CPU {diff:.3e}; {streams}")
+    log(f"  phase 11 in {time.perf_counter() - t_all:.1f} s; "
+        f"paged_flash_decode launched {total} times")
+    return {"paged_flash_decode": total}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1708,6 +2040,15 @@ def main() -> int:
         "full width")
     for k, c in drive_e2e(params).items():
         counts[k] += c
+    del params
+    torch.cuda.empty_cache()
+
+    log("== 11. the other model families at full width: jamba, deepseek-v2, "
+        "arctic, rwkv6, qwen2-vl served; whisper and the CPU twins")
+    for k, c in drive_families().items():
+        counts[k] += c
+
+    log("== 12. result")
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

@@ -1,17 +1,23 @@
-"""Attention: grouped-query attention with optional QKV bias, its KV
-caches and the paged decode (counterpart of the GQA half of
+"""Attention: grouped-query attention with optional QKV bias and its
+cross-attention branch, DeepSeek's multi-head latent attention (MLA),
+their KV caches and the paged decode (counterpart of
 ``repro.models.attention``).
 
 Prefill and training attention are plain torch matmuls and a f32
 softmax (``plain_attention``; ``chunked_attention`` above 2048 tokens),
-as the reference computes them outside any Pallas kernel. Paged decode
-attends through ``kernels/ops.paged_decode_attention``: the hand-written
-CUDA kernel for a CUDA tensor, its plain form for a CPU tensor.
+as the reference computes them outside any Pallas kernel. GQA's paged
+decode attends through ``kernels/ops.paged_decode_attention``: the
+hand-written CUDA kernel for a CUDA tensor, its plain form for a CPU
+tensor. MLA's absorbed decode scores in latent space over pages gathered
+by ``_paged_read``, and cross-attention reads the encoder's K/V: both
+torch operations, as in the reference (its latent width of 512 is past
+the decode kernel's head dim too).
 
 Caches are written in place (``index_put_`` without accumulate, where the
 reference returns an updated copy or donates the buffer), so a decode
-step allocates no new pool. Cross-attention, ``_paged_read`` and MLA wait
-for the model families that use them (ROADMAP Queue 1 item 6).
+step allocates no new pool. MLA under a serving mesh (the reference's
+``_mla_tp_shard``) comes with ROADMAP Queue 1 item 9; without a mesh it
+is the identity.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, param_dtype, rotate
+from repro_torch.models.layers import (apply_rope, dense_init,
+                                       param_dtype, rotate)
 
 PLAIN_MAX_SEQ = 2048          # above this, use chunked online-softmax
 CHUNK = 1024
@@ -110,15 +117,22 @@ def init_gqa(gen, cfg: ArchConfig, device):
     return p
 
 
-def _proj_qkv(p, x, cfg: ArchConfig):
-    hd = cfg.resolved_head_dim
+def _proj_q(p, x, cfg: ArchConfig):
     b, s, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q = x @ p["wq"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, s, cfg.n_heads, hd),
-            k.reshape(b, s, cfg.n_kv_heads, hd),
-            v.reshape(b, s, cfg.n_kv_heads, hd))
+        q = q + p["bq"]
+    return q.reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
+
+
+def _proj_kv(p, kv_x, cfg: ArchConfig):
+    b, t, _ = kv_x.shape
+    k, v = kv_x @ p["wk"], kv_x @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    hd = cfg.resolved_head_dim
+    return (k.reshape(b, t, cfg.n_kv_heads, hd),
+            v.reshape(b, t, cfg.n_kv_heads, hd))
 
 
 def _paged_append(pool, new, page_table, lens, ps: int) -> None:
@@ -132,13 +146,25 @@ def _paged_append(pool, new, page_table, lens, ps: int) -> None:
     pool.index_put_((phys, (lens % ps).long()), new.to(pool.dtype))
 
 
-def apply_gqa(p, x, cfg: ArchConfig, *, rope=None, cache=None,
+def _paged_read(pool, page_table):
+    """A contiguous (B, Pmax*PS, ...) gather of a paged leaf; table
+    entries of -1 read page 0. MLA's absorbed decode reads its latent
+    pages this way (GQA's goes through the decode kernel)."""
+    g = pool[torch.clamp(page_table, min=0).long()]   # (B, Pmax, PS, ...)
+    return g.reshape(g.shape[0], -1, *g.shape[3:])
+
+
+def apply_gqa(p, x, cfg: ArchConfig, *, rope=None, kv_x=None, cache=None,
               cache_index=None, causal=True, return_cache=False,
               page_table=None, impl: str = "auto"):
-    """Self-attention of a decoder layer.
+    """Self- or cross-attention.
 
-    - training: cache=None, full sequence.
-    - prefill: return_cache=True -> also returns {"k", "v"} (B, S, Hkv, hd).
+    - training / encoder: cache=None, full sequence.
+    - prefill: return_cache=True -> also returns {"k", "v"} (B, S, Hkv,
+      hd), or {"ck", "cv"} over the encoder's T tokens for cross-attention.
+    - cross-attention: ``kv_x`` (B, T, d) the encoder output; or, in
+      decode, a cache holding the encoder's ``ck``/``cv`` (returned as
+      it is).
     - decode: cache given + cache_index -> one-token step, the cache
       written in place. cache_index is a scalar (all rows at one
       position) or a (B,) vector of per-sequence lengths.
@@ -147,18 +173,34 @@ def apply_gqa(p, x, cfg: ArchConfig, *, rope=None, cache=None,
       cache_index is the (B,) lengths. ``impl`` picks the attention form.
 
     ``rope`` is the (cos, sin) pair of ``layers.rope_cos_sin`` for this
-    call's positions, or None for an arch without rotary positions.
+    call's positions, or None for an arch without rotary positions (and
+    for cross-attention).
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     g = cfg.n_heads // cfg.n_kv_heads
-    q, k_new, v_new = _proj_qkv(p, x, cfg)
-    if rope is not None:
-        q, k_new = rotate(q, *rope), rotate(k_new, *rope)
 
     def expand_kv(t):
         return torch.repeat_interleave(t, g, dim=2) if g > 1 else t
 
+    def project_out(out):
+        return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+
+    q = _proj_q(p, x, cfg)
+    if cache is not None and "ck" in cache:
+        # cross-attention against the cached encoder K/V
+        out = plain_attention(q, expand_kv(cache["ck"]),
+                              expand_kv(cache["cv"]), causal=False)
+        return project_out(out), cache
+    if kv_x is not None:
+        k, v = _proj_kv(p, kv_x, cfg)
+        out = attention_math(q, expand_kv(k), expand_kv(v), causal=False)
+        return project_out(out), ({"ck": k, "cv": v} if return_cache
+                                  else None)
+
+    k_new, v_new = _proj_kv(p, x, cfg)
+    if rope is not None:
+        q, k_new = rotate(q, *rope), rotate(k_new, *rope)
     new_cache = None
     if cache is not None and cache_index is not None:
         if "k_pages" in cache:
@@ -170,21 +212,9 @@ def apply_gqa(p, x, cfg: ArchConfig, *, rope=None, cache=None,
             out = ops.paged_decode_attention(
                 q[:, 0].contiguous(), kp, vp, page_table, lens + 1,
                 impl=impl)[:, None]                   # (B, 1, H, hd)
-            y = out.to(x.dtype).reshape(b, s, -1) @ p["wo"]
-            return y, cache
+            return project_out(out.to(x.dtype)), cache
         k, v = cache["k"], cache["v"]
-        idx = torch.as_tensor(cache_index, device=x.device)
-        if idx.dim():
-            # ragged continuous batch: each row writes at its own length
-            rows = torch.arange(b, device=x.device)
-            k.index_put_((rows, idx.long()), k_new[:, 0].to(k.dtype))
-            v.index_put_((rows, idx.long()), v_new[:, 0].to(v.dtype))
-            kv_len = idx + 1
-        else:
-            i = int(idx)
-            k[:, i:i + s] = k_new.to(k.dtype)
-            v[:, i:i + s] = v_new.to(v.dtype)
-            kv_len = torch.full((b,), i + 1, device=x.device)
+        kv_len = _write_decode(cache_index, b, s, (k, k_new), (v, v_new))
         out = plain_attention(q, expand_kv(k), expand_kv(v), causal=False,
                               kv_len=kv_len)
         new_cache = cache
@@ -193,5 +223,110 @@ def apply_gqa(p, x, cfg: ArchConfig, *, rope=None, cache=None,
                              causal=causal)
         if return_cache:
             new_cache = {"k": k_new, "v": v_new}
-    y = out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
-    return y, new_cache
+    return project_out(out), new_cache
+
+
+def _write_decode(cache_index, b: int, s: int, *pairs):
+    """Write each (dense cache (B, T, ...), new rows (B, S, ...)) pair at
+    ``cache_index``, in place: a (B,) vector writes row b's one token at
+    its own length (a ragged continuous batch), a scalar writes all rows'
+    S tokens at one position. Returns the (B,) valid lengths."""
+    dev = pairs[0][0].device
+    idx = torch.as_tensor(cache_index, device=dev)
+    if idx.dim():
+        rows = torch.arange(b, device=dev)
+        for buf, new in pairs:
+            buf.index_put_((rows, idx.long()), new[:, 0].to(buf.dtype))
+        return idx + 1
+    i = int(idx)
+    for buf, new in pairs:
+        buf[:, i:i + s] = new.to(buf.dtype)
+    return torch.full((b,), i + 1, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek MLA
+
+
+def init_mla(gen, cfg: ArchConfig, device):
+    m = cfg.mla
+    d, dt, h = cfg.d_model, param_dtype(cfg), cfg.n_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": dense_init(gen, d, m.q_lora_rank, dt, device),
+        "q_norm": torch.ones(m.q_lora_rank, dtype=dt, device=device),
+        "w_uq": dense_init(gen, m.q_lora_rank, h * qd, dt, device),
+        "w_dkv": dense_init(gen, d, m.kv_lora_rank, dt, device),
+        "kv_norm": torch.ones(m.kv_lora_rank, dtype=dt, device=device),
+        "w_kr": dense_init(gen, d, m.qk_rope_head_dim, dt, device),
+        "w_uk": dense_init(gen, m.kv_lora_rank, h * m.qk_nope_head_dim, dt,
+                           device).reshape(m.kv_lora_rank, h,
+                                           m.qk_nope_head_dim),
+        "w_uv": dense_init(gen, m.kv_lora_rank, h * m.v_head_dim, dt,
+                           device).reshape(m.kv_lora_rank, h, m.v_head_dim),
+        "wo": dense_init(gen, h * m.v_head_dim, d, dt, device),
+    }
+
+
+def _rms(x, scale):
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-6)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def apply_mla(p, x, cfg: ArchConfig, *, positions, cache=None,
+              cache_index=None, return_cache=False, page_table=None):
+    """Multi-head latent attention. Train and prefill materialise
+    per-head K (nope + rope dims) and V; prefill caches the normed latent
+    ``ckv`` (B, S, rank) and the roped key ``kr`` (B, S, rope). Decode
+    (dense ``ckv``/``kr`` or paged ``ckv_pages``/``kr_pages``, written in
+    place) absorbs ``w_uk`` into the query and ``w_uv`` into the output,
+    so scores and values stay in latent space."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rp, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+
+    cq = _rms(x @ p["w_dq"], p["q_norm"])
+    q = (cq @ p["w_uq"]).reshape(b, s, h, nope + rp)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv_new = _rms(x @ p["w_dkv"], p["kv_norm"])
+    kr_new = apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+
+    if cache is not None and cache_index is not None:
+        if "ckv_pages" in cache:
+            lens = cache_index
+            ckv_p, kr_p = cache["ckv_pages"], cache["kr_pages"]
+            ps = ckv_p.shape[1]
+            _paged_append(ckv_p, ckv_new[:, 0], page_table, lens, ps)
+            _paged_append(kr_p, kr_new[:, 0], page_table, lens, ps)
+            ckv = _paged_read(ckv_p, page_table)     # (B, Pmax*PS, rank)
+            kr = _paged_read(kr_p, page_table)
+            kv_len = lens + 1
+        else:
+            ckv, kr = cache["ckv"], cache["kr"]
+            kv_len = _write_decode(cache_index, b, s, (ckv, ckv_new),
+                                   (kr, kr_new))
+        t = ckv.shape[1]
+        q_abs = torch.einsum("bshn,lhn->bshl", q_nope, p["w_uk"])
+        scores = (torch.einsum("bshl,btl->bhst", q_abs, ckv)
+                  + torch.einsum("bshr,btr->bhst", q_rope, kr)
+                  ).to(torch.float32) * (nope + rp) ** -0.5
+        mask = torch.arange(t, device=x.device)[None, :] < kv_len[:, None]
+        scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        out_lat = torch.einsum("bhst,btl->bshl", w, ckv)
+        out = torch.einsum("bshl,lhv->bshv", out_lat, p["w_uv"])
+        new_cache = cache
+    else:
+        k_nope = torch.einsum("btl,lhn->bthn", ckv_new, p["w_uk"])
+        v = torch.einsum("btl,lhv->bthv", ckv_new, p["w_uv"])
+        k = torch.cat([k_nope, kr_new[:, :, None, :].expand(b, s, h, rp)],
+                      dim=-1)
+        out = attention_math(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                             causal=True)
+        new_cache = ({"ckv": ckv_new, "kr": kr_new} if return_cache
+                     else None)
+    return out.reshape(b, s, h * vd).to(x.dtype) @ p["wo"], new_cache

@@ -35,8 +35,10 @@ def param_dtype(cfg: ArchConfig) -> torch.dtype:
 def _normal(gen: torch.Generator, shape, std: float, dtype, device):
     if torch.device(device).type == "meta":      # shapes only, no draw
         return torch.empty(shape, dtype=dtype, device="meta")
+    # scaled in place: one f32 draw alive at a time (an arctic expert
+    # stack is 17.8 GB in f32)
     x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32) * std
+                    dtype=torch.float32).mul_(std)
     return x.to(device=device, dtype=dtype)
 
 
@@ -72,6 +74,17 @@ def apply_norm(p, x, cfg: ArchConfig, eps: float = 1e-6):
         ms = xf.square().mean(-1, keepdim=True)
         y = xf * torch.rsqrt(ms + eps) * p["scale"].to(torch.float32)
     return y.to(x.dtype)
+
+
+def apply_group_norm(x, eps: float = 1e-6):
+    """Head-wise group norm without learned parameters (RWKV-6's wkv
+    output norm): x (B, T, H, D) normalised over D in f32, cast back (the
+    reference's ``n_groups`` argument is unused there: the head axis
+    already groups)."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,21 @@
-"""Model assembly for dense decoders: init / train-forward / prefill /
-decode (counterpart of the dense half of ``repro.models.model``), and the
-losses.
+"""Model assembly: any ``ArchConfig`` -> init / train-forward / prefill /
+decode (counterpart of ``repro.models.model``), and the losses.
 
 Parameters and caches keep the reference's pytree: ``params["blocks"]``
-and every cache are tuples over the layer pattern's positions whose
-leaves carry a leading ``n_periods`` axis (one entry per layer here,
-since a dense decoder's pattern is ``("attn",)``), with JAX's
-``(d_in, d_out)`` weight layouts. ``params_from_jax`` therefore carries a
-JAX parameter tree over leaf for leaf, and both packages compute the same
-function. Where the reference scans the stack with ``lax.scan``, the
-port loops over the layers, each reading views of the stacked leaves.
+and every cache are tuples over the layer pattern's positions (jamba:
+8, every other arch: 1) whose leaves carry a leading ``n_periods`` axis,
+with JAX's ``(d_in, d_out)`` weight layouts, so ``params_from_jax``
+carries a JAX parameter tree over leaf for leaf and both packages
+compute the same function. Where the reference scans the periods with
+``lax.scan``, the port loops over them, each layer reading views of the
+stacked leaves. A decode writes its cache in place (attention KV, MLA
+latents, Mamba and RWKV state) and returns it.
 
-Ported so far: layer pattern ``("attn",)`` with GQA and a dense MLP
-(qwen2, qwen1.5, yi). MoE, MLA, SSM/RWKV, hybrid and encoder-decoder
-models raise ``NotImplementedError`` (ROADMAP Queue 1 item 6).
+Layer kinds: ``attn`` (GQA, or MLA where ``cfg.attention == "mla"``),
+``mamba`` and ``rwkv``; FFNs: dense MLP, MoE (on the layers
+``cfg.moe_on_layer`` picks) or RWKV's channel mix; encoder-decoder archs
+(whisper) add a cross-attention block to each decoder layer and run the
+encoder over ``enc_embed``.
 """
 from __future__ import annotations
 
@@ -27,34 +29,49 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve as resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for an architecture the port does not model yet."""
-    if (cfg.layer_pattern != ("attn",) or cfg.attention != "gqa"
-            or cfg.moe is not None or cfg.encoder_decoder):
-        raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders are ported; MoE, MLA, "
-            "SSM/RWKV, hybrid and encoder-decoder models come with ROADMAP "
-            "Queue 1 item 6")
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 
 # ---------------------------------------------------------------------------
 # init
 
 
-def _init_layer(gen, cfg: ArchConfig, device):
-    return {"norm1": L.init_norm(cfg, device),
-            "norm2": L.init_norm(cfg, device),
-            "mixer": A.init_gqa(gen, cfg, device),
-            "ffn": L.init_mlp(gen, cfg, device)}
+def _init_layer(gen, cfg: ArchConfig, kind: str, layer_idx: int, device,
+                cross: bool = False):
+    p: Dict[str, Any] = {"norm1": L.init_norm(cfg, device),
+                         "norm2": L.init_norm(cfg, device)}
+    if kind == "attn":
+        p["mixer"] = (A.init_mla(gen, cfg, device) if cfg.attention == "mla"
+                      else A.init_gqa(gen, cfg, device))
+    elif kind == "mamba":
+        p["mixer"] = S.init_mamba(gen, cfg, device)
+    elif kind == "rwkv":
+        p["mixer"] = S.init_rwkv(gen, cfg, device)
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    if kind == "rwkv":
+        p["ffn"] = S.init_rwkv_channel(gen, cfg, device)
+    elif cfg.moe_on_layer(layer_idx):            # the global layer index
+        p["ffn"] = M.init_moe(gen, cfg, cfg.moe, device)
+    else:
+        p["ffn"] = L.init_mlp(gen, cfg, device)
+    if cross:
+        p["norm_x"] = L.init_norm(cfg, device)
+        p["cross"] = A.init_gqa(gen, cfg, device)
+    return p
 
 
 def _stack(per_layer):
-    """[layer0_params, layer1_params, ...] -> leaves stacked on axis 0."""
+    """[layer0_tree, layer1_tree, ...] (parameters or prefill caches) ->
+    leaves stacked on axis 0. Empties the per-layer trees leaf by leaf as
+    it goes, so at most one leaf is held twice (one layer: a view, no
+    copy)."""
     first = per_layer[0]
     if isinstance(first, dict):
-        return {k: _stack([p[k] for p in per_layer]) for k in first}
+        return {k: _stack([p.pop(k) for p in per_layer]) for k in list(first)}
+    if len(per_layer) == 1:
+        return first[None]
     return torch.stack(per_layer)
 
 
@@ -69,19 +86,32 @@ def _unstack(tree, n: int):
 def init_model(generator: Optional[torch.Generator], cfg: ArchConfig,
                device="cuda", max_pos: int = 32768):
     """Random weights with the reference's distributions (normal weights
-    scaled by 1/sqrt(d_in), embeddings by 0.02, unit norms, zero biases),
-    drawn in f32 on the generator's device, then cast to ``param_dtype``
-    and moved to ``device``. ``device="meta"`` builds the shapes only (no
-    generator needed)."""
-    check_supported(cfg)
+    scaled by 1/sqrt(d_in), embeddings by 0.02, unit norms, zero biases,
+    the SSM and router leaves in f32), each leaf drawn in f32 on the
+    generator's device, then cast to ``param_dtype`` and moved to
+    ``device``. ``device="meta"`` builds the shapes only (no generator
+    needed)."""
     device = resolve_device(device)
+    dt = L.param_dtype(cfg)
     params: Dict[str, Any] = {"embed": L.init_embed(generator, cfg, device)}
     if cfg.rope == "learned":
         params["embed"]["pos"] = L._normal(generator, (max_pos, cfg.d_model),
-                                           0.01, L.param_dtype(cfg), device)
-    params["blocks"] = (_stack([_init_layer(generator, cfg, device)
-                                for _ in range(cfg.n_periods)]),)
+                                           0.01, dt, device)
+    period = cfg.period
+    params["blocks"] = tuple(
+        _stack([_init_layer(generator, cfg, kind, pi * period + pos, device,
+                            cross=cfg.encoder_decoder)
+                for pi in range(cfg.n_periods)])
+        for pos, kind in enumerate(cfg.layer_pattern))
     params["norm_f"] = L.init_norm(cfg, device)
+    if cfg.encoder_decoder:
+        params["encoder"] = _stack([
+            _init_layer(generator, cfg, "attn", li, device)
+            for li in range(cfg.encoder_layers)])
+        params["enc_norm_f"] = L.init_norm(cfg, device)
+        params["enc_pos"] = L._normal(generator,
+                                      (cfg.encoder_seq, cfg.d_model), 0.01,
+                                      dt, device)
     return params
 
 
@@ -110,16 +140,142 @@ def tree_to(tree, device):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
-    """Dense decode cache: per pattern position {"mixer": {"k", "v"}:
-    (n_periods, B, max_len, Hkv, hd), "ffn": {}} in the compute dtype."""
-    check_supported(cfg)
+    """Dense decode cache, a tuple over the pattern's positions of
+    {"mixer", "ffn"[, "cross"]}, each leaf with a leading n_periods axis:
+    GQA k/v (P, B, max_len, Hkv, hd) and MLA ckv/kr (P, B, max_len,
+    rank|rope) in the compute dtype; Mamba h (P, B, di, N) in f32 and
+    conv (P, B, K-1, di); RWKV wkv (P, B, H, D, D) in f32, tm_x and the
+    channel mix's cm_x (P, B, d); whisper's cross ck/cv over the
+    encoder's frames."""
     device = resolve_device(device)
-    shape = (cfg.n_periods, batch, max_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
     dt = L.torch_dtype(cfg.compute_dtype)
-    return ({"mixer": {"k": torch.zeros(shape, dtype=dt, device=device),
-                       "v": torch.zeros(shape, dtype=dt, device=device)},
-             "ffn": {}},)
+    P = cfg.n_periods
+    hd = cfg.resolved_head_dim
+
+    def z(*shape, d=dt):
+        return torch.zeros((P, batch) + shape, dtype=d, device=device)
+
+    blocks = []
+    for kind in cfg.layer_pattern:
+        ffn = {}
+        if kind == "attn" and cfg.attention == "mla":
+            mix = {"ckv": z(max_len, cfg.mla.kv_lora_rank),
+                   "kr": z(max_len, cfg.mla.qk_rope_head_dim)}
+        elif kind == "attn":
+            mix = {"k": z(max_len, cfg.n_kv_heads, hd),
+                   "v": z(max_len, cfg.n_kv_heads, hd)}
+        elif kind == "mamba":
+            di = cfg.ssm.expand * cfg.d_model
+            mix = {"h": z(di, cfg.ssm.d_state, d=torch.float32),
+                   "conv": z(cfg.ssm.d_conv - 1, di)}
+        elif kind == "rwkv":
+            h, rd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+            mix = {"wkv": z(h, rd, rd, d=torch.float32),
+                   "tm_x": z(cfg.d_model)}
+            ffn = {"cm_x": z(cfg.d_model)}
+        else:
+            raise ValueError(f"unknown layer kind {kind!r}")
+        blk = {"mixer": mix, "ffn": ffn}
+        if cfg.encoder_decoder:
+            blk["cross"] = {"ck": z(cfg.encoder_seq, cfg.n_kv_heads, hd),
+                            "cv": z(cfg.encoder_seq, cfg.n_kv_heads, hd)}
+        blocks.append(blk)
+    return tuple(blocks)
+
+
+# ---------------------------------------------------------------------------
+# layer application
+
+
+def _apply_mixer(p, x, kind, cfg, *, positions, rope, cache, cache_index,
+                 return_cache, page_table, impl):
+    if kind == "attn" and cfg.attention == "mla":
+        return A.apply_mla(p, x, cfg, positions=positions, cache=cache,
+                           cache_index=cache_index,
+                           return_cache=return_cache, page_table=page_table)
+    if kind == "attn":
+        return A.apply_gqa(p, x, cfg, rope=rope, cache=cache,
+                           cache_index=cache_index,
+                           return_cache=return_cache, page_table=page_table,
+                           impl=impl)
+    if kind == "mamba":
+        return S.apply_mamba(p, x, cfg, cache=cache,
+                             return_cache=return_cache)
+    if kind == "rwkv":
+        return S.apply_rwkv_time(p, x, cfg, cache=cache,
+                                 return_cache=return_cache)
+    raise ValueError(f"unknown layer kind {kind!r}")
+
+
+def _apply_layer(p, x, kind, cfg, *, layer_idx, positions, rope,
+                 moe_groups, cache=None, cache_index=None,
+                 return_cache=False, enc_out=None, page_table=None,
+                 impl="auto"):
+    """Returns (x, aux, new_cache); aux is the MoE load-balance loss, or
+    None for a layer without MoE (the reference adds a zero). ``layer_idx``
+    is the position in the pattern, as in the reference's forward (its
+    init passes the global index: the two agree for every registered
+    arch)."""
+    h = L.apply_norm(p["norm1"], x, cfg)
+    y, new_mix = _apply_mixer(p["mixer"], h, kind, cfg, positions=positions,
+                              rope=rope,
+                              cache=cache["mixer"] if cache else None,
+                              cache_index=cache_index,
+                              return_cache=return_cache,
+                              page_table=page_table, impl=impl)
+    x = x + y
+
+    new_cross = None
+    if enc_out is not None or (cache and "cross" in cache
+                               and cfg.encoder_decoder):
+        hx = L.apply_norm(p["norm_x"], x, cfg)
+        if cache is not None and cache_index is not None:
+            y, new_cross = A.apply_gqa(p["cross"], hx, cfg,
+                                       cache=cache["cross"], causal=False)
+        else:
+            y, new_cross = A.apply_gqa(p["cross"], hx, cfg, kv_x=enc_out,
+                                       causal=False,
+                                       return_cache=return_cache)
+        x = x + y
+
+    aux = None
+    h = L.apply_norm(p["norm2"], x, cfg)
+    new_ffn = {}
+    if kind == "rwkv":
+        y, new_ffn = S.apply_rwkv_channel(
+            p["ffn"], h, cfg, cache=cache["ffn"] if cache else None,
+            return_cache=return_cache)
+    elif cfg.moe_on_layer(layer_idx):
+        y, aux = M.apply_moe(p["ffn"], h, cfg, cfg.moe, n_groups=moe_groups)
+    else:
+        y = L.apply_mlp(p["ffn"], h, cfg)
+    x = x + y
+
+    new_cache = None
+    if return_cache or (cache is not None and cache_index is not None):
+        new_cache = {"mixer": new_mix or {}, "ffn": new_ffn or {}}
+        if cfg.encoder_decoder:
+            new_cache["cross"] = new_cross or (cache["cross"] if cache
+                                               else {})
+    return x, aux, new_cache
+
+
+# ---------------------------------------------------------------------------
+# encoder (whisper)
+
+
+def _apply_encoder(params, enc_embed, cfg: ArchConfig):
+    """Bidirectional encoder over frame embeddings (B, T, d) with learned
+    positions; the stacked encoder layers' cross leaves (none) unused."""
+    x = enc_embed.to(L.torch_dtype(cfg.compute_dtype))
+    x = x + params["enc_pos"][None, :x.shape[1]].to(x.dtype)
+    for lp in _unstack(params["encoder"], cfg.encoder_layers):
+        y, _ = A.apply_gqa(lp["mixer"], L.apply_norm(lp["norm1"], x, cfg),
+                           cfg, causal=False)
+        x = x + y
+        x = x + L.apply_mlp(lp["ffn"], L.apply_norm(lp["norm2"], x, cfg),
+                            cfg)
+    return L.apply_norm(params["enc_norm_f"], x, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -136,8 +292,9 @@ def _positions_for(cfg: ArchConfig, b: int, s: int, offset, device):
     return pos
 
 
-def apply_model(params, tokens, cfg: ArchConfig, *, cache=None,
-                cache_index=None, mode: str = "train", logits_chunk: int = 0,
+def apply_model(params, tokens, cfg: ArchConfig, *, enc_embed=None,
+                cache=None, cache_index=None, mode: str = "train",
+                moe_groups: int = 1, logits_chunk: int = 0,
                 page_table=None, impl: str = "auto"):
     """Returns (logits, aux_loss, new_cache).
 
@@ -145,13 +302,14 @@ def apply_model(params, tokens, cfg: ArchConfig, *, cache=None,
     cache), "decode" (tokens (B, 1), cache + cache_index required;
     cache_index is a scalar or the (B,) per-sequence lengths, and with a
     paged cache ``page_table`` (B, Pmax) routes attention through the page
-    pools). A decode writes the cache in place and returns it. With
-    ``logits_chunk`` (prefill/train) the final normed hidden states come
-    back in place of the logits, for a caller that unembeds only some
-    positions. ``impl`` picks the paged-decode attention form
-    (``kernels/ops.py``).
+    pools). A decode writes the cache in place and returns it.
+    ``enc_embed`` (B, T, d) runs an encoder-decoder's encoder (train and
+    prefill; decode reads the cached cross K/V). ``moe_groups`` splits
+    the tokens into MoE dispatch groups. With ``logits_chunk``
+    (prefill/train) the final normed hidden states come back in place of
+    the logits, for a caller that unembeds only some positions. ``impl``
+    picks the GQA paged-decode attention form (``kernels/ops.py``).
     """
-    check_supported(cfg)
     b, s = tokens.shape
     decode, prefill = mode == "decode", mode == "prefill"
     positions = _positions_for(cfg, b, s, cache_index if decode else 0,
@@ -165,31 +323,31 @@ def apply_model(params, tokens, cfg: ArchConfig, *, cache=None,
                               cfg.rope_theta,
                               cfg.mrope_sections if cfg.rope == "mrope"
                               else None)
+    enc_out = None
+    if cfg.encoder_decoder and enc_embed is not None:
+        enc_out = _apply_encoder(params, enc_embed, cfg)
 
-    layers = _unstack(params["blocks"][0], cfg.n_periods)
-    mix_cache = cache[0]["mixer"] if cache is not None else None
-    new_k, new_v = [], []
-    for i, lp in enumerate(layers):
-        layer_cache = ({k: leaf[i] for k, leaf in mix_cache.items()}
-                       if mix_cache is not None else None)
-        h = L.apply_norm(lp["norm1"], x, cfg)
-        y, nc = A.apply_gqa(lp["mixer"], h, cfg, rope=rope,
-                            cache=layer_cache,
-                            cache_index=cache_index if decode else None,
-                            return_cache=prefill,
-                            page_table=page_table if decode else None,
-                            impl=impl)
-        x = x + y
-        x = x + L.apply_mlp(lp["ffn"], L.apply_norm(lp["norm2"], x, cfg),
-                            cfg)
-        if prefill:
-            new_k.append(nc["k"])
-            new_v.append(nc["v"])
+    pattern = cfg.layer_pattern
+    blocks = [_unstack(bp, cfg.n_periods) for bp in params["blocks"]]
+    caches = (None if cache is None
+              else [_unstack(c, cfg.n_periods) for c in cache])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = [[] for _ in pattern]
+    for pi in range(cfg.n_periods):
+        for pos, kind in enumerate(pattern):
+            x, a, nc = _apply_layer(
+                blocks[pos][pi], x, kind, cfg, layer_idx=pos,
+                positions=positions, rope=rope, moe_groups=moe_groups,
+                cache=caches[pos][pi] if cache is not None else None,
+                cache_index=cache_index if decode else None,
+                return_cache=prefill, enc_out=enc_out,
+                page_table=page_table if decode else None, impl=impl)
+            if a is not None:
+                aux = aux + a
+            new_caches[pos].append(nc)
     new_cache = None
     if prefill:
-        new_cache = ({"mixer": {"k": torch.stack(new_k),
-                                "v": torch.stack(new_v)}, "ffn": {}},)
+        new_cache = tuple(_stack(ncs) for ncs in new_caches)
     elif decode:
         new_cache = cache
     x = L.apply_norm(params["norm_f"], x, cfg)
@@ -230,8 +388,8 @@ def classifier_loss(logits, labels, weights):
 def count_params(cfg: ArchConfig, active_only: bool = False,
                  max_pos: int = 32768) -> int:
     """Total parameters, embeddings included, from the shapes alone
-    (``init_model`` on the meta device). ``active_only`` differs from the
-    total only for MoE, which is not ported yet."""
+    (``init_model`` on the meta device). ``active_only`` leaves out each
+    MoE layer's experts a token does not route to (all but top_k)."""
     shapes = init_model(None, cfg, device="meta", max_pos=max_pos)
 
     def leaves(t):
@@ -241,4 +399,10 @@ def count_params(cfg: ArchConfig, active_only: bool = False,
             return [x for v in t for x in leaves(v)]
         return [t]
 
-    return sum(math.prod(t.shape) for t in leaves(shapes))
+    total = sum(math.prod(t.shape) for t in leaves(shapes))
+    if active_only and cfg.moe is not None:
+        moe = cfg.moe
+        n_moe = sum(1 for i in range(cfg.n_layers) if cfg.moe_on_layer(i))
+        per_expert = 3 * cfg.d_model * moe.d_ff_expert
+        total -= n_moe * (moe.num_experts - moe.top_k) * per_expert
+    return total

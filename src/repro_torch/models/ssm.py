@@ -1,0 +1,323 @@
+"""State-space mixers: Mamba-1 selective scan (Jamba) and RWKV-6 Finch
+(counterpart of ``repro.models.ssm``).
+
+Training and prefill scan the sequence in chunks of ``SCAN_CHUNK``: a
+log-depth (doubling) scan inside each chunk, then one carry from chunk
+to chunk; decode is one O(1) state update, written into the cache in
+place. RWKV-6's WKV recurrence is the sequential per-token scan, or the
+chunked matmul form where ``RWKVConfig.chunk`` asks for it. All plain
+torch, as the reference computes them outside any Pallas kernel. The
+doubling scan sums in another order than ``lax.associative_scan``, so it
+agrees with the reference within f32 rounding, not bit for bit.
+
+The reference's limits are kept, not repaired: a Mamba scan over S
+tokens needs ``S % min(SCAN_CHUNK, S) == 0``, and a prefill's conv tail
+holds ``min(S, d_conv - 1)`` rows (ROADMAP Queue 3).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import (_normal, apply_group_norm,
+                                       dense_init, param_dtype)
+
+SCAN_CHUNK = 256
+
+
+# ---------------------------------------------------------------------------
+# linear-recurrence helpers
+
+
+def chunked_linear_scan(a, b, h0, chunk: int = SCAN_CHUNK):
+    """h_t = a_t * h_{t-1} + b_t along axis 1 of (B, S, ...).
+
+    Returns (h_all (B, S, ...), h_last). Raises where the reference's
+    assert fails: S not a multiple of min(chunk, S)."""
+    s = a.shape[1]
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"linear scan over {s} steps needs a multiple of "
+                         f"the chunk {c}")
+    hs, h = [], h0
+    for i in range(s // c):
+        pa, pb = a[:, i * c:(i + 1) * c], b[:, i * c:(i + 1) * c]
+        off = 1
+        while off < c:            # inclusive scan by doubling
+            pa, pb = (torch.cat([pa[:, :off], pa[:, off:] * pa[:, :-off]], 1),
+                      torch.cat([pb[:, :off],
+                                 pb[:, :-off] * pa[:, off:] + pb[:, off:]],
+                                1))
+            off *= 2
+        chunk_h = pb + pa * h[:, None]
+        h = chunk_h[:, -1]
+        hs.append(chunk_h)
+    return torch.cat(hs, 1), h
+
+
+# ---------------------------------------------------------------------------
+# Mamba
+
+
+def _dt_rank(cfg: ArchConfig) -> int:
+    r = cfg.ssm.dt_rank
+    return r if r else math.ceil(cfg.d_model / 16)
+
+
+def init_mamba(gen, cfg: ArchConfig, device):
+    ssm = cfg.ssm
+    d, dt = cfg.d_model, param_dtype(cfg)
+    di = ssm.expand * d
+    rank = _dt_rank(cfg)
+    a = torch.arange(1, ssm.d_state + 1, dtype=torch.float32,
+                     device=device).expand(di, ssm.d_state)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "w_in": dense_init(gen, d, 2 * di, dt, device),
+        "conv_w": _normal(gen, (ssm.d_conv, di), 0.1, dt, device),
+        "conv_b": torch.zeros(di, dtype=dt, device=device),
+        "x_proj": dense_init(gen, di, rank + 2 * ssm.d_state, dt, device),
+        "dt_w": dense_init(gen, rank, di, dt, device),
+        "dt_b": torch.full((di,), -4.6, **f32),    # softplus^-1(0.01)
+        "a_log": torch.log(a),                     # f32
+        "d": torch.ones(di, **f32),
+        "w_out": dense_init(gen, di, d, dt, device),
+    }
+
+
+def _mamba_conv_train(p, xh):
+    """Causal depthwise conv over the sequence. xh: (B, S, di)."""
+    w = p["conv_w"].to(xh.dtype)                   # (K, di)
+    k, s = w.shape[0], xh.shape[1]
+    pad = F.pad(xh, (0, 0, k - 1, 0))
+    out = pad[:, 0:s] * w[0]
+    for i in range(1, k):
+        out = out + pad[:, i:i + s] * w[i]
+    return out + p["conv_b"].to(xh.dtype)
+
+
+def apply_mamba(p, x, cfg: ArchConfig, *, cache=None, return_cache=False):
+    """x: (B, S, d). cache: {"h": (B, di, N) f32, "conv": (B, K-1, di)};
+    with S == 1 a decode step that writes the cache in place."""
+    ssm = cfg.ssm
+    b, s, d = x.shape
+    di, n = ssm.expand * d, ssm.d_state
+    rank = _dt_rank(cfg)
+
+    xz = x @ p["w_in"]
+    xh, z = xz[..., :di], xz[..., di:]
+    decode = cache is not None and s == 1
+    if decode:
+        window = torch.cat([cache["conv"], xh], dim=1)      # (B, K, di)
+        new_conv = window[:, 1:]
+        xh = (torch.einsum("bkd,kd->bd", window,
+                           p["conv_w"].to(xh.dtype))[:, None]
+              + p["conv_b"].to(xh.dtype))
+    else:
+        xh = _mamba_conv_train(p, xh)
+    xh = F.silu(xh.to(torch.float32)).to(x.dtype)
+
+    dbc = xh @ p["x_proj"]
+    dt_in, b_, c_ = (dbc[..., :rank], dbc[..., rank:rank + n],
+                     dbc[..., rank + n:])
+    delta = F.softplus((dt_in @ p["dt_w"]).to(torch.float32)
+                       + p["dt_b"])                    # (B, S, di) f32
+    a = -torch.exp(p["a_log"])                         # (di, N)
+    abar = torch.exp(delta[..., None] * a)             # (B, S, di, N)
+    bx = ((delta * xh.to(torch.float32))[..., None]
+          * b_.to(torch.float32)[:, :, None, :])       # (B, S, di, N)
+
+    new_cache = None
+    if decode:
+        h = abar[:, 0] * cache["h"] + bx[:, 0]         # (B, di, N)
+        y = torch.einsum("bdn,bn->bd", h,
+                         c_.to(torch.float32)[:, 0])[:, None]
+        cache["h"].copy_(h)
+        cache["conv"].copy_(new_conv)
+        new_cache = cache
+    else:
+        h0 = (cache["h"] if cache is not None
+              else torch.zeros(b, di, n, dtype=torch.float32,
+                               device=x.device))
+        hs, h_last = chunked_linear_scan(abar, bx, h0)
+        y = torch.einsum("bsdn,bsn->bsd", hs, c_.to(torch.float32))
+        if return_cache:
+            k = p["conv_w"].shape[0]
+            tail = x[:, -(k - 1):] @ p["w_in"]
+            new_cache = {"h": h_last, "conv": tail[..., :di]}
+
+    y = y + p["d"] * xh.to(torch.float32)
+    y = y.to(x.dtype) * F.silu(z.to(torch.float32)).to(x.dtype)
+    return y @ p["w_out"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch)
+
+
+def init_rwkv(gen, cfg: ArchConfig, device):
+    rw = cfg.rwkv
+    d, dt = cfg.d_model, param_dtype(cfg)
+    h = d // rw.head_dim
+    la, lw = rw.ddlerp_lora, rw.decay_lora
+    return {
+        # token-shift data-dependent lerp
+        "mu_x": torch.full((d,), 0.5, dtype=dt, device=device),
+        "mu": torch.full((5, d), 0.5, dtype=dt, device=device),  # w,k,v,r,g
+        "dd_w1": dense_init(gen, d, 5 * la, dt, device),
+        "dd_w2": _normal(gen, (5, la, d), 0.01, dt, device),
+        # projections
+        "w_r": dense_init(gen, d, d, dt, device),
+        "w_k": dense_init(gen, d, d, dt, device),
+        "w_v": dense_init(gen, d, d, dt, device),
+        "w_g": dense_init(gen, d, d, dt, device),
+        "w_o": dense_init(gen, d, d, dt, device),
+        # data-dependent decay
+        "w0": torch.full((d,), -6.0, dtype=torch.float32, device=device),
+        "w_a": dense_init(gen, d, lw, dt, device),
+        "w_b": dense_init(gen, lw, d, dt, device),
+        # per-head bonus
+        "u": _normal(gen, (h, rw.head_dim), 0.1, torch.float32, device),
+    }
+
+
+def init_rwkv_channel(gen, cfg: ArchConfig, device):
+    d, dt = cfg.d_model, param_dtype(cfg)
+    return {
+        "cm_mu_k": torch.full((d,), 0.5, dtype=dt, device=device),
+        "cm_mu_r": torch.full((d,), 0.5, dtype=dt, device=device),
+        "cm_wr": dense_init(gen, d, d, dt, device),
+        "cm_wk": dense_init(gen, d, cfg.d_ff, dt, device),
+        "cm_wv": dense_init(gen, cfg.d_ff, d, dt, device),
+    }
+
+
+def _token_shift(x, last=None):
+    """xx_t = x_{t-1}; the first position takes ``last`` (decode cache)
+    or 0."""
+    if x.shape[1] == 1:
+        return last[:, None] if last is not None else torch.zeros_like(x)
+    prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    if last is not None:
+        prev[:, 0] = last
+    return prev
+
+
+def _wkv_scan(r, k, v, w, u, s0):
+    """RWKV-6 recurrence, one token at a time. r, k, v, w: (B, S, H, D)
+    (w the decay in (0, 1)); u: (H, D); state s0 (B, H, D, D) keyed
+    [key, value]. Returns (y (B, S, H, D), s_last)."""
+    s, ys = s0, []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]    # (B, H, Dk, Dv)
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                               s + u[:, :, None] * kv))
+        s = w[:, t, :, :, None] * s + kv
+    return torch.stack(ys, 1), s
+
+
+def _wkv_chunked(r, k, v, w, u, s0, chunk: int = 32):
+    """Chunked-parallel RWKV-6 recurrence (matmul form). Within a chunk
+    of C steps the pairwise decay prod_{u=s+1}^{t-1} w_u =
+    exp(L_{t-1} - L_s) (L = cumsum log w) is split as
+    exp(L_{t-1} - m) * exp(m - L_s) with the per-channel shift
+    m = L_C / 2, keeping both factors in f32 range for C <= 32."""
+    b, s, h, d = r.shape
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"chunked WKV over {s} steps needs a multiple of "
+                         f"the chunk {c}")
+    tri = torch.tril(torch.ones(c, c, dtype=torch.float32,
+                                device=r.device), diagonal=-1)
+    state, ys = s0, []
+    for i in range(s // c):
+        rc, kc, vc, wc = (t[:, i * c:(i + 1) * c] for t in (r, k, v, w))
+        lw = torch.log(torch.clamp(wc, min=1e-38))
+        big_l = torch.cumsum(lw, dim=1)          # L_t (inclusive)
+        l_prev = big_l - lw                      # L_{t-1}
+        # chunk-start state: decay prod_{u<t} w_u = exp(L_{t-1})
+        y_state = torch.einsum("bchk,bhkv->bchv", rc * torch.exp(l_prev),
+                               state)
+        # intra-chunk pairs (s < t)
+        m = big_l[:, -1:] * 0.5
+        qh = rc * torch.exp(l_prev - m)
+        kh = kc * torch.exp(m - big_l)
+        scores = torch.einsum("bchk,bshk->bhcs", qh, kh) * tri
+        y_intra = torch.einsum("bhcs,bshv->bchv", scores, vc)
+        # diagonal (s = t) with the u bonus
+        dot = torch.einsum("bchk,hk->bch", rc * kc, u)
+        ys.append(y_state + y_intra + dot[..., None] * vc)
+        # carry: diag(exp(L_C)) state + sum_s exp(L_C - L_s) k_s v_s
+        kd = kc * torch.exp(big_l[:, -1:] - big_l)
+        state = (torch.exp(big_l[:, -1])[..., None] * state
+                 + torch.einsum("bshk,bshv->bhkv", kd, vc))
+    return torch.cat(ys, 1), state
+
+
+def apply_rwkv_time(p, x, cfg: ArchConfig, *, cache=None,
+                    return_cache=False):
+    """RWKV-6 time mix. cache: {"wkv": (B, H, D, D) f32, "tm_x": (B, d)};
+    a call with a cache writes it in place and returns it."""
+    rw = cfg.rwkv
+    b, s, d = x.shape
+    h, hd = d // rw.head_dim, rw.head_dim
+
+    last = cache["tm_x"] if cache is not None else None
+    dx = _token_shift(x, last) - x
+    xbase = x + dx * p["mu_x"]
+    la = p["dd_w1"].shape[1] // 5
+    dd = torch.tanh((xbase @ p["dd_w1"]).reshape(b, s, 5, la))
+    dd = torch.einsum("bsfl,fld->bsfd", dd, p["dd_w2"])    # (B, S, 5, d)
+    mixed = x[:, :, None] + dx[:, :, None] * (p["mu"][None, None] + dd)
+    xw, xk, xv, xr, xg = (mixed[:, :, i] for i in range(5))
+
+    r = (xr @ p["w_r"]).reshape(b, s, h, hd)
+    k = (xk @ p["w_k"]).reshape(b, s, h, hd)
+    v = (xv @ p["w_v"]).reshape(b, s, h, hd)
+    g = F.silu((xg @ p["w_g"]).to(torch.float32)).to(x.dtype)
+    wdec = torch.exp(-torch.exp(
+        p["w0"] + (torch.tanh(xw @ p["w_a"]) @ p["w_b"]).to(torch.float32)
+    )).reshape(b, s, h, hd)
+
+    s0 = (cache["wkv"] if cache is not None
+          else torch.zeros(b, h, hd, hd, dtype=torch.float32,
+                           device=x.device))
+    f32 = [t.to(torch.float32) for t in (r, k, v)]
+    ck = rw.chunk
+    if ck and s > 1 and s % min(ck, s) == 0:
+        y, s_last = _wkv_chunked(*f32, wdec, p["u"], s0, chunk=ck)
+    else:
+        y, s_last = _wkv_scan(*f32, wdec, p["u"], s0)
+    y = apply_group_norm(y.to(x.dtype))
+    out = (y.reshape(b, s, d) * g.reshape(b, s, d)) @ p["w_o"]
+    new_cache = None
+    if cache is not None:
+        cache["wkv"].copy_(s_last)
+        cache["tm_x"].copy_(x[:, -1])
+        new_cache = cache
+    elif return_cache:
+        new_cache = {"wkv": s_last, "tm_x": x[:, -1]}
+    return out, new_cache
+
+
+def apply_rwkv_channel(p, x, cfg: ArchConfig, *, cache=None,
+                       return_cache=False):
+    """RWKV-6 channel mix (squared-ReLU FFN with a receptance gate).
+    cache: {"cm_x": (B, d)}, written in place."""
+    last = cache["cm_x"] if cache is not None else None
+    dx = _token_shift(x, last) - x
+    xk = x + dx * p["cm_mu_k"]
+    xr = x + dx * p["cm_mu_r"]
+    r = torch.sigmoid((xr @ p["cm_wr"]).to(torch.float32)).to(x.dtype)
+    k = torch.square(F.relu((xk @ p["cm_wk"]).to(torch.float32))).to(x.dtype)
+    out = r * (k @ p["cm_wv"])
+    new_cache = None
+    if cache is not None:
+        cache["cm_x"].copy_(x[:, -1])
+        new_cache = cache
+    elif return_cache:
+        new_cache = {"cm_x": x[:, -1]}
+    return out, new_cache

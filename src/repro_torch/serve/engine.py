@@ -16,13 +16,22 @@ only at superstep boundaries (``stats["host_syncs"]`` counts what the
 reference counts: one per prefill group, one per superstep).
 ``superstep_k=1`` is the original host-driven per-token loop and the
 conformance reference. Where the reference jits and donates the cache,
-the port writes the pools in place; ``snapshot()`` copies them.
+the port writes the pools and the recurrent slot states in place, so the
+superstep carries every slot's state as the reference's scan does;
+``snapshot()`` copies them.
 
-Greedy (argmax) decoding. Dense GQA decoders only; the prefix cache and
-serving meshes come with later slices (ROADMAP Queue 1 items 7 and 9).
+Greedy (argmax) decoding, every decoder-only arch of the registry. MoE
+runs *drop-free* (``infer_cfg`` raises the capacity factor to
+num_experts / top_k, so capacity >= tokens per group): a request's
+tokens must not depend on its batch-mates. Attention-only archs pad
+prompts to a page multiple per prefill group; a recurrent (Mamba/RWKV)
+state would absorb the pad, so those archs group by exact length. The
+prefix cache and serving meshes come with later slices (ROADMAP Queue 1
+items 7 and 9).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -62,6 +71,14 @@ def _host_array(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
+def _batch_row(tree, i: int):
+    """Row i of the batch axis (axis 1, after n_periods) of every leaf of
+    a prefill cache tree, kept as a batch of one: views."""
+    if isinstance(tree, dict):
+        return {k: _batch_row(v, i) for k, v in tree.items()}
+    return tree[:, i:i + 1]
+
+
 class ServeEngine:
     def __init__(self, params, cfg: ArchConfig,
                  ccfg: Optional[PagedCacheConfig] = None,
@@ -88,6 +105,13 @@ class ServeEngine:
         self.cfg = cfg
         self.superstep_k = int(superstep_k)
         self.prefix_cache = prefix_cache
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(
+                cfg, moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=float(cfg.moe.num_experts)
+                    / cfg.moe.top_k))
+        self.infer_cfg = cfg
+        self._pad_buckets = all(k == "attn" for k in cfg.layer_pattern)
         self.ccfg = ccfg or PagedCacheConfig()
         self.kv = PagedKVCache(cfg, self.ccfg, device=self.device)
         self.sched = Scheduler(self.ccfg, policy=policy)
@@ -110,15 +134,16 @@ class ServeEngine:
         cache. Only the rows at ``last`` are unembedded: the same argmax
         as the reference's over full logits, without a (B, S, vocab)
         tensor."""
-        x, _, cache = apply_model(self.params, tokens, self.cfg,
+        x, _, cache = apply_model(self.params, tokens, self.infer_cfg,
                                   mode="prefill", logits_chunk=1)
         rows = torch.arange(tokens.shape[0], device=self.device)
-        logits = unembed(self.params["embed"], x[rows, last], self.cfg)
+        logits = unembed(self.params["embed"], x[rows, last],
+                         self.infer_cfg)
         return logits.argmax(-1).to(torch.int32), cache
 
     @torch.no_grad()
     def _decode(self, tokens, lens, tbl):
-        logits, _, _ = apply_model(self.params, tokens, self.cfg,
+        logits, _, _ = apply_model(self.params, tokens, self.infer_cfg,
                                    mode="decode", cache=self.kv.cache,
                                    cache_index=lens, page_table=tbl)
         return logits[:, -1].argmax(-1).to(torch.int32)
@@ -183,13 +208,16 @@ class ServeEngine:
         self.stats["table_uploads"] = self.kv.table_uploads
 
     def _admit_grouped(self, admitted: List[RequestState]) -> None:
-        """Batched prefill per page-padded prompt-length group: right
-        padding is invisible to causal attention, and ``admit`` copies
-        only the first s0 tokens of each prompt into the pages."""
+        """Batched prefill per prompt-length group, page-padded for
+        attention-only archs (right padding is invisible to causal
+        attention, and ``admit`` copies only the first s0 tokens of each
+        prompt into the pages), exact for recurrent ones."""
         ps = self.ccfg.page_size
         groups: Dict[int, List[RequestState]] = {}
         for st in admitted:
-            groups.setdefault(-(-st.req.prompt_len // ps) * ps, []).append(st)
+            s0 = st.req.prompt_len
+            bucket = -(-s0 // ps) * ps if self._pad_buckets else s0
+            groups.setdefault(bucket, []).append(st)
         for bucket, group in sorted(groups.items()):
             prompts = np.zeros((len(group), bucket), np.int32)
             for i, st in enumerate(group):
@@ -202,9 +230,7 @@ class ServeEngine:
             first = first.cpu().numpy()
             self.stats["host_syncs"] += 1
             for i, st in enumerate(group):
-                one = ({"mixer": {k: v[:, i:i + 1]
-                                  for k, v in cache[0]["mixer"].items()},
-                        "ffn": {}},)
+                one = tuple(_batch_row(blk, i) for blk in cache)
                 self.kv.admit(st.slot, one, st.req.prompt_len,
                               st.req.total_len)
                 self._first_token(st, int(first[i]))
@@ -294,7 +320,7 @@ class ServeEngine:
         """Process-restart twin: a fresh scheduler and paged cache and,
         with ``image``, the KV pools reloaded from a :meth:`snapshot`. The
         rid counter stays monotone across the restart."""
-        self.kv = PagedKVCache(self.cfg, self.ccfg, device=self.device)
+        self.kv = PagedKVCache(self.infer_cfg, self.ccfg, device=self.device)
         self.sched = Scheduler(self.ccfg, policy=self.sched.policy)
         if image is not None:
             for pos, blk in enumerate(self.kv.cache):

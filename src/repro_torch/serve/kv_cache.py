@@ -1,20 +1,27 @@
 """Paged KV cache for serving (counterpart of ``repro.serve.kv_cache``).
 
-KV lives in fixed-size physical pages and every admitted request gets a
-page table, so memory scales with the tokens actually resident. Layout
-per pattern position, the reference's (so ``ServeEngine.snapshot()``
-images carry its keys and shapes): ``{"mixer": {"k_pages", "v_pages"}:
-(n_periods, N, PS, n_kv, hd), "ffn": {}}``.
+Attention KV (and MLA's latent cache) lives in fixed-size physical pages
+and every admitted request gets a page table, so memory scales with the
+tokens actually resident. Recurrent (Mamba/RWKV) state has no sequence
+axis and is slot-indexed instead: one row per serving slot, overwritten
+on admission. Layout per pattern position, the reference's (so
+``ServeEngine.snapshot()`` images carry its keys and shapes), each leaf
+with a leading ``n_periods`` axis:
+
+- GQA: ``{"k_pages", "v_pages"}: (P, N, PS, n_kv, hd)``
+- MLA: ``{"ckv_pages": (P, N, PS, rank), "kr_pages": (P, N, PS, rope)}``
+- mamba/rwkv: dense slot states, ``init_cache`` with ``batch=num_slots``.
 
 Physical page 0 is the *null page*: idle slots' page tables point at it,
 so their masked decode writes land somewhere harmless. The allocator
 hands out pages 1..N-1. Logical page p of the sequence in slot s lives in
 physical page ``page_table[s, p]``, shared by every layer.
 
-The pools are device tensors written in place (admission scatters,
-decode appends): ``update`` only rebinds the tree. Only dense decoders
-are paged here; the prefix cache (content-hashed shared pages, COW
-forks) comes with ROADMAP Queue 1 item 7.
+The pools and slot states are device tensors written in place
+(admission scatters, decode appends and state updates): ``update`` only
+rebinds the tree. Encoder-decoder archs are refused, as in the
+reference. The prefix cache (content-hashed shared pages, COW forks)
+comes with ROADMAP Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve as resolve_device
 from repro_torch.models.layers import torch_dtype
-from repro_torch.models.model import check_supported
+from repro_torch.models.model import init_cache
 
 PAGED_SUFFIX = "_pages"
 
@@ -141,21 +148,37 @@ class PageAllocator:
 
 @dataclasses.dataclass
 class SwapState:
-    """Host image of a preempted request's pages: per (pattern position,
-    paged leaf name), the ``(n_periods, n_pages, PS, ...)`` slice of the
-    pool covering its content-bearing logical pages
-    (``pages_needed(kv_len)``), as CPU tensors in the pool's dtype. A
-    swapped-out request owns no device pages."""
+    """Host image of a preempted request's device state: ``leaf_pages``
+    holds, per (attention pattern position, paged leaf name), the
+    ``(n_periods, n_pages, PS, ...)`` slice of the pool covering its
+    content-bearing logical pages (``pages_needed(kv_len)``);
+    ``slot_rows`` holds, per (recurrent pattern position, part, leaf
+    name), the slot's ``(n_periods, ...)`` state row. CPU tensors in the
+    leaves' dtypes: a swapped-out request owns no device pages."""
     kv_len: int
     n_pages: int
     leaf_pages: Dict[Any, torch.Tensor]
+    slot_rows: Dict[Any, torch.Tensor]
 
 
 def _paged_block(cfg: ArchConfig, ccfg: PagedCacheConfig, dt, device):
-    shape = (cfg.n_periods, ccfg.num_pages, ccfg.page_size, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+    """Paged mixer dict for one attention pattern position."""
+    lead = (cfg.n_periods, ccfg.num_pages, ccfg.page_size)
+    if cfg.attention == "mla":
+        m = cfg.mla
+        return {"ckv_pages": torch.zeros(lead + (m.kv_lora_rank,),
+                                         dtype=dt, device=device),
+                "kr_pages": torch.zeros(lead + (m.qk_rope_head_dim,),
+                                        dtype=dt, device=device)}
+    shape = lead + (cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k_pages": torch.zeros(shape, dtype=dt, device=device),
             "v_pages": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _state_leaves(blk):
+    """(part, name, leaf) of a recurrent pattern position's slot states."""
+    return [(part, name, leaf) for part in ("mixer", "ffn")
+            for name, leaf in blk[part].items()]
 
 
 class PagedKVCache:
@@ -168,10 +191,12 @@ class PagedKVCache:
 
     def __init__(self, cfg: ArchConfig, ccfg: PagedCacheConfig,
                  enable_prefix: bool = False, device="cuda"):
+        if cfg.encoder_decoder:
+            raise NotImplementedError(
+                "paged serving supports decoder-only archs")
         if enable_prefix:
             raise NotImplementedError(
                 "the prefix cache comes with ROADMAP Queue 1 item 7")
-        check_supported(cfg)
         self.cfg = cfg
         self.ccfg = ccfg
         self.device = resolve_device(device)
@@ -190,8 +215,13 @@ class PagedKVCache:
         self._active_dev: Optional[torch.Tensor] = None
         self.table_uploads = 0
         dt = torch_dtype(cfg.compute_dtype)
-        self.cache = tuple({"mixer": _paged_block(cfg, ccfg, dt, self.device),
-                            "ffn": {}} for _ in cfg.layer_pattern)
+        # recurrent layers: init_cache's slot states at batch=num_slots
+        # (its sequence extent unused); attention layers: page pools
+        dense = init_cache(cfg, s, 1, device=self.device)
+        self.cache = tuple(
+            {"mixer": _paged_block(cfg, ccfg, dt, self.device), "ffn": {}}
+            if kind == "attn" else dense[pos]
+            for pos, kind in enumerate(cfg.layer_pattern))
 
     # -- device views ----------------------------------------------------
     def _refresh_device_tables(self) -> None:
@@ -255,6 +285,14 @@ class PagedKVCache:
         n_full = prompt_len // ps
         full_idx = torch.tensor(pages[:n_full], device=self.device)
         for pos, blk in enumerate(self.cache):
+            if self.cfg.layer_pattern[pos] != "attn":
+                # recurrent state: the slot's row (a 1-token prompt's
+                # single conv row broadcasts over the window, as in the
+                # reference; 2 rows into 3 raise)
+                for part, name, leaf in _state_leaves(blk):
+                    leaf[:, slot] = prefill_cache[pos][part][name][
+                        :, 0].to(leaf.dtype)
+                continue
             for name, pool in blk["mixer"].items():
                 dense = prefill_cache[pos]["mixer"][name[:-len(PAGED_SUFFIX)]]
                 # dense: (P, 1, s0, ...). One indexed write covers every
@@ -288,16 +326,23 @@ class PagedKVCache:
         kv_len = int(self.kv_lens[slot])
         n_pages = pages_needed(max(kv_len, 1), self.ccfg.page_size)
         idx = torch.tensor(pages[:n_pages], device=self.device)
-        leaf_pages = {(pos, name): pool[:, idx].cpu()
-                      for pos, blk in enumerate(self.cache)
-                      for name, pool in blk["mixer"].items()}
+        leaf_pages, slot_rows = {}, {}
+        for pos, blk in enumerate(self.cache):
+            if self.cfg.layer_pattern[pos] == "attn":
+                for name, pool in blk["mixer"].items():
+                    leaf_pages[(pos, name)] = pool[:, idx].cpu()
+            else:
+                for part, name, leaf in _state_leaves(blk):
+                    # a copy, also where the leaf is on the CPU
+                    slot_rows[(pos, part, name)] = leaf[:, slot].to(
+                        "cpu", copy=True)
         self.alloc.free(pages)
         del self._slot_pages[slot]
         self.page_table[slot] = 0
         self.kv_lens[slot] = 0
         self._tables_dirty = True
         self.swapped_pages += n_pages
-        return SwapState(kv_len, n_pages, leaf_pages)
+        return SwapState(kv_len, n_pages, leaf_pages, slot_rows)
 
     def swap_in(self, slot: int, swap: SwapState, prompt,
                 total_len: int) -> int:
@@ -315,9 +360,14 @@ class PagedKVCache:
         self.kv_lens[slot] = swap.kv_len
         up_idx = torch.tensor(pages[:swap.n_pages], device=self.device)
         for pos, blk in enumerate(self.cache):
-            for name, pool in blk["mixer"].items():
-                pool[:, up_idx] = swap.leaf_pages[(pos, name)].to(
-                    self.device, pool.dtype)
+            if self.cfg.layer_pattern[pos] == "attn":
+                for name, pool in blk["mixer"].items():
+                    pool[:, up_idx] = swap.leaf_pages[(pos, name)].to(
+                        self.device, pool.dtype)
+                continue
+            for part, name, leaf in _state_leaves(blk):
+                leaf[:, slot] = swap.slot_rows[(pos, part, name)].to(
+                    self.device, leaf.dtype)
         return 0
 
     def commit_token(self, slots: Sequence[int]) -> None:

@@ -7,8 +7,9 @@ CGE's per-agent lists in a device workspace, dequant_accum's batched
 mask walk, from bases misaligned by 1, 4 and 8 bytes), on the edge cases
 (exact zeros where every agent crashed) and run to run bit-identical;
 the
-paged flash-decode at the serving shapes of qwen2-0.5b, qwen2-1.5b and yi-6b, Dv != D, PS = 128 and Pmax = 1, in f32
-and bf16, with kv_len = 0, -1 table entries and page-boundary lengths;
+paged flash-decode at the serving shapes of qwen2-0.5b, qwen2-1.5b,
+yi-6b, jamba, qwen2-vl-2b and arctic (those three run to run identical),
+Dv != D, PS = 128 and Pmax = 1, in f32 and bf16, with kv_len = 0, -1 table entries and page-boundary lengths;
 the decode's split-K over a 4096-token table (lengths of one token, one
 split, one split plus one) and its run-to-run identical output; flash
 attention over the cases of ``kernels/cases.py`` (the JAX test shapes,
@@ -428,6 +429,10 @@ DECODE_SHAPES = {
     "qwen2-0.5b": (8, 14, 2, 64, 64, 16, 48, 8 * 48 + 1),
     "qwen2-1.5b": (8, 12, 2, 128, 128, 16, 12, 8 * 12 + 1),
     "yi-6b": (4, 32, 4, 128, 128, 16, 12, 4 * 12 + 1),
+    # phase 11's serving shapes: 4 slots, 17 pages of 16 tokens
+    "jamba": (4, 32, 8, 128, 128, 16, 17, 4 * 17 + 1),
+    "qwen2-vl-2b": (4, 12, 2, 128, 128, 16, 17, 4 * 17 + 1),
+    "arctic": (4, 56, 8, 128, 128, 16, 17, 4 * 17 + 1),
     "dv_ne_d": (3, 2, 2, 128, 64, 8, 4, 16),
     "ps128": (2, 2, 1, 32, 32, 128, 2, 8),
     "pmax1": (2, 4, 2, 32, 32, 8, 1, 16),
@@ -469,6 +474,21 @@ def test_paged_flash_decode_matches_plain(name, dtype):
                                    tda.paged_decode_plain(*args).float(),
                                    **DECODE_TOL[dtype])
     assert tda.LAUNCHES["paged_flash_decode"] == before + 2
+
+
+@needs_cuda
+@pytest.mark.parametrize("name", ["jamba", "qwen2-vl-2b", "arctic"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_flash_decode_hybrid_and_moe_shapes_run_to_run(name, dtype):
+    """G = 4 and G = 7 over 8 KV heads, G = 6 over 2, at 4 slots: the
+    output is the same bit for bit from call to call."""
+    args = _decode_inputs(DECODE_SHAPES[name], dtype, seed=13)
+    first = tda.paged_flash_decode(*args)
+    torch.testing.assert_close(first.float(),
+                               tda.paged_decode_plain(*args).float(),
+                               **DECODE_TOL[dtype])
+    for _ in range(3):
+        assert torch.equal(tda.paged_flash_decode(*args), first)
 
 
 @needs_cuda

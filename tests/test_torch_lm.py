@@ -4,7 +4,8 @@ train/prefill, dense-decode and paged-decode logits against ``repro`` on
 JAX weights carried over with ``params_from_jax``, for the reduced
 qwen2-0.5b, qwen2-1.5b, qwen1.5-4b and yi-6b (f32, within 1e-5); the
 parameter count of the full configs; the init tree's shapes; and the
-registry's refusal of model families not ported yet."""
+registry, which holds every architecture of the reference's (the other
+families' parity is in ``test_torch_families.py``)."""
 import dataclasses
 
 import jax
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from repro.configs.registry import get_config as jax_config
+from repro.configs.registry import list_configs as jax_list
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
@@ -239,15 +241,16 @@ def test_paged_decode_logits(arch):
                 np.asarray(jkv.gather_dense(slot, 0, name)), **TOL)
 
 
-def test_registry_refuses_unported_families():
-    assert list_configs() == sorted(DENSE)
-    for name in ("deepseek-v2-236b", "rwkv6-3b", "jamba-v0.1-52b",
-                 "whisper-base", "qwen2-vl-2b", "arctic-480b"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            get_config(name)
+def test_registry_matches_reference():
+    """Every architecture of the reference's registry, field for field
+    (sub-configs too); an unknown name or layer kind is refused."""
+    assert list_configs() == jax_list()
+    for name in jax_list():
+        assert dataclasses.asdict(get_config(name)) == \
+            dataclasses.asdict(jax_config(name))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    moe = dataclasses.replace(get_config("qwen2-0.5b"),
-                              layer_pattern=("mamba",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tmodel.init_model(None, moe, device="meta")
+    odd = dataclasses.replace(get_config("qwen2-0.5b"),
+                              layer_pattern=("conv",))
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        tmodel.init_model(None, odd, device="meta")

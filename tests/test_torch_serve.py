@@ -4,7 +4,14 @@ the port's ``ServeEngine`` against JAX's on the same requests and weights
 (reduced qwen2-0.5b and yi-6b, f32): token streams and ``stats`` identical
 for ``superstep_k`` 1 and 8, under ``fifo`` and under ``sla`` with a
 preemption; ``snapshot()`` keys, shapes and values, and ``restart(image)``
-resuming the same streams; ``abort``/``crash``."""
+resuming the same streams; ``abort``/``crash``. Then the other families
+(reduced rwkv6-3b, deepseek-v2-236b, jamba-v0.1-52b, arctic-480b,
+qwen2-vl-2b): streams and ``stats`` identical to JAX's for
+``superstep_k`` 1 and 4, jamba under preemption (its Mamba slot rows in
+the swap image within 1e-4), the reference's 1-, 2-, 3-, 5- and
+300-token Mamba prompts, and the refusal to page an encoder-decoder."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -16,7 +23,7 @@ from repro.serve import kv_cache as jkv
 from repro.serve import scheduler as jsched
 from repro.serve import ServeEngine as JaxEngine
 from repro_torch.configs.registry import get_config
-from repro_torch.models.model import params_from_jax
+from repro_torch.models.model import init_model, params_from_jax
 from repro_torch.serve import (PageAllocator, PagedCacheConfig, Request,
                                Scheduler, ServeEngine,
                                SnapshotInFlightError)
@@ -227,3 +234,113 @@ def test_engine_refuses_what_is_not_ported(arch):
     assert eng.submit(np.arange(4), 1) == 0        # first token from prefill
     assert eng.run()[0].shape == (1,) and eng.stats["decode_steps"] == 0
     assert isinstance(eng.kv.cache[0]["mixer"]["k_pages"], torch.Tensor)
+
+
+# ---------------------------------------------------------------------------
+# the other model families: MoE (drop-free), MLA latent pages, Mamba and
+# RWKV slot state, M-RoPE
+
+
+FAMILIES = ["rwkv6-3b", "deepseek-v2-236b", "jamba-v0.1-52b",
+            "arctic-480b", "qwen2-vl-2b"]
+
+
+def _pair(name):
+    """((port cfg, port params), (JAX cfg, JAX params)), reduced, the
+    JAX weights carried over."""
+    jcfg = jax_config(name).reduced()
+    jp = jax_init(jax.random.PRNGKey(0), jcfg, max_pos=64)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp))
+    return (get_config(name).reduced(), tp), (jcfg, jp)
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def family(request):
+    return _pair(request.param)
+
+
+@pytest.fixture(scope="module")
+def jamba():
+    return _pair("jamba-v0.1-52b")
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_family_streams_and_stats_match_reference(family, k):
+    """Mixed prompt lengths and budgets on two slots (as the reference's
+    ragged-rollout test): streams and stats identical to JAX's engine,
+    every budget met, every page back; recurrent archs prefill each
+    exact length, MoE serves drop-free."""
+    ours, ref = _engines(family, superstep_k=k)
+    prompts, budgets = _workload(seed=11)
+    for p, n in zip(prompts, budgets):
+        assert ours.submit(p, n) == ref.submit(p, n)
+    out_t, out_j = ours.run(), ref.run()
+    _same_streams(out_t, out_j)
+    assert ours.stats == ref.stats
+    assert [len(out_t[r]) for r in sorted(out_t)] == budgets
+    assert ours.kv.alloc.n_used == 0 and ours.kv.alloc.check_invariants()
+    assert ours._pad_buckets == ref._pad_buckets
+    assert dataclasses.asdict(ours.infer_cfg) == \
+        dataclasses.asdict(ref.infer_cfg)
+    if ours.cfg.moe is not None:
+        moe = ours.infer_cfg.moe
+        assert moe.capacity_factor * moe.top_k >= moe.num_experts
+
+
+def test_jamba_preemption_swaps_slot_state(jamba):
+    """SLA preemption of a hybrid arch: the victim's attention pages and
+    its Mamba layers' slot rows round-trip through the host image."""
+    ccfg = dict(num_slots=1, page_size=4, num_pages=16, max_pages_per_seq=8)
+    ours, ref = _engines(jamba, ccfg=ccfg, superstep_k=1, policy="sla")
+    rng = np.random.default_rng(5)
+    p_long = rng.integers(0, 256, 6).astype(np.int32)
+    p_hot = rng.integers(0, 256, 5).astype(np.int32)
+    swaps = []
+    for eng in (ours, ref):
+        eng.submit(p_long, 12, priority=0)
+        eng.step()
+        eng.step()
+        eng.submit(p_hot, 3, priority=2, deadline=2.0)
+        eng.step()                                   # the preemption
+        swaps.append(eng.sched.waiting[0].swap)
+    assert sorted(swaps[0].slot_rows) == sorted(swaps[1].slot_rows)
+    assert len(swaps[0].slot_rows) == 14     # 7 Mamba layers x (h, conv)
+    for key, rows in swaps[1].slot_rows.items():
+        np.testing.assert_allclose(swaps[0].slot_rows[key].numpy(),
+                                   np.asarray(rows), rtol=1e-4, atol=1e-4,
+                                   err_msg=str(key))
+    out_t, out_j = ours.run(), ref.run()
+    _same_streams(out_t, out_j)
+    assert ours.stats == ref.stats and ours.stats["resumed"] >= 1
+
+
+def test_mamba_prompt_lengths_as_in_reference(jamba):
+    """The reference's results for a hybrid arch, mirrored: a 1-token
+    prompt serves (its one conv-tail row broadcast over the window), a
+    2-token prompt fails at admission, 3 and 5 tokens serve, and a
+    300-token prefill fails the scan's chunk rule (prefills of at most
+    256 tokens or a multiple of 256)."""
+    ccfg = dict(num_slots=2, page_size=16, num_pages=48,
+                max_pages_per_seq=24)
+    rng = np.random.default_rng(13)
+    for s0, fails in ((1, False), (2, True), (3, False), (5, False),
+                      (300, True)):
+        ours, ref = _engines(jamba, ccfg=ccfg, superstep_k=4)
+        prompt = rng.integers(0, 256, s0).astype(np.int32)
+        for eng in (ours, ref):
+            eng.submit(prompt, 3)
+        if fails:
+            with pytest.raises((ValueError, AssertionError)):
+                ref.run()
+            with pytest.raises((ValueError, RuntimeError)):
+                ours.run()
+            continue
+        _same_streams(ours.run(), ref.run())
+        assert ours.stats == ref.stats
+
+
+def test_paged_serving_refuses_encoder_decoder():
+    cfg = get_config("whisper-base").reduced()
+    tp = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="decoder-only"):
+        ServeEngine(tp, cfg, device="cpu")
