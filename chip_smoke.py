@@ -97,8 +97,9 @@ Phases, each fatal on failure:
 10. The e2e harness (``repro_torch.sim.e2e``): one ``EngineFleet`` of 8
    replicas of qwen2-0.5b at full width over phase 6's weights (2 slots,
    8-token pages, superstep_k = 4, 8 new tokens a request) replays
-   ``e2e_steady`` (32 requests), then ``crash_cascade`` cut to 16, on the
-   same warm fleet, drained between them. The decode kernel's count is
+   ``e2e_steady`` and ``crash_cascade``, each cut to its first 16
+   requests (of 32 and 40; printed as ``reduced``), on the same warm
+   fleet, drained between them. The decode kernel's count is
    zeroed just before each run and read just after. Both runs must have
    zero violations, and every delivered stream of ``e2e_steady`` must be
    the plain attention form's greedy argmax (teacher forced, on the
@@ -130,9 +131,50 @@ Phases, each fatal on failure:
    1e-4); and the reduced config of each new family in f32 on the card
    against the CPU: prefill and decode logits within 1e-4, served
    streams equal wherever the CPU's top-2 margin exceeds it.
-12. A JSON line with every kernel's launches (summed over the phases
-   that drive a path: 4, 6, 8, 9, 10 and 11), error and times, the
-   ``nvidia-smi`` line, and as the last line
+   Phase 6's weights and phase 10's fleet stay on the card for:
+12. The prefix cache at full width: ``ServeEngine(prefix_cache="on")``
+   on phase 6's weights (8 slots, 16-token pages, superstep_k = 8)
+   serves 24 requests (16-32 new tokens): 16 on a 256-token system
+   prompt with tails of 1-40, 4 identical 200-token prompts (full hits,
+   COW forks), 4 cold prompts of 64-128; run A on a pool that never
+   evicts, then again with the cache off; run B under ``sla`` on a
+   60-page pool, half the requests at priority 0 first and the rest at
+   priority 1 two steps later, so the LRU evicts and requests are
+   preempted and resumed. The books are checked after every step; every
+   budget met; every page back; the hit, COW and suffix counters; the
+   decode kernel exactly once per layer and decode-program iteration
+   (superstep iterations plus suffix steps). Every stream of run A (on
+   and off) and of run B is teacher forced through the plain form and
+   the kernel: it must be the plain greedy argmax wherever the top-2
+   margin exceeds the logit tolerance, and the kernel's logits within
+   that tolerance of the plain form's. Then reduced qwen2-0.5b in f32 on
+   the CPU test's mix and on a one-slot 12-page ``sla`` run (the LRU
+   evicts, a preemption, a resume that re-shares resident blocks):
+   streams with the cache on equal the cache-off run's and the CPU's
+   exactly, and the stats equal the CPU's. Prints TTFT, prefill and
+   suffix-step ms, hit and miss tokens, decode tok/s, forks, evictions
+   and each admission's time to its first token.
+13. Fleet control and checkpoint rejoin on phase 10's fleet: engine 0's
+   snapshot through the ``Checkpointer`` into ``restart(image)`` (the
+   rid counter monotone, the same stream after, a busy engine's
+   snapshot refused), then ``run_fleet_e2e`` of ``crash_cascade`` cut to
+   16 requests, and of the same scenario with its three crashes moved
+   onto requests in flight: zero violations, nothing lost, every death
+   rejoined after probation, delivered streams the plain form's greedy
+   argmax where the margin allows; in the second, copies lost to the
+   crashes, the controller's hedges or retries, and a restarted replica
+   serving again. Prints the ``FleetMetrics`` rows, the quorum
+   rows, wall seconds and launches.
+14. Wall-clock chaos: 4 of the fleet's engines as ``EngineReplica``s
+   under ``RealClock`` through ``kill_rejoin`` cut to 12 requests, on the
+   timescale of one request served by 3 replicas at once: nothing lost,
+   no violation, drained, the killed replica declared dead, restarted
+   and rejoined, one restart for each kill and no exception from any
+   replica's engine (the fleet would count one as a crash and restart
+   the replica), the decode kernel launched. Prints the report.
+15. A JSON line with every kernel's launches (summed over the phases
+   that drive a path: 4, 6, 8, 9, 10, 11, 12, 13 and 14), error and
+   times, the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is not available or the
@@ -144,7 +186,9 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -175,10 +219,17 @@ from repro_torch.models import lenet  # noqa: E402
 from repro_torch.models import model as mmodel  # noqa: E402
 from repro_torch.models.model import classifier_loss  # noqa: E402
 from repro_torch.models.model import apply_model, init_model  # noqa: E402
-from repro_torch.serve import PagedCacheConfig, ServeEngine  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.serve import (EngineReplica, FleetConfig,  # noqa: E402
+                               PagedCacheConfig, RealClock, ReplicaKilled,
+                               ServeEngine, SnapshotInFlightError)
 from repro_torch.serve.kv_cache import PagedKVCache  # noqa: E402
 from repro_torch.sim.conformance import summarize  # noqa: E402
-from repro_torch.sim.e2e import EngineFleet, run_e2e  # noqa: E402
+from repro_torch.sim.e2e import LOST, EngineFleet, run_e2e  # noqa: E402
+from repro_torch.sim.faults import CrashWindow  # noqa: E402
+from repro_torch.sim.fleet_e2e import run_fleet_e2e  # noqa: E402
+from repro_torch.sim.realtime_chaos import (PLANS,  # noqa: E402
+                                            run_realtime_chaos)
 from repro_torch.sim.scenario import (SCENARIOS, get_scenario,  # noqa: E402
                                       run_serve, run_train)
 
@@ -1546,7 +1597,9 @@ def drive_simulator():
 # 10. the e2e harness at full width
 
 
-E2E_RUNS = (("e2e_steady", None), ("crash_cascade", 16))   # (name, cut)
+# (name, requests run of the scenario's): both cut to their first 16 to
+# leave phases 12-14 room in the script's time
+E2E_RUNS = (("e2e_steady", 16), ("crash_cascade", 16))
 E2E_REPLICAS = 8
 
 
@@ -1559,55 +1612,70 @@ def log_quorum(row, label):
 
 
 @torch.no_grad()
-def plain_greedy_check(params, cfg, ecfg, report):
-    """Every delivered honest stream of ``report`` against the greedy
-    argmax of its logits through the plain attention form: the first
-    token against the prefill's (which runs no decode kernel), the rest
-    against teacher-forced decode logits on a cache with the fleet's page
-    size. The fleet prefilled prompts in groups, this one at a time, so
-    bf16 roundings differ and a near tie may flip: the stream must be the
-    argmax wherever the top-2 margin exceeds ``LOGIT_TOL``. Returns (max
-    |logit diff| between the kernel and the plain form, positions
+def greedy_check(params, cfg, page_size, prompts, streams):
+    """Each of ``streams`` (1-D, any lengths) against the greedy argmax
+    of its logits through the plain attention form: the first token
+    against the prefill's (which runs no decode kernel), the rest against
+    teacher-forced decode logits, 8 streams at a time on a fresh cache
+    of ``page_size``-token pages. The streams were served with prompts
+    prefilled in groups, or a cached prefix and a suffix fed through
+    decode; these are prefilled one at a time, so bf16 roundings differ
+    and a near tie may flip: a stream must be the argmax wherever the
+    top-2 margin exceeds ``LOGIT_TOL``, and the kernel's teacher-forced
+    logits must be within ``LOGIT_TOL`` of the plain form's. Returns
+    (max |logit diff| between the kernel and the plain form, positions
     checked, positions within the margin, positions where the stream is
     the plain argmax)."""
-    streams = {q.idx: q.delivered()[0].tokens for q in report.requests
-               if q.delivered()}
-    reqs = [q for q in report.requests if q.idx in streams]
-    ccfg = PagedCacheConfig(num_slots=8, page_size=ecfg.page_size,
-                            max_pages_per_seq=ecfg.max_pages_per_seq,
-                            num_pages=8 * ecfg.max_pages_per_seq + 1)
     diff, checked, close, same = 0.0, 0, 0, 0
-    for i in range(0, len(reqs), ccfg.num_slots):
-        batch = reqs[i:i + ccfg.num_slots]
-        toks = np.stack([streams[q.idx] for q in batch])
+    for i in range(0, len(streams), 8):
+        batch, ss = prompts[i:i + 8], streams[i:i + 8]
+        n = np.asarray([len(s) for s in ss])
+        toks = np.zeros((len(ss), n.max()), np.int32)
+        for b, s in enumerate(ss):
+            toks[b, :len(s)] = s
+        pages = max(-(-(len(p) + n.max()) // page_size) for p in batch)
+        ccfg = PagedCacheConfig(num_slots=8, page_size=page_size,
+                                max_pages_per_seq=pages,
+                                num_pages=8 * pages + 1)
         first = []
-        for q in batch:
-            x, _, _ = apply_model(params, torch.tensor(q.prompt[None],
+        for prompt in batch:
+            x, _, _ = apply_model(params, torch.tensor(prompt[None],
                                                        device="cuda"),
                                   cfg, mode="prefill", logits_chunk=1)
             first.append(mlayers.unembed(params["embed"], x[0, -1], cfg))
-        prompts = [q.prompt for q in batch]
-        lg_p = teacher_forced_logits(params, cfg, prompts, toks[:, :-1],
+        lg_p = teacher_forced_logits(params, cfg, batch, toks[:, :-1],
                                      "plain", ccfg).float()
-        lg_k = teacher_forced_logits(params, cfg, prompts, toks[:, :-1],
+        lg_k = teacher_forced_logits(params, cfg, batch, toks[:, :-1],
                                      "cuda", ccfg).float()
-        diff = max(diff, float((lg_k - lg_p).abs().max()))
+        # (T, B): position t of stream b was served
+        valid = torch.as_tensor(np.arange(n.max())[:, None] < n[None],
+                                device="cuda")
+        if n.max() > 1:
+            diff = max(diff, float((lg_k - lg_p).abs()[valid[1:]].max()))
         # position 0: the prefill's logits; then the decode's, teacher forced
         lg_p = torch.cat([torch.stack(first)[None].float(), lg_p])
         top2 = lg_p.topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL
+        clear = ((top2[..., 0] - top2[..., 1]) > LOGIT_TOL) & valid
         want = torch.as_tensor(toks.T, device="cuda").long()
-        agree = lg_p.argmax(-1) == want
+        agree = (lg_p.argmax(-1) == want) & valid
         if not bool(agree[clear].all()):
-            raise AssertionError("a delivered stream leaves the plain "
-                                 "form's greedy argmax at a clear margin")
-        checked += agree.numel()
-        close += int((~clear).sum())
+            raise AssertionError("a served stream leaves the plain form's "
+                                 "greedy argmax at a clear margin")
+        checked += int(valid.sum())
+        close += int((valid & ~clear).sum())
         same += int(agree.sum())
     if diff > LOGIT_TOL:
         raise AssertionError(f"teacher-forced logits: kernel and plain "
                              f"form differ by {diff}")
     return diff, checked, close, same
+
+
+def plain_greedy_check(params, cfg, ecfg, report):
+    """``greedy_check`` of every delivered honest stream of ``report``."""
+    done = [q for q in report.requests if q.delivered()]
+    return greedy_check(params, cfg, ecfg.page_size,
+                        [q.prompt for q in done],
+                        [q.delivered()[0].tokens for q in done])
 
 
 def drive_e2e(params):
@@ -1626,6 +1694,9 @@ def drive_e2e(params):
         f"pages, at most {ecfg.max_pages_per_seq} a sequence, superstep_k="
         f"{ecfg.superstep_k}, {ecfg.max_new_tokens} new tokens a request; "
         f"decode split plan (splits, pages a split) {plan}")
+    log("  reduced: " + ", ".join(
+        f"{name} {get_scenario(name).n_requests} -> {cut} requests"
+        for name, cut in E2E_RUNS))
     total, results = 0, {}
     for name, cut in E2E_RUNS:
         if not fleet.drained():
@@ -1670,7 +1741,7 @@ def drive_e2e(params):
         f"argmax: equal at {same} of {checked} positions ({close} with a "
         f"top-2 margin within {LOGIT_TOL}); max |teacher-forced logit "
         f"diff| kernel vs plain {diff:.4f}")
-    return {"paged_flash_decode": total}
+    return {"paged_flash_decode": total}, fleet
 
 
 # ---------------------------------------------------------------------------
@@ -1963,6 +2034,644 @@ def drive_families():
 
 
 # ---------------------------------------------------------------------------
+# 12. the prefix cache at full width
+
+
+SYSTEM_PROMPT = 256          # tokens: 16 full pages shared by 16 requests
+PREFIX_CCFG_A = PagedCacheConfig(num_slots=8, page_size=16,
+                                 max_pages_per_seq=24, num_pages=24 * 24 + 1)
+# run B: room for the largest request and a few more, so cached pages
+# must be reclaimed from the LRU while higher-priority requests preempt
+PREFIX_CCFG_B = PagedCacheConfig(num_slots=8, page_size=16,
+                                 max_pages_per_seq=24, num_pages=60)
+PREFIX_TWIN_CCFG = PagedCacheConfig(num_slots=2, page_size=4,
+                                    max_pages_per_seq=8, num_pages=24)
+PREFIX_SLA_CCFG = PagedCacheConfig(num_slots=1, page_size=4,
+                                   max_pages_per_seq=8, num_pages=12)
+
+
+def prefix_requests(vocab: int, seed: int = 0):
+    """24 requests, 16-32 new tokens each, in a seeded order: 16 share a
+    256-token system prompt and add their own tails of 1-40 tokens
+    (partial-block hits, new blocks), 4 carry one identical 200-token
+    prompt (full hits, a COW fork each), 4 are cold unique prompts of
+    64-128 tokens. Returns (prompt, budget, family) triples."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, SYSTEM_PROMPT)
+    same = rng.integers(0, vocab, 200)
+    reqs = [(np.concatenate([system, rng.integers(0, vocab, int(
+        rng.integers(1, 41)))]), "shared") for _ in range(16)]
+    reqs += [(same.copy(), "identical") for _ in range(4)]
+    reqs += [(rng.integers(0, vocab, int(rng.integers(64, 129))), "cold")
+             for _ in range(4)]
+    order = rng.permutation(len(reqs))
+    return [(reqs[i][0].astype(np.int32), int(rng.integers(16, 33)),
+             reqs[i][1]) for i in order]
+
+
+class PrefixTimedEngine(TimedEngine):
+    """TimedEngine that with the prefix cache on also bills each
+    admission (a cold prefill, or a shared hit and its suffix feed; each
+    ends in a host sync) to ``prefill_s``, and its suffix feeds to
+    ``suffix_s`` as well; per request it keeps the admission's time to
+    the first token and its cached tokens, and it counts the pages that
+    resumes re-shared from the index."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.suffix_s = 0.0
+        self.reshared = 0
+        self.admit_ms = {}                   # rid -> (ms, cached tokens)
+
+    def _feed_suffix(self, slot, suffix):
+        t0 = time.perf_counter()
+        out = super()._feed_suffix(slot, suffix)
+        self.suffix_s += time.perf_counter() - t0
+        return out
+
+    def _admit_prefix(self, st):
+        hits = self.stats["cache_hit_tokens"]
+        t0 = time.perf_counter()
+        super()._admit_prefix(st)
+        dt = time.perf_counter() - t0
+        self.prefill_s += dt
+        if st.generated:
+            self.admit_ms[st.req.rid] = (
+                dt * 1e3, self.stats["cache_hit_tokens"] - hits)
+
+    def _resume(self, st):
+        swap_in = self.kv.swap_in
+
+        def counted(*args):
+            m = swap_in(*args)
+            self.reshared += m
+            return m
+        self.kv.swap_in = counted
+        try:
+            super()._resume(st)
+        finally:
+            del self.kv.swap_in
+
+
+class SharedPageProbe:
+    """After a step where one physical page sits in two active slots'
+    tables, or a COW fork happened, holds the decode kernel against its
+    plain form on the engine's own pools and tables, every layer, on a
+    random query (at most ``limit`` times a run). Its launches are kept
+    apart, so the main path's count can leave them out."""
+
+    def __init__(self, limit: int = 4):
+        self.limit, self.probes, self.shared = limit, 0, 0
+        self.launches, self.forks, self.errs = 0, 0, []
+        self.gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def __call__(self, eng):
+        kv, ps = eng.kv, eng.kv.ccfg.page_size
+        forked = eng.stats["cow_forks"] > self.forks
+        self.forks = eng.stats["cow_forks"]
+        rows = [kv.page_table[s, :-(-int(kv.kv_lens[s]) // ps)]
+                for s in eng.sched.active]
+        used = np.concatenate(rows) if rows else np.zeros(0, np.int32)
+        shared = len(used) - len(np.unique(used))
+        if self.probes >= self.limit or not (shared or forked):
+            return
+        self.probes += 1
+        self.shared = max(self.shared, shared)
+        tbl = torch.tensor(kv.page_table, device="cuda")
+        lens = torch.tensor(kv.kv_lens, device="cuda")
+        before = dattn.LAUNCHES["paged_flash_decode"]
+        for pos, blk in enumerate(kv.cache):
+            kp, vp = blk["mixer"]["k_pages"], blk["mixer"]["v_pages"]
+            q = torch.randn((kv.page_table.shape[0], eng.cfg.n_heads,
+                             kp.shape[-1]), generator=self.gen,
+                            device="cuda").to(kp.dtype)
+            for p in range(kp.shape[0]):
+                check(f"paged_flash_decode on the engine's shared pages, "
+                      f"layer {pos}.{p}",
+                      dattn.paged_flash_decode(q, kp[p], vp[p], tbl, lens),
+                      dattn.paged_decode_plain(q, kp[p], vp[p], tbl, lens),
+                      DECODE_TOL[kp.dtype], self.errs)
+        self.launches += dattn.LAUNCHES["paged_flash_decode"] - before
+
+
+def checked_drain(eng, max_steps: int = 10_000, after_step=None):
+    """``run()`` with the allocator's and the index's books checked after
+    every step, and ``after_step(eng)`` called there."""
+    steps = 0
+    while not eng.sched.idle:
+        eng.step()
+        eng.kv.alloc.check_invariants()
+        if eng.kv.prefix is not None:
+            eng.kv.prefix.check_invariants()
+        if after_step is not None:
+            after_step(eng)
+        steps += 1
+        if steps > max_steps:
+            raise AssertionError("serving loop did not drain")
+    return {rid: np.asarray(st.generated, np.int32)
+            for rid, st in eng.sched.finished.items()}
+
+
+def serve_prefix(params, cfg, reqs, ccfg, prefix, policy="fifo",
+                 split=None, probe=None):
+    """Serve ``reqs`` on one engine (superstep_k = 8). With ``split``,
+    the requests at those indices come first at priority 0, the rest two
+    steps later at priority 1 (under ``sla`` they preempt). ``probe`` is
+    called after every step. Returns the engine, the streams in request
+    order and the decode kernel's launches over the run, its count zeroed
+    just before, less the probe's."""
+    eng = PrefixTimedEngine(params, cfg, ccfg, superstep_k=8,
+                            prefix_cache=prefix, policy=policy,
+                            device=params["embed"]["tok"].device)
+    dattn.reset_launches()
+    rids = {}
+    if split is None:
+        for i, (p, n, _) in enumerate(reqs):
+            rids[i] = eng.submit(p, n)
+    else:
+        for i in split:
+            rids[i] = eng.submit(reqs[i][0], reqs[i][1], priority=0)
+        eng.step()
+        eng.step()
+        for i in range(len(reqs)):
+            if i not in rids:
+                rids[i] = eng.submit(reqs[i][0], reqs[i][1], priority=1)
+    out = checked_drain(eng, after_step=probe)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dattn.LAUNCHES["paged_flash_decode"]
+    if probe is not None:
+        launches -= probe.launches
+    return eng, [out[rids[i]] for i in range(len(reqs))], launches
+
+
+def prefix_metrics(eng, reqs):
+    """Host-clock figures of one run. Prefill time per call includes the
+    prompt's page writes; with the cache on it is the mean cold
+    admission. Decode time is step time less all admission time."""
+    st = eng.stats
+    ttft = np.asarray([s.ttft for s in eng.sched.finished.values()]) * 1e3
+    cold = [ms for ms, c in eng.admit_ms.values() if not c]
+    return dict(
+        ttft_mean_ms=float(ttft.mean()), ttft_p50_ms=float(np.median(ttft)),
+        prefill_calls=st["prefill_calls"],
+        prefill_ms=(float(np.mean(cold)) if eng.kv.prefix is not None
+                    else eng.prefill_s / st["prefill_calls"] * 1e3),
+        hit_tokens=st["cache_hit_tokens"], miss_tokens=st["cache_miss_tokens"],
+        suffix_steps=st["suffix_steps"],
+        suffix_step_ms=(eng.suffix_s / st["suffix_steps"] * 1e3
+                        if st["suffix_steps"] else float("nan")),
+        decode_steps=st["decode_steps"],
+        decode_tok_s=(sum(n - 1 for _, n, _ in reqs)
+                      / (eng.step_s - eng.prefill_s)),
+        cow_forks=st["cow_forks"], evictions=st["prefix_evictions"],
+        preemptions=st["preemptions"], resumed=st["resumed"])
+
+
+def log_prefix(label, m):
+    log(f"    {label}: TTFT mean {m['ttft_mean_ms']:.1f} ms p50 "
+        f"{m['ttft_p50_ms']:.1f} ms; {m['prefill_calls']} prefill calls, "
+        f"{m['prefill_ms']:.2f} ms each; hit {m['hit_tokens']} / miss "
+        f"{m['miss_tokens']} tokens; {m['suffix_steps']} suffix steps, "
+        f"{m['suffix_step_ms']:.2f} ms each; decode {m['decode_tok_s']:.1f} "
+        f"tok/s over {m['decode_steps']} steps; COW forks {m['cow_forks']}, "
+        f"evictions {m['evictions']}, preemptions {m['preemptions']}, "
+        f"resumed {m['resumed']}")
+
+
+def serve_sla_twin(params, cfg, prefix):
+    """The f32 twin's small-pool ``sla`` run, one slot and 12 pages of 4
+    tokens: three 8-token prompts are served and retire (their blocks
+    stay in the LRU), a 9-token prompt starts, and two steps later a
+    priority-2 prompt on its first block preempts it. The pool makes the
+    LRU evict, and the resume re-shares the long prompt's resident
+    blocks. Returns the engine and the streams."""
+    rng = np.random.default_rng(5)
+    v = cfg.vocab_size
+    p_long = rng.integers(0, v, 9).astype(np.int32)
+    p_hot = np.concatenate([p_long[:4], rng.integers(0, v, 2)
+                            ]).astype(np.int32)
+    warm = [rng.integers(0, v, 8).astype(np.int32) for _ in range(3)]
+    eng = PrefixTimedEngine(params, cfg, PREFIX_SLA_CCFG, superstep_k=1,
+                            prefix_cache=prefix, policy="sla",
+                            device=params["embed"]["tok"].device)
+    rids = [eng.submit(p, 4, priority=0) for p in warm]
+    checked_drain(eng)
+    rids.append(eng.submit(p_long, 12, priority=0))
+    eng.step()
+    eng.step()
+    rids.append(eng.submit(p_hot, 3, priority=2, deadline=2.0))
+    out = checked_drain(eng)
+    return eng, [out[r] for r in rids]
+
+
+def prefix_twin(dev_params, cpu_params, cfg):
+    """Reduced qwen2-0.5b in f32, on ``tests/test_serve_prefix.py``'s mix
+    and on the small-pool ``sla`` run: the card's streams with the cache
+    on equal its streams with it off and the CPU's with it on, exactly,
+    and the card's and the CPU's stats (and re-shared pages) match.
+    Returns the card's stats of both runs and its re-shared pages."""
+    rng = np.random.default_rng(3)
+    p0 = rng.integers(0, cfg.vocab_size, 9).astype(np.int32)
+    p2 = np.concatenate([p0[:8], rng.integers(0, cfg.vocab_size, 3)
+                         ]).astype(np.int32)
+    p3 = rng.integers(0, cfg.vocab_size, 7).astype(np.int32)
+    reqs = [(p, n, "") for p, n in zip([p0, p0.copy(), p2, p3], [4, 3, 5, 4])]
+    runs = {}
+    for label, params, prefix in (("card on", dev_params, "on"),
+                                  ("card off", dev_params, "off"),
+                                  ("cpu on", cpu_params, "on")):
+        eng, out, _ = serve_prefix(params, cfg, reqs, PREFIX_TWIN_CCFG,
+                                   prefix)
+        sla, sla_out = serve_sla_twin(params, cfg, prefix)
+        runs[label] = ((eng.stats, sla.stats, sla.reshared),
+                       out + sla_out)
+    for label in ("card off", "cpu on"):
+        for a, b in zip(runs["card on"][1], runs[label][1]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"reduced f32 twin: card on and {label} "
+                                     "streams differ")
+    if runs["card on"][0] != runs["cpu on"][0]:
+        raise AssertionError("reduced f32 twin: card and CPU stats differ")
+    st, sla, reshared = runs["card on"][0]
+    if (sla["prefix_evictions"] < 1 or sla["preemptions"] < 1
+            or sla["resumed"] < 1 or reshared < 1):
+        raise AssertionError(f"reduced f32 twin, sla run: {sla}, "
+                             f"{reshared} pages re-shared")
+    return st, sla, reshared
+
+
+def drive_prefix(params, cfg):
+    """Phase 12: the prefix cache on qwen2-0.5b at full width (phase 6's
+    bf16 weights), 8 slots, 16-token pages, superstep_k = 8. Returns the
+    decode kernel's launches over the cached runs and the metrics of run
+    A with the cache on and off."""
+    reqs = prefix_requests(cfg.vocab_size)
+    prompts = [p for p, _, _ in reqs]
+    fams = {f: sum(1 for *_, g in reqs if g == f)
+            for f in ("shared", "identical", "cold")}
+    log(f"  24 requests ({fams['shared']} on a {SYSTEM_PROMPT}-token system "
+        f"prompt with tails of 1-40, {fams['identical']} identical "
+        f"200-token prompts, {fams['cold']} cold of 64-128), "
+        f"{sum(n for _, n, _ in reqs)} new tokens; run A pool "
+        f"{PREFIX_CCFG_A.num_pages} pages, run B {PREFIX_CCFG_B.num_pages}")
+    total = 0
+    serve_prefix(params, cfg, reqs[:2], PREFIX_CCFG_A, "on")    # warm-up
+    probe_a = SharedPageProbe()
+    eng_on, on, launches = serve_prefix(params, cfg, reqs, PREFIX_CCFG_A,
+                                        "on", probe=probe_a)
+    total += launches
+    st = eng_on.stats
+    iters = st["decode_steps"] + st["suffix_steps"]
+    if launches != cfg.n_layers * iters:
+        raise AssertionError(f"run A: paged_flash_decode launched {launches} "
+                             f"times, want {cfg.n_layers} x {iters}")
+    if eng_on.kv.alloc.n_used != eng_on.kv.prefix.n_indexed:
+        raise AssertionError("run A: used pages other than the indexed ones")
+    if (st["cache_hit_tokens"] < 15 * SYSTEM_PROMPT or st["cow_forks"] < 1
+            or st["suffix_steps"] <= 0 or st["prefix_evictions"]):
+        raise AssertionError(f"run A: cache counters {st}")
+    eng_off, off, launches_off = serve_prefix(params, cfg, reqs,
+                                              PREFIX_CCFG_A, "off")
+    if launches_off != cfg.n_layers * eng_off.stats["decode_steps"]:
+        raise AssertionError("run A off: decode launches do not match")
+    for what, streams in (("run A on", on), ("run A off", off)):
+        for (_, n, _), g in zip(reqs, streams):
+            if g.shape != (n,):
+                raise AssertionError(f"{what}: {g.shape} tokens, budget {n}")
+    # on and off both the plain argmax at every clear margin: where they
+    # part, the margin is within LOGIT_TOL
+    g_on = greedy_check(params, cfg, 16, prompts, on)
+    g_off = greedy_check(params, cfg, 16, prompts, off)
+    div = sum(not np.array_equal(a, b) for a, b in zip(on, off))
+    log(f"  run A: paged_flash_decode launched {launches} times = "
+        f"{cfg.n_layers} layers x ({st['decode_steps']} decode + "
+        f"{st['suffix_steps']} suffix steps); books checked after every "
+        f"step; {eng_on.kv.alloc.n_used} pages left, all indexed")
+    log_greedy("run A, cache on ", g_on)
+    log_greedy("run A, cache off", g_off)
+    log(f"    {div} of {len(reqs)} cache-on streams differ from the "
+        f"cache-off run's, each first where the top-2 margin is within "
+        f"{LOGIT_TOL}")
+    m_on, m_off = prefix_metrics(eng_on, reqs), prefix_metrics(eng_off, reqs)
+    log_prefix("cache on ", m_on)
+    log_prefix("cache off", m_off)
+    hits = [ms for ms, c in eng_on.admit_ms.values() if c]
+    cold = [ms for ms, c in eng_on.admit_ms.values() if not c]
+    tails = [len(p) - SYSTEM_PROMPT for p, _, g in reqs if g == "shared"]
+    m_on["hit_admit_ms"] = float(np.mean(hits))
+    m_on["cold_admit_ms"] = float(np.mean(cold))
+    m_on["break_even_tokens"] = m_on["cold_admit_ms"] / m_on["suffix_step_ms"]
+    log(f"    admission to first token, cache on: {len(hits)} hits "
+        f"{m_on['hit_admit_ms']:.1f} ms mean (suffixes of 1 token and of "
+        f"{min(tails)}-{max(tails)}), {len(cold)} cold single prefills "
+        f"{m_on['cold_admit_ms']:.1f} ms mean: a suffix longer than "
+        f"{m_on['break_even_tokens']:.1f} tokens costs more than a cold "
+        "prefill")
+
+    lo = [i for i in range(len(reqs)) if i % 2 == 0]
+    probe_b = SharedPageProbe()
+    eng_b, out_b, launches_b = serve_prefix(params, cfg, reqs, PREFIX_CCFG_B,
+                                            "on", policy="sla", split=lo,
+                                            probe=probe_b)
+    total += launches_b
+    sb = eng_b.stats
+    if (sb["prefix_evictions"] < 1 or sb["preemptions"] < 1
+            or sb["resumed"] < 1):
+        raise AssertionError(f"run B: cache counters {sb}")
+    if launches_b != cfg.n_layers * (sb["decode_steps"] + sb["suffix_steps"]):
+        raise AssertionError("run B: decode launches do not match")
+    if eng_b.kv.alloc.n_used != eng_b.kv.prefix.n_indexed:
+        raise AssertionError("run B: used pages other than the indexed ones")
+    eng_b.reset_prefix_cache()
+    if eng_b.kv.alloc.n_used:
+        raise AssertionError(f"run B: {eng_b.kv.alloc.n_used} pages kept")
+    for (_, n, _), g in zip(reqs, out_b):
+        if g.shape != (n,):
+            raise AssertionError(f"run B: {g.shape} tokens, budget {n}")
+    g_b = greedy_check(params, cfg, 16, prompts, out_b)
+    div_b = sum(not np.array_equal(a, b) for a, b in zip(out_b, off))
+    log(f"  run B (sla, priorities 0 then 1): {sb['prefix_evictions']} "
+        f"evictions, {sb['preemptions']} preemptions, {sb['resumed']} "
+        f"resumed, {sb['swapped_pages']} pages swapped, {eng_b.reshared} "
+        f"re-shared on resume; every page back after reset_prefix_cache; "
+        f"{div_b} streams differ from run A off's")
+    log_greedy("run B", g_b)
+    for label, pr in (("run A", probe_a), ("run B", probe_b)):
+        if not pr.shared:
+            raise AssertionError(f"{label}: no step with a page in two "
+                                 "slots' tables was probed")
+        log(f"    {label}: decode kernel vs plain form on the engine's own "
+            f"pools and tables after {pr.probes} steps (at most "
+            f"{pr.shared} table entries on a page another slot holds), "
+            f"{cfg.n_layers} layers each: "
+            f"max_abs_err {max(pr.errs):.3e} (bf16 rtol/atol 2e-2)")
+    log_prefix("run B    ", prefix_metrics(eng_b, reqs))
+
+    tcfg = get_config(SERVE_ARCH).reduced()
+    cpu_params = init_model(torch.Generator().manual_seed(0), tcfg,
+                            device="cpu", max_pos=64)
+    tst, sla, reshared = prefix_twin(mmodel.tree_to(cpu_params, "cuda"),
+                                     cpu_params, tcfg)
+    log(f"  reduced {SERVE_ARCH} f32: streams with the cache on equal the "
+        f"cache-off run's and the CPU's exactly; stats equal the CPU's "
+        f"(hit {tst['cache_hit_tokens']}, suffix steps "
+        f"{tst['suffix_steps']}, COW forks {tst['cow_forks']}); small-pool "
+        f"sla run: {sla['prefix_evictions']} evictions, "
+        f"{sla['preemptions']} preemption, {sla['resumed']} resumed with "
+        f"{reshared} pages re-shared, equal to the CPU's")
+    return {"paged_flash_decode": total}, m_on, m_off
+
+
+def log_greedy(label, g):
+    diff, checked, close, same = g
+    log(f"    {label}: streams vs the plain form's greedy argmax, teacher "
+        f"forced: equal at {same} of {checked} positions ({close} with a "
+        f"top-2 margin within {LOGIT_TOL}); max |logit diff| kernel vs "
+        f"plain {diff:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# 13. fleet control and checkpoint rejoin on real engines
+
+
+FLEET_REQUESTS = 16          # the reference's smoke size for fleet replays
+# crash_cascade's crashes start at 100, 140 and 180 of virtual time, when
+# no request is in flight; moved to 3.0, 14.5 and 29.8 each lands on a
+# request in flight on that replica, and the windows end early enough
+# that the restarted replicas serve the later arrivals
+INFLIGHT_CRASHES = ((0, 3.0, 60.0), (1, 14.5, 70.0), (2, 29.8, 80.0))
+
+
+def engine_rejoin(eng):
+    """A drained engine's snapshot through the Checkpointer into
+    ``restart(image)``: rid counter monotone, one request's stream the
+    same after as before; a busy engine's snapshot refused."""
+    import tempfile
+    prompt = np.random.default_rng(51).integers(
+        0, eng.cfg.vocab_size, 24).astype(np.int32)
+    rid0 = eng.submit(prompt, 8)
+    before = eng.run()[rid0]
+    image = eng.snapshot()
+    with tempfile.TemporaryDirectory(prefix="rejoin_") as d:
+        ck = Checkpointer(d, keep=1)
+        t0 = time.perf_counter()
+        ck.save(image, step=0, blocking=True)
+        loaded, _ = ck.restore_flat()
+        ck_s = time.perf_counter() - t0
+    mb = sum(v.nbytes for v in loaded.values()) / 1e6
+    t0 = time.perf_counter()
+    eng.restart(loaded)
+    torch.cuda.synchronize()
+    restart_s = time.perf_counter() - t0
+    rid1 = eng.submit(prompt, 8)
+    if rid1 <= rid0:
+        raise AssertionError("rid counter went back across the restart")
+    try:
+        eng.snapshot()
+    except SnapshotInFlightError as e:
+        refused = (e.n_active, e.n_waiting)
+    else:
+        raise AssertionError("snapshot of a busy engine was not refused")
+    after = eng.run()[rid1]
+    if not np.array_equal(before, after):
+        raise AssertionError("the stream changed across the restart")
+    return mb, ck_s, restart_s, refused
+
+
+def fleet_replay(params, fleet, sc):
+    """``run_fleet_e2e`` of ``sc`` cut to 16 requests on the warm fleet,
+    the decode kernel's count zeroed just before and read just after:
+    zero violations, nothing lost, every death rejoined after probation,
+    delivered streams the plain form's greedy argmax where the margin
+    allows. Returns the launches, the report and the wall seconds."""
+    dattn.reset_launches()
+    t0 = time.perf_counter()
+    rep = run_fleet_e2e(sc, fleet, n_requests=FLEET_REQUESTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dattn.LAUNCHES["paged_flash_decode"]
+    m = rep.metrics
+    if rep.violations:
+        raise AssertionError(f"{sc.name}: {summarize(rep.violations)}")
+    if m.permanently_lost or m.restarts < 1 or m.deaths < 1:
+        raise AssertionError(f"{sc.name}: {m.as_dict()}")
+    if m.rejoins != m.deaths:
+        raise AssertionError(f"{sc.name}: {m.deaths} deaths but "
+                             f"{m.rejoins} rejoins after probation")
+    if launches == 0:
+        raise AssertionError(f"paged_flash_decode was not launched in "
+                             f"{sc.name}")
+    if not fleet.drained():
+        raise AssertionError(f"fleet not drained after {sc.name}")
+    lost = sum(c.status == LOST for q in rep.requests
+               for c in q.copies.values())
+    log(f"  {sc.name}, {len(rep.requests)} requests through the fleet "
+        f"controller in {wall:.1f} s on the host clock; paged_flash_decode "
+        f"launched {launches} times; copies lost to crashes {lost}")
+    log(f"    deaths {m.deaths}, rejoins {m.rejoins}, restarts {m.restarts}, "
+        f"transitions {m.transitions}; hedges {m.hedges}, retries "
+        f"{m.retries}, shed {m.shed}, permanently lost "
+        f"{m.permanently_lost}; recovery {m.recovery_time_mean:.3f} mean / "
+        f"{m.recovery_time_max:.3f} max, rejoin lag {m.rejoin_lag_mean:.3f} "
+        f"(virtual time); success rate {m.sr_pre:.3f} pre-fault, "
+        f"{m.sr_post:.3f} post-rejoin; goodput {m.goodput_pre:.4f} / "
+        f"{m.goodput_post:.4f} per unit")
+    log_quorum(rep.native, "native")
+    for r, row in sorted(rep.sweep.items()):
+        log_quorum(row, f"r={r}")
+    diff, checked, close, same = plain_greedy_check(
+        params, fleet.engines[0].cfg, fleet.ecfg, rep)
+    log(f"    delivered streams vs the plain form's greedy argmax: equal at "
+        f"{same} of {checked} positions ({close} with a top-2 margin within "
+        f"{LOGIT_TOL}); max |teacher-forced logit diff| kernel vs plain "
+        f"{diff:.4f}")
+    return launches, rep, wall, lost
+
+
+def drive_fleet(params, fleet):
+    """Phase 13: the engine-level rejoin on phase 10's warm fleet, then
+    ``run_fleet_e2e`` of ``crash_cascade`` cut to 16 requests, and of the
+    same scenario with its crashes on requests in flight, where the
+    controller must fail copies over and a restarted replica must serve
+    again. Returns the decode kernel's launches over the replays."""
+    if not fleet.drained():
+        raise AssertionError("fleet not drained before phase 13")
+    mb, ck_s, restart_s, refused = engine_rejoin(fleet.engines[0])
+    log(f"  engine 0: a {mb:.1f} MB snapshot through the Checkpointer in "
+        f"{ck_s:.2f} s, restart(image) in {restart_s * 1e3:.1f} ms; rid "
+        f"counter monotone, the stream after the restart equals the one "
+        f"before; a busy engine's snapshot refused ({refused[0]} active, "
+        f"{refused[1]} waiting)")
+    sc = get_scenario("crash_cascade")
+    launches, rep, wall, _ = fleet_replay(params, fleet, sc)
+    sc = dataclasses.replace(
+        sc, name="crash_cascade_inflight", faults=dataclasses.replace(
+            sc.faults, crashes=tuple(CrashWindow(*c)
+                                     for c in INFLIGHT_CRASHES)))
+    more, rep2, wall2, lost = fleet_replay(params, fleet, sc)
+    m = rep2.metrics
+    if not lost or m.hedges + m.retries == 0 or not np.isfinite(m.sr_post):
+        raise AssertionError(f"{sc.name}: no failover ({lost} copies lost, "
+                             f"{m.as_dict()})")
+    # the controller ranks replicas by latency, so a restarted one need
+    # not be picked again; one at least must serve from its image
+    served = sorted({j for j, _, end in INFLIGHT_CRASHES
+                     for q in rep2.requests for c in q.delivered()
+                     if c.replica == j and c.t_first > end})
+    if not served:
+        raise AssertionError(f"{sc.name}: no restarted replica served")
+    log(f"    restarted replicas {served} delivered copies after their "
+        "restarts")
+    return {"paged_flash_decode": launches + more}, m, wall + wall2
+
+
+# ---------------------------------------------------------------------------
+# 14. wall-clock chaos on real engines
+
+
+WALLCLOCK_N = 4
+WALLCLOCK_REQUESTS = 12      # the reference's smoke size
+WALLCLOCK_STUB_WORK = 0.3    # StubReplica work_time at scale 1
+
+
+class CheckedReplica(EngineReplica):
+    """EngineReplica that keeps the traceback of every exception of its
+    engine other than a kill. The fleet counts such an exception as a
+    crash and restarts the replica, so without this record a fault of
+    the kernel or the cache would pass for one more crash and rejoin."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.errors = []
+
+    def process(self, request, should_abort):
+        try:
+            return super().process(request, should_abort)
+        except ReplicaKilled:
+            raise
+        except Exception:
+            self.errors.append(traceback.format_exc())
+            raise
+
+
+def drive_wallclock(fleet):
+    """Phase 14: 4 of the fleet's engines as ``EngineReplica``s under
+    ``RealClock``, through ``kill_rejoin`` cut to 12 requests. Outcomes
+    only, never timings.
+
+    The timescale comes from one measured request, as the reference's
+    wall-clock benchmark sets it, but from the request as a dispatch
+    serves it: on n - r = 3 replicas at once, each on its own thread.
+    One process drives every engine, and its host work serializes on the
+    interpreter lock, so 3 replicas at once take far longer than one
+    alone; a lone request's time would put heartbeats and deadlines
+    below the fleet's real service time. The detector's prior
+    (``init_interval``) scales with the heartbeat, as at scale 1."""
+    replicas = [CheckedReplica(e, fleet.ecfg.max_new_tokens)
+                for e in fleet.engines[:WALLCLOCK_N]]
+    req = np.arange(1, 9, dtype=np.int32)
+    for rep in replicas:
+        rep.process(req, lambda: False)
+    t0 = time.perf_counter()
+    for rep in replicas:
+        rep.process(req, lambda: False)
+    lat = (time.perf_counter() - t0) / len(replicas)
+    threads = [threading.Thread(target=rep.process, args=(req, lambda: False))
+               for rep in replicas[:3]]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    lat3 = time.perf_counter() - t0
+    scale = max(lat3, 1e-3) / WALLCLOCK_STUB_WORK
+    log(f"  one request {lat * 1e3:.1f} ms on one replica, {lat3 * 1e3:.1f} "
+        f"ms on 3 at once (host clock): timescale {scale:.3f}")
+    plan = dataclasses.replace(PLANS["kill_rejoin"](WALLCLOCK_N, scale=scale),
+                               n_requests=WALLCLOCK_REQUESTS)
+    cfg = FleetConfig(n_replicas=WALLCLOCK_N, r=1, seed=0,
+                      heartbeat_period=2.0 * scale, init_interval=2.0 * scale)
+    dattn.reset_launches()
+    t0 = time.perf_counter()
+    rep = run_realtime_chaos(plan, cfg, clock=RealClock(), replicas=replicas)
+    wall = time.perf_counter() - t0
+    launches = dattn.LAUNCHES["paged_flash_decode"]
+    d = rep.as_dict()
+    log(f"  kill_rejoin cut to {WALLCLOCK_REQUESTS} requests in {wall:.1f} s "
+        f"(heartbeat {cfg.heartbeat_period:.3f} s); paged_flash_decode "
+        f"launched {launches} times")
+    log(f"    {json.dumps(d)}")
+    log("    transitions " + ", ".join(
+        f"{t:.3f} replica {j} {a} -> {b}" for t, j, a, b in rep.transition_log))
+    log("    latencies " + " ".join(f"{x:.3f}" for x in rep.latencies))
+    if rep.lost or rep.violations or not rep.drained:
+        raise AssertionError(f"wall-clock kill_rejoin: {d}")
+    for j in {ev.replica for ev in plan.events}:
+        seen = [(a, b) for _, r, a, b in rep.transition_log if r == j]
+        if not any(b == "dead" for _, b in seen) or \
+                ("recovering", "healthy") not in seen:
+            raise AssertionError(f"wall-clock kill_rejoin: the kill of "
+                                 f"replica {j} was not detected or it did "
+                                 f"not rejoin: {d}")
+    errors = [e for r in replicas for e in r.errors]
+    if errors:
+        raise AssertionError(f"wall-clock kill_rejoin: {len(errors)} "
+                             f"exceptions in the replicas' engines, the "
+                             f"first:\n{errors[0]}")
+    kills = sum(ev.kind == "kill" for ev in plan.events)
+    if rep.deaths < 1 or rep.rejoins < 1 or rep.restarts != kills:
+        raise AssertionError(f"wall-clock kill_rejoin: {rep.restarts} "
+                             f"restarts for {kills} kills: {d}")
+    if launches == 0:
+        raise AssertionError("paged_flash_decode was not launched in the "
+                             "wall-clock run")
+    if not all(e.sched.idle for e in fleet.engines[:WALLCLOCK_N]):
+        raise AssertionError("an engine replica was left busy")
+    return {"paged_flash_decode": launches}, d, wall
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2038,17 +2747,35 @@ def main() -> int:
 
     log(f"== 10. the e2e harness: {E2E_REPLICAS} {SERVE_ARCH} replicas at "
         "full width")
-    for k, c in drive_e2e(params).items():
+    e2e_counts, fleet = drive_e2e(params)
+    for k, c in e2e_counts.items():
         counts[k] += c
-    del params
-    torch.cuda.empty_cache()
 
+    # phase 6's weights and phase 10's fleet (about 1 GB) stay on the
+    # card through phase 11 for phases 12-14
     log("== 11. the other model families at full width: jamba, deepseek-v2, "
         "arctic, rwkv6, qwen2-vl served; whisper and the CPU twins")
     for k, c in drive_families().items():
         counts[k] += c
 
-    log("== 12. result")
+    log(f"== 12. the prefix cache: {SERVE_ARCH} at full width, bf16")
+    t0 = time.perf_counter()
+    c12, _, _ = drive_prefix(params, get_config(SERVE_ARCH))
+    log(f"  phase 12 in {time.perf_counter() - t0:.1f} s")
+
+    log(f"== 13. fleet control and checkpoint rejoin: {E2E_REPLICAS} "
+        f"{SERVE_ARCH} replicas at full width")
+    c13, _, _ = drive_fleet(params, fleet)
+
+    log(f"== 14. wall-clock chaos: {WALLCLOCK_N} of the replicas on real "
+        "threads and timers")
+    c14, _, _ = drive_wallclock(fleet)
+    for c in (c12, c13, c14):
+        counts["paged_flash_decode"] += c["paged_flash_decode"]
+    del params, fleet
+    torch.cuda.empty_cache()
+
+    log("== 15. result")
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

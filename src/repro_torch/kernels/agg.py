@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.gradagg import cge_mask_from_norms
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launches
 
 BIG = 1e30          # matches gradagg.BIG (received-masking sentinel)
 SMEM_LIMIT = 232_448    # shared memory a block may ask for on an H100
@@ -64,8 +64,7 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    _launches.reset(LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +369,7 @@ def masked_cge_reduce(g, received, f: int):
                                      None if ws is None else ws.data_ptr(),
                                      out.data_ptr(), stream),
                "agg_masked_cge")
-        LAUNCHES["masked_cge_reduce"] += 1
+        _launches.count(LAUNCHES, "masked_cge_reduce")
     return out
 
 
@@ -392,7 +391,7 @@ def trimmed_mean_tiled(g, received, f: int):
                                        plan.smem_bytes, out.data_ptr(),
                                        stream),
                "agg_trimmed_mean")
-        LAUNCHES["trimmed_mean_tiled"] += 1
+        _launches.count(LAUNCHES, "trimmed_mean_tiled")
     return out
 
 
@@ -418,5 +417,5 @@ def dequant_accum(q, scale, received):
                                         plan.grid, plan.share,
                                         out.data_ptr(), stream),
                "agg_dequant_accum")
-        LAUNCHES["dequant_accum"] += 1
+        _launches.count(LAUNCHES, "dequant_accum")
     return out

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launches
 from repro_torch.kernels.ref import ref_block_sq_norms, ref_masked_scale
 
 LAUNCHES = {"block_sq_norms": 0, "masked_scale": 0}
@@ -38,8 +38,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    _launches.reset(LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +85,7 @@ def block_sq_norms(x):
                                        out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"cge_block_sq_norms launch failed: cudaError {rc}")
-    LAUNCHES["block_sq_norms"] += 1
+    _launches.count(LAUNCHES, "block_sq_norms")
     return out
 
 
@@ -111,5 +110,5 @@ def masked_scale(x, scale):
                                      out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"cge_masked_scale launch failed: cudaError {rc}")
-    LAUNCHES["masked_scale"] += 1
+    _launches.count(LAUNCHES, "masked_scale")
     return out

@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launches
 from repro_torch.kernels.ref import NEG_INF
 
 MAX_G = 8           # query heads per KV head (kMaxG in the kernel)
@@ -46,8 +46,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    _launches.reset(LAUNCHES)
 
 
 def paged_decode_plain(q, k_pages, v_pages, page_table, kv_lens):
@@ -184,5 +183,5 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, kv_lens):
             d ** -0.5, _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError {rc}")
-    LAUNCHES["paged_flash_decode"] += 1
+    _launches.count(LAUNCHES, "paged_flash_decode")
     return out

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launches
 from repro_torch.kernels.ref import NEG_INF
 
 BLOCK_K = 128       # the TPU kernel's key block (flash_attention.py:74)
@@ -47,8 +47,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    _launches.reset(LAUNCHES)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True):
@@ -151,5 +150,5 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: "
                            f"cudaError {rc}")
-    LAUNCHES["flash_attention"] += 1
+    _launches.count(LAUNCHES, "flash_attention")
     return out

@@ -25,9 +25,13 @@ runs *drop-free* (``infer_cfg`` raises the capacity factor to
 num_experts / top_k, so capacity >= tokens per group): a request's
 tokens must not depend on its batch-mates. Attention-only archs pad
 prompts to a page multiple per prefill group; a recurrent (Mamba/RWKV)
-state would absorb the pad, so those archs group by exact length. The
-prefix cache and serving meshes come with later slices (ROADMAP Queue 1
-items 7 and 9).
+state would absorb the pad, so those archs group by exact length.
+
+``prefix_cache="on"`` (attention-only archs) shares resident prompt
+pages between requests: a hit prefills only its uncached suffix, one
+token per call of the decode program, whose last logits give the first
+generated token; ``"off"`` keeps the grouped admission path. Serving
+meshes come with a later slice (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve as resolve_device
 from repro_torch.models.layers import unembed
 from repro_torch.models.model import apply_model
-from repro_torch.serve.kv_cache import PagedCacheConfig, PagedKVCache
+from repro_torch.serve.kv_cache import (PagedCacheConfig, PagedKVCache,
+                                        pages_needed)
 from repro_torch.serve.scheduler import Request, RequestState, Scheduler
 
 
@@ -90,9 +95,12 @@ class ServeEngine:
         if prefix_cache not in ("off", "on"):
             raise ValueError(f"prefix_cache must be off|on, "
                              f"got {prefix_cache!r}")
-        if prefix_cache == "on":
-            raise NotImplementedError(
-                "the prefix cache comes with ROADMAP Queue 1 item 7")
+        if prefix_cache == "on" and any(k != "attn"
+                                        for k in cfg.layer_pattern):
+            # only attention KV is paged; a recurrent layer's state is not
+            # content-addressable per token chunk
+            raise ValueError(
+                "prefix_cache requires an attention-only layer pattern")
         if mesh is not None or rules is not None:
             raise NotImplementedError(
                 "serving meshes (tensor-parallel decode) come with ROADMAP "
@@ -113,10 +121,11 @@ class ServeEngine:
         self.infer_cfg = cfg
         self._pad_buckets = all(k == "attn" for k in cfg.layer_pattern)
         self.ccfg = ccfg or PagedCacheConfig()
-        self.kv = PagedKVCache(cfg, self.ccfg, device=self.device)
+        self.kv = PagedKVCache(cfg, self.ccfg,
+                               enable_prefix=(prefix_cache == "on"),
+                               device=self.device)
         self.sched = Scheduler(self.ccfg, policy=policy)
-        # the reference's counters, names and meaning alike (the prefix
-        # cache's stay 0 until it is ported)
+        # the reference's counters, names and meaning alike
         self.stats = {"prefill_calls": 0, "decode_steps": 0,
                       "supersteps": 0, "host_syncs": 0,
                       "admitted": 0, "retired": 0, "aborted": 0,
@@ -190,8 +199,18 @@ class ServeEngine:
         return self.sched.rejected
 
     # ------------------------------------------------------------------
+    def _need_pages(self, st: RequestState) -> int:
+        """Page bill for the admission gate: a prefix hit pays only for
+        its uncached pages (plus a COW copy); swaps and cold requests pay
+        the whole reservation."""
+        if st.swap is None and self.kv.prefix is not None:
+            return self.kv.prefix.plan(st.req.prompt,
+                                       st.req.total_len).need_pages
+        return pages_needed(st.req.total_len, self.ccfg.page_size)
+
     def _admit(self) -> None:
-        admitted = self.sched.admissions(self.kv.available_pages)
+        admitted = self.sched.admissions(self.kv.available_pages,
+                                         need_pages=self._need_pages)
         if not admitted:
             if not self.sched.active and self.sched.waiting:
                 raise RuntimeError(
@@ -204,7 +223,11 @@ class ServeEngine:
                 self._resume(st)
         self.stats["admitted"] += len(fresh)
         if fresh:
-            self._admit_grouped(fresh)
+            if self.kv.prefix is None:
+                self._admit_grouped(fresh)
+            else:
+                for st in fresh:
+                    self._admit_prefix(st)
         self.stats["table_uploads"] = self.kv.table_uploads
 
     def _admit_grouped(self, admitted: List[RequestState]) -> None:
@@ -234,6 +257,68 @@ class ServeEngine:
                 self.kv.admit(st.slot, one, st.req.prompt_len,
                               st.req.total_len)
                 self._first_token(st, int(first[i]))
+
+    def _admit_prefix(self, st: RequestState) -> None:
+        """Prefix-cache admission: share the resident prompt prefix, feed
+        only the uncached suffix, then index this request's blocks for
+        the next arrival. A cold miss prefills alone. A plan gone stale
+        since the gate (pages reclaimed meanwhile) requeues."""
+        req = st.req
+        plan = self.kv.prefix.plan(req.prompt, req.total_len)
+        if plan.cached_len == 0:
+            ps = self.ccfg.page_size
+            if pages_needed(req.total_len, ps) > self.kv.available_pages:
+                self.sched.requeue(st)
+                return
+            s0 = req.prompt_len
+            bucket = -(-s0 // ps) * ps if self._pad_buckets else s0
+            prompt = np.zeros((1, bucket), np.int32)
+            prompt[0, :s0] = req.prompt
+            first, cache = self._prefill(
+                torch.tensor(prompt, device=self.device),
+                torch.tensor([s0 - 1], device=self.device))
+            self.stats["prefill_calls"] += 1
+            first = int(first.cpu()[0])
+            self.stats["host_syncs"] += 1
+            self.kv.admit(st.slot, cache, s0, req.total_len)
+            self.kv.register_prompt(st.slot, req.prompt)
+            self.stats["cache_miss_tokens"] += s0
+            self._first_token(st, first)
+            return
+        try:
+            self.kv.admit_shared(st.slot, plan, req.total_len)
+        except MemoryError:
+            self.sched.requeue(st)
+            return
+        self.stats["cache_hit_tokens"] += plan.cached_len
+        self.stats["cache_miss_tokens"] += req.prompt_len - plan.cached_len
+        first = self._feed_suffix(st.slot, req.prompt[plan.cached_len:])
+        self.kv.register_prompt(st.slot, req.prompt)
+        self._first_token(st, first)
+
+    def _feed_suffix(self, slot: int, suffix) -> int:
+        """Feed the uncached suffix through the decode program, one token
+        per call at position ``kv_lens[slot]``, with the page table masked
+        to this slot (the others point at the null page with length 0, so
+        co-resident requests are untouched). The last token's logits give
+        the first generated token, where cold prefill reads them."""
+        b = self.ccfg.num_slots
+        tbl = np.zeros_like(self.kv.page_table)
+        tbl[slot] = self.kv.page_table[slot]
+        tbl_dev = torch.tensor(tbl, device=self.device)
+        nxt = None
+        for t in np.asarray(suffix, np.int32):
+            toks = np.zeros((b, 1), np.int32)
+            toks[slot, 0] = int(t)
+            lens = np.zeros((b,), np.int32)
+            lens[slot] = self.kv.kv_lens[slot]
+            nxt = self._decode(torch.tensor(toks, device=self.device),
+                               torch.tensor(lens, device=self.device),
+                               tbl_dev)
+            self.kv.note_host_len(slot, int(self.kv.kv_lens[slot]) + 1)
+            self.stats["suffix_steps"] += 1
+        self.stats["host_syncs"] += 1
+        return int(nxt.cpu()[slot])
 
     def _first_token(self, st: RequestState, tok: int) -> None:
         st.pending = tok
@@ -296,6 +381,12 @@ class ServeEngine:
         self.stats["aborted"] += len(dropped)
         return lost + [st.req.rid for st in dropped]
 
+    def reset_prefix_cache(self) -> None:
+        """Drop every index entry and reclaim the parked pages (a cold
+        cache on warm weights)."""
+        if self.kv.prefix is not None:
+            self.kv.prefix.clear()
+
     # -- checkpoint-based restart ----------------------------------------
     def snapshot(self) -> Dict[str, np.ndarray]:
         """Host image of the idle engine's data plane, the reference's
@@ -319,8 +410,11 @@ class ServeEngine:
                 ) -> None:
         """Process-restart twin: a fresh scheduler and paged cache and,
         with ``image``, the KV pools reloaded from a :meth:`snapshot`. The
-        rid counter stays monotone across the restart."""
-        self.kv = PagedKVCache(self.infer_cfg, self.ccfg, device=self.device)
+        rid counter stays monotone across the restart; a prefix cache
+        restarts cold (its index is not part of the image)."""
+        self.kv = PagedKVCache(self.infer_cfg, self.ccfg,
+                               enable_prefix=(self.prefix_cache == "on"),
+                               device=self.device)
         self.sched = Scheduler(self.ccfg, policy=self.sched.policy)
         if image is not None:
             for pos, blk in enumerate(self.kv.cache):
@@ -342,7 +436,10 @@ class ServeEngine:
         self.sched.clock += 1.0
         self._admit()
         self._preempt()
+        self.stats["cow_forks"] = self.kv.cow_forks
         self.stats["swapped_pages"] = self.kv.swapped_pages
+        if self.kv.prefix is not None:
+            self.stats["prefix_evictions"] = self.kv.prefix.evictions
         if not self.sched.active:
             return
         if self.superstep_k == 1:

@@ -20,8 +20,14 @@ physical page ``page_table[s, p]``, shared by every layer.
 The pools and slot states are device tensors written in place
 (admission scatters, decode appends and state updates): ``update`` only
 rebinds the tree. Encoder-decoder archs are refused, as in the
-reference. The prefix cache (content-hashed shared pages, COW forks)
-comes with ROADMAP Queue 1 item 7.
+reference.
+
+With ``enable_prefix`` a :class:`~repro_torch.serve.prefix.PrefixIndex`
+maps prompt chunks to resident pages: admission shares them
+(``admit_shared``, forking the last one copy-on-write on a full-prompt
+hit), eviction releases pages to the index, whose refcount-0 pages park
+in an LRU that allocation reclaims under pool pressure, and a resumed
+request re-shares its full prompt blocks that are still resident.
 """
 from __future__ import annotations
 
@@ -194,13 +200,15 @@ class PagedKVCache:
         if cfg.encoder_decoder:
             raise NotImplementedError(
                 "paged serving supports decoder-only archs")
-        if enable_prefix:
-            raise NotImplementedError(
-                "the prefix cache comes with ROADMAP Queue 1 item 7")
         self.cfg = cfg
         self.ccfg = ccfg
         self.device = resolve_device(device)
         self.alloc = PageAllocator(ccfg.num_pages)
+        self.prefix = None
+        if enable_prefix:
+            from repro_torch.serve.prefix import PrefixIndex
+            self.prefix = PrefixIndex(self.alloc, ccfg.page_size)
+        self.cow_forks = 0
         self.swapped_pages = 0
         s = ccfg.num_slots
         self.page_table = np.zeros((s, ccfg.max_pages_per_seq), np.int32)
@@ -252,11 +260,23 @@ class PagedKVCache:
     # -- admission / eviction --------------------------------------------
     @property
     def available_pages(self) -> int:
-        return self.alloc.n_free
+        """Pages allocatable now: the free list plus what the prefix LRU
+        gives back under pressure."""
+        n = self.alloc.n_free
+        if self.prefix is not None:
+            n += self.prefix.reclaimable
+        return n
 
-    def _claim_slot(self, slot: int, total_len: int, n_priv: int
-                    ) -> List[int]:
-        """Allocate the slot's pages and write its table row."""
+    def _alloc_pages(self, n: int) -> List[int]:
+        """``alloc`` that first reclaims refcount-0 cached pages (oldest
+        first) when the free list is short."""
+        if self.prefix is not None and n > self.alloc.n_free:
+            self.prefix.reclaim(n - self.alloc.n_free)
+        return self.alloc.alloc(n)
+
+    def _check_claim(self, slot: int, total_len: int) -> int:
+        """Pages of the whole reservation; raises before any change if
+        the table is too narrow or the slot is taken."""
         ccfg = self.ccfg
         need = pages_needed(total_len, ccfg.page_size)
         if need > ccfg.max_pages_per_seq:
@@ -265,13 +285,32 @@ class PagedKVCache:
                 f"table width {ccfg.max_pages_per_seq}")
         if slot in self._slot_pages:
             raise ValueError(f"slot {slot} already occupied")
-        pages = self.alloc.alloc(n_priv)
+        return need
+
+    def _set_row(self, slot: int, pages: List[int]) -> None:
+        """Give the slot ``pages`` (logical order) and write its table."""
         self._slot_pages[slot] = pages
-        row = np.zeros((ccfg.max_pages_per_seq,), np.int32)
-        row[:need] = pages
+        row = np.zeros((self.ccfg.max_pages_per_seq,), np.int32)
+        row[:len(pages)] = pages
         self.page_table[slot] = row
         self._tables_dirty = True
+
+    def _claim_slot(self, slot: int, total_len: int, n_priv: int
+                    ) -> List[int]:
+        """Allocate the slot's pages and write its table row."""
+        self._check_claim(slot, total_len)
+        pages = self._alloc_pages(n_priv)
+        self._set_row(slot, pages)
         return pages
+
+    def _release(self, pages: Sequence[int]) -> None:
+        """Drop the slot's hold on its pages: freed outright without the
+        prefix cache; with it, indexed pages reaching refcount 0 park in
+        the LRU and keep their content for the next hit."""
+        if self.prefix is not None:
+            self.prefix.release(pages)
+        else:
+            self.alloc.free(pages)
 
     def admit(self, slot: int, prefill_cache, prompt_len: int,
               total_len: int) -> None:
@@ -308,18 +347,71 @@ class PagedKVCache:
                         :, 0, n_full * ps:prompt_len].to(pool.dtype)
 
     def evict(self, slot: int) -> None:
-        """Free the slot's pages and point its table at the null page."""
+        """Release the slot's pages (``_release``) and point its table at
+        the null page."""
         pages = self._slot_pages.pop(slot, None)
         if pages is None:
             raise ValueError(f"slot {slot} not occupied")
-        self.alloc.free(pages)
+        self._release(pages)
         self.page_table[slot] = 0
         self.kv_lens[slot] = 0
         self._tables_dirty = True
 
+    # -- prefix-cache admission / COW ------------------------------------
+    def admit_shared(self, slot: int, plan, total_len: int) -> None:
+        """Admit a request whose prompt prefix is resident: the plan's
+        shared pages become logical pages 0.. of the slot (one more
+        holder each), private pages cover the rest of the ``total_len``
+        reservation. On a ``cow`` plan (a full-prompt hit, whose re-fed
+        last token writes into the last shared page) that page is forked
+        to a private copy before any write. Feasibility is checked first,
+        so MemoryError leaves no partial state."""
+        need = self._check_claim(slot, total_len)
+        if plan.need_pages > self.prefix.headroom(plan.shared):
+            raise MemoryError(
+                f"page pool exhausted: want {plan.need_pages}, "
+                f"have {self.prefix.headroom(plan.shared)}")
+        self.prefix.acquire(plan.shared)
+        shared = list(plan.shared)
+        priv = self._alloc_pages(plan.need_pages)
+        if plan.cow:
+            copy = priv[0]
+            self._copy_page(shared[-1], copy)
+            self.prefix.release([shared[-1]])    # drop our pin on the orig
+            shared[-1] = copy
+            priv = priv[1:]
+            self.cow_forks += 1
+        pages = shared + priv
+        assert len(pages) == need
+        self._set_row(slot, pages)
+        self.kv_lens[slot] = plan.cached_len
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """COW fork: physical page ``src`` copied into ``dst`` in every
+        attention pool leaf of every layer (MLA's latent pages too), in
+        place on the device. Recurrent slot rows are never shared."""
+        for pos, blk in enumerate(self.cache):
+            if self.cfg.layer_pattern[pos] == "attn":
+                for pool in blk["mixer"].values():
+                    pool[:, dst].copy_(pool[:, src])
+
+    def register_prompt(self, slot: int, prompt) -> int:
+        """Index the slot's resident prompt blocks for later hits (after
+        its prompt KV is written). No-op without the prefix cache."""
+        if self.prefix is None:
+            return 0
+        return self.prefix.register(prompt, self._slot_pages[slot])
+
+    def note_host_len(self, slot: int, kv_len: int) -> None:
+        """Host-side length during the suffix feed; the device mirrors
+        refresh at their next read."""
+        self.kv_lens[slot] = kv_len
+        self._tables_dirty = True
+
     def swap_out(self, slot: int) -> SwapState:
         """Preempt: copy the slot's content-bearing pages to the host, then
-        free every device page; its table row points at the null page."""
+        release every device page (``_release``); its table row points at
+        the null page."""
         pages = self._slot_pages.get(slot)
         if pages is None:
             raise ValueError(f"slot {slot} not occupied")
@@ -336,7 +428,7 @@ class PagedKVCache:
                     # a copy, also where the leaf is on the CPU
                     slot_rows[(pos, part, name)] = leaf[:, slot].to(
                         "cpu", copy=True)
-        self.alloc.free(pages)
+        self._release(pages)
         del self._slot_pages[slot]
         self.page_table[slot] = 0
         self.kv_lens[slot] = 0
@@ -346,29 +438,48 @@ class PagedKVCache:
 
     def swap_in(self, slot: int, swap: SwapState, prompt,
                 total_len: int) -> int:
-        """Resume a preempted request into ``slot``: fresh pages for its
-        whole reservation, the host image uploaded into the first
-        ``swap.n_pages``. Returns the number of re-shared pages (0 without
-        the prefix cache). MemoryError leaves no partial state."""
-        need = pages_needed(total_len, self.ccfg.page_size)
-        if slot in self._slot_pages:
-            raise ValueError(f"slot {slot} already occupied")
-        if need > self.alloc.n_free:
-            raise MemoryError(f"page pool exhausted: want {need}, have "
-                              f"{self.alloc.n_free}")
-        pages = self._claim_slot(slot, total_len, need)
+        """Resume a preempted request into ``slot``: full prompt blocks
+        still resident in the prefix index are re-shared (the hash chain
+        guarantees equal content), fresh pages cover the rest of the
+        reservation, and the host image uploads into the content-bearing
+        ones. Returns the number of re-shared pages (0 without the prefix
+        cache). MemoryError leaves no partial state."""
+        ps = self.ccfg.page_size
+        need = self._check_claim(slot, total_len)
+        matched: List[int] = []
+        if self.prefix is not None:
+            from repro_torch.serve.prefix import chunk_hashes
+            for h in chunk_hashes(prompt, ps)[0]:
+                p = self.prefix.lookup(h)
+                if p is None:
+                    break
+                matched.append(p)
+        priv_need = need - len(matched)
+        headroom = (self.prefix.headroom(matched)
+                    if self.prefix is not None else self.alloc.n_free)
+        if priv_need > headroom:
+            raise MemoryError(f"page pool exhausted: want {priv_need}, "
+                              f"have {headroom}")
+        if matched:
+            self.prefix.acquire(matched)
+        pages = matched + self._alloc_pages(priv_need)
+        self._set_row(slot, pages)
         self.kv_lens[slot] = swap.kv_len
-        up_idx = torch.tensor(pages[:swap.n_pages], device=self.device)
+        m = len(matched)
+        up_idx = torch.tensor(pages[m:swap.n_pages], device=self.device)
         for pos, blk in enumerate(self.cache):
             if self.cfg.layer_pattern[pos] == "attn":
-                for name, pool in blk["mixer"].items():
-                    pool[:, up_idx] = swap.leaf_pages[(pos, name)].to(
-                        self.device, pool.dtype)
+                if m < swap.n_pages:
+                    for name, pool in blk["mixer"].items():
+                        pool[:, up_idx] = swap.leaf_pages[(pos, name)][
+                            :, m:].to(self.device, pool.dtype)
                 continue
             for part, name, leaf in _state_leaves(blk):
                 leaf[:, slot] = swap.slot_rows[(pos, part, name)].to(
                     self.device, leaf.dtype)
-        return 0
+        if self.prefix is not None:
+            self.prefix.register(prompt, pages)
+        return m
 
     def commit_token(self, slots: Sequence[int]) -> None:
         """Account the token the decode step just wrote for each slot. On

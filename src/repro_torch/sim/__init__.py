@@ -20,9 +20,11 @@ engine (DESIGN.md §10) that drives both the training stack
 - :mod:`repro_torch.sim.golden` — replay of the committed golden traces.
 - :mod:`repro_torch.sim.e2e` — the same fault model over real replicated
   ``ServeEngine``s.
-
-The fleet-controlled and wall-clock harnesses (``fleet_e2e``,
-``realtime_chaos``) come with ROADMAP Queue 1 item 8.
+- :mod:`repro_torch.sim.fleet_e2e` — the same replay through the fleet
+  controller: detection from silence, hedged re-dispatch, checkpoint
+  rejoin.
+- :mod:`repro_torch.sim.realtime_chaos` — kill/pause/slow plans against
+  the wall-clock fleet on real threads and timers.
 """
 from repro_torch.sim.clock import EventHeap, VirtualClock
 from repro_torch.sim.faults import (ByzantineSwitch, ChurnEvent, CrashWindow,

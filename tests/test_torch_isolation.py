@@ -142,6 +142,26 @@ def test_simulator_entry_points_default_to_cuda(monkeypatch):
     assert run_serve(sc).violations == []
 
 
+def test_prefix_cache_and_fleet_entry_points_default_to_cuda(monkeypatch):
+    """The prefix-cached engine and cache, and ``run_fleet_e2e`` without
+    a fleet, run on the card unless asked for the CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import init_model
+    from repro_torch.serve import PagedCacheConfig, PagedKVCache, ServeEngine
+    from repro_torch.sim.fleet_e2e import run_fleet_e2e
+    from repro_torch.sim.scenario import get_scenario
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    ServeEngine(params, cfg, prefix_cache="on", device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(params, cfg, prefix_cache="on")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedKVCache(cfg, PagedCacheConfig(), enable_prefix=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_fleet_e2e(get_scenario("crash_cascade"), n_requests=2)
+
+
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: chip_smoke.py runs there")
