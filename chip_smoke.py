@@ -172,10 +172,39 @@ Phases, each fatal on failure:
    and rejoined, one restart for each kill and no exception from any
    replica's engine (the fleet would count one as a crash and restart
    the replica), the decode kernel launched. Prints the report.
-15. A JSON line with every kernel's launches (summed over the phases
-   that drive a path: 4, 6, 8, 9, 10, 11, 12, 13 and 14), error and
-   times, the ``nvidia-smi`` line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+15. The SPMD layer on ``torch.distributed``. Ranks are processes
+   spawned by ``launch.mesh.run_ranks`` with an explicit backend and a
+   time limit; a rank that raises or overruns it ends the script.
+   15a: ``TrainLoop`` (the masked step, Algorithm 1 by loss weights) on
+   qwen2-0.5b at full width with ``examples/train_lm.py``'s defaults (8
+   agents, r = 2, batch 8 x 64, lr 3e-3 cosine; bf16 parameters, f32
+   AdamW moments): 30 steps with a checkpoint every 10, a new loop that
+   restores step 30 bit for bit and takes 5 more; the loss must fall;
+   the step alone timed and profiled (idle share); the f32 reduced twin,
+   card against CPU within 1e-4.
+   15b: 4 gloo ranks sharing the card (mesh data = 4) run phase 4's four
+   LeNet runs on ``agg_backend="sharded"`` (5 ledger rows per rank),
+   combine ``gather`` then ``partial``: every rank's iterate equal bit
+   for bit, gather bit-identical to phase 4's device backend, partial
+   within 1e-5 * max(|x|, 1) (the quantized rule, whose int8 rounding a
+   difference can flip in later iterations, within 1e-3 of |x| after
+   10); one call per kernel per rank against its plain form on that
+   rank's inputs; then the cge gather run on a one-rank NCCL group, bit
+   for bit. 15c: on the same ranks, ``make_general_step`` (cge, stale,
+   trimmed, quantized; 2 steps each, one agent masked per step) on
+   qwen2-0.5b's widths cut to 2 layers in bf16, parameters identical on
+   every rank (an all-reduced checksum), then its f32 reduced twin
+   against 4 gloo ranks on the CPU within 1e-4.
+   15d: 2 gloo ranks (mesh data = 1, model = 2) serve phase 6's workload
+   cut to 8 requests at full width, each rank's pools holding one of the
+   2 KV heads: streams and stats identical to the one-rank engine's,
+   ``paged_flash_decode`` launched 24 x decode steps per rank; reduced
+   deepseek-v2 (MLA, the absorbed decode split over query heads) at tp =
+   2 held to the teacher-forced greedy rule.
+16. A JSON line with every kernel's launches (summed over the phases
+   that drive a path: 4, 6, 8, 9, 10, 11, 12, 13, 14 and 15, all ranks
+   of 15), error and times, the ``nvidia-smi`` line, and as the last
+   line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is not available or the
 repository's sources are missing.
@@ -183,9 +212,12 @@ repository's sources are missing.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -201,18 +233,26 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import gradagg  # noqa: E402
-from repro_torch.core.async_engine import (EngineConfig,  # noqa: E402
-                                           default_latency)
-from repro_torch.core.ledger import tree_flatten  # noqa: E402
+from repro_torch.core.async_engine import (AsyncEngine,  # noqa: E402
+                                           EngineConfig, default_latency)
+from repro_torch.core.ledger import (  # noqa: E402
+    make_sharded_aggregate_apply, tree_flatten)
 from repro_torch.core.server import AsyncDGDServer  # noqa: E402
-from repro_torch.data.partition import partition  # noqa: E402
-from repro_torch.data.synthetic import mnist_like  # noqa: E402
+from repro_torch.data.partition import (mask_to_weights,  # noqa: E402
+                                        partition)
+from repro_torch.data.synthetic import (lm_batches,  # noqa: E402
+                                        markov_tokens, mnist_like)
+from repro_torch.dist import collectives  # noqa: E402
 from repro_torch.kernels import _build, agg, ops  # noqa: E402
 from repro_torch.kernels import cge_norms as cgen  # noqa: E402
 from repro_torch.kernels import decode_attention as dattn  # noqa: E402
 from repro_torch.kernels import flash_attention as fattn  # noqa: E402
 from repro_torch.kernels.cases import (CGE_SHAPES, FLASH_CASES,  # noqa: E402
                                        FLASH_TOL, NORM_TOL)
+from repro_torch.launch.loop import StragglerOracle, TrainLoop  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh, run_ranks  # noqa: E402
+from repro_torch.launch.train import (TrainConfig, init_state,  # noqa: E402
+                                      make_general_step, make_train_step)
 from repro_torch.models import attention as mattn  # noqa: E402
 from repro_torch.models import layers as mlayers  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
@@ -957,6 +997,7 @@ def drive_main_path(half: int):
                                         overrides)
         srv.run(1)
         x_1 = srv.x.copy()
+        MAIN_PATH_X[label, 1] = x_1
         srv.run(half - 1)
         snap = srv.snapshot()
         streams = [r.bit_generator.state for r in grad_fn.rngs]
@@ -964,6 +1005,7 @@ def drive_main_path(half: int):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         x_a, hist_a = srv.x.copy(), dataclasses.asdict(srv.engine.hist)
+        MAIN_PATH_X[label, 2 * half] = x_a.copy()
         ledger_a = srv.engine.ledger_host()
         srv.restore(snap, cfg)
         for r, st in zip(grad_fn.rngs, streams):
@@ -2672,17 +2714,649 @@ def drive_wallclock(fleet):
 
 
 # ---------------------------------------------------------------------------
+# 15. the SPMD layer: training, the sharded server, the general step and
+#     tensor-parallel decode on torch.distributed
+
+
+# 15a: examples/train_lm.py's defaults at qwen2-0.5b's full width
+TRAIN_AGENTS, TRAIN_R, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 2, 8, 64, 3e-3
+TRAIN_STEPS, TRAIN_MORE, TRAIN_CKPT_EVERY = 30, 5, 10
+# the f32 reduced twins, card against CPU: the same operations, sums in
+# another order, over a few steps
+TWIN_TOL = dict(rtol=1e-4, atol=1e-4)
+# 15b-15c: ranks sharing the one card over gloo, and a time limit each;
+# the host's cores split between them (torch's own threads per process
+# would oversubscribe them many times over)
+SPMD_RANKS, SPMD_TIMEOUT = 4, 600
+CORES = max(len(os.sched_getaffinity(0)), SPMD_RANKS)
+SHARDED_ITERS = 10
+COMBINES = ("gather", "partial")
+GENERAL_MODES = ("cge", "stale", "trimmed", "quantized")
+GENERAL_LAYERS, GENERAL_STEPS = 2, 2
+# 15d: phase 6's workload cut to 8 requests, over 2 ranks
+TP_RANKS, TP_REQUESTS = 2, 8
+# phase 4's iterates (device backend) after 1 and 10 iterations of each
+# run, keyed (label, iterations): 15b's gather combine must reproduce them
+# bit for bit. The partial combine sums in another order: one step of it
+# is held to 1e-5 * max(|x|, 1) of the device step on the same inputs
+# (after the first iteration, and on the ledger and iterate of the last).
+# Over the run, LeNet's gradients at the slightly different iterates
+# carry the difference on, so the end of the run is held per rule in
+# ||x - x_device|| / ||x_device||, at about ten times the drift measured
+# on the H100 (mean 1.03e-06, cge 4.89e-06); quantized (2.29e-04, where
+# int8 rounding can flip a step) at phase 4's host-comparison 1e-3;
+# trimmed_mean has no partial form and gathers, so it stays bit-identical
+MAIN_PATH_X: dict = {}
+PARTIAL_TOL = 1e-5
+RUN_REL = {"mean": 1e-5, "cge": 5e-5, "trimmed_mean": 0.0, "quantized": 1e-3}
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def card_flags() -> None:
+    """The numerics every phase runs under: full f32 matmuls and
+    convolutions, deterministic cuDNN algorithms (ranks set them too)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def param_checksum(tree) -> int:
+    """An integer digest of a tree's bits: each leaf's bit patterns as
+    integers, weighted by position, summed exactly in int64."""
+    total, chunk = 0, 1 << 24
+    for leaf in tree_flatten(tree)[0]:
+        bits = leaf.detach().contiguous().view(
+            torch.int16 if leaf.element_size() == 2 else torch.int32
+        ).reshape(-1)
+        for c0 in range(0, bits.numel(), chunk):
+            part = bits[c0:c0 + chunk].long()
+            w = torch.arange(c0, c0 + part.numel(),
+                             device=bits.device) % 65521 + 1
+            total += int((part * w).sum())
+    return total
+
+
+def lm_batch(tokens, targets, weights, device):
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in (("tokens", tokens), ("targets", targets),
+                         ("weights", weights))}
+
+
+def train_twin(device):
+    """3 masked steps of reduced qwen2-0.5b in f32 (SGD with momentum)
+    from CPU-drawn weights: (losses, grad norms, parameter leaves)."""
+    cfg = get_config(SERVE_ARCH).reduced()
+    tc = TrainConfig(mode="masked", optimizer="sgdm", lr=3e-2,
+                     remat_policy="none")
+    state = init_state(torch.Generator().manual_seed(0), cfg, tc,
+                       max_pos=33, n_agents=4, device="cpu")
+    state = {k: mmodel.tree_to(v, device) if k != "step" else v
+             for k, v in state.items()}
+    step = make_train_step(cfg, tc, moe_groups=4)
+    data = lm_batches(markov_tokens(5_000, vocab=cfg.vocab_size, seed=0),
+                      8, 32, seed=1)
+    oracle = StragglerOracle(4, 1, seed=2)
+    out = []
+    for _ in range(3):
+        x, y = next(data)
+        mask, _, _ = oracle.next_mask()
+        state, m = step(state, lm_batch(x, y, mask_to_weights(mask, 8, 32),
+                                        device))
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out, [l.cpu().numpy() for l in tree_flatten(state["params"])[0]]
+
+
+def drive_train(device="cuda"):
+    """15a: ``TrainLoop`` at full width with a checkpoint every 10 steps,
+    restored by a second loop; the step alone, timed and profiled; the
+    f32 twin, card against CPU."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(SERVE_ARCH)
+    total = TRAIN_STEPS + TRAIN_MORE
+    tc = TrainConfig(mode="masked", lr=TRAIN_LR, lr_kind="cosine",
+                     lr_total=total, warmup=total // 20,
+                     remat_policy="none")
+    tokens = markov_tokens(200_000, vocab=cfg.vocab_size, seed=0)
+
+    def new_loop(ckdir):
+        return TrainLoop(cfg, tc, lm_batches(tokens, TRAIN_BATCH, TRAIN_SEQ,
+                                             seed=1),
+                         n_agents=TRAIN_AGENTS, r=TRAIN_R,
+                         oracle=StragglerOracle(TRAIN_AGENTS, TRAIN_R,
+                                                seed=2),
+                         ckpt_dir=ckdir, ckpt_every=TRAIN_CKPT_EVERY,
+                         max_pos=TRAIN_SEQ + 1, device=device)
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckdir:
+        t0 = time.perf_counter()
+        loop = new_loop(ckdir)
+        p_leaves = tree_flatten(loop.state["params"])[0]
+        m_leaves = tree_flatten(loop.state["opt"])[0]
+        if {l.dtype for l in p_leaves} != {torch.bfloat16} or \
+                {l.dtype for l in m_leaves} != {torch.float32}:
+            raise AssertionError("want bf16 parameters, f32 AdamW moments")
+        n_params = sum(l.numel() for l in p_leaves)
+        del p_leaves, m_leaves
+        hist = loop.run(TRAIN_STEPS)
+        sync(device)
+        run_s = time.perf_counter() - t0
+        loss = np.asarray(hist.loss)
+        first, last = loss[:5].mean(), loss[-5:].mean()
+        log(f"  {SERVE_ARCH}: {n_params:,} parameters (bf16, f32 AdamW "
+            f"moments), {TRAIN_AGENTS} agents, r = {TRAIN_R}, batch "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}: {TRAIN_STEPS} steps and "
+            f"{-(-TRAIN_STEPS // TRAIN_CKPT_EVERY)} checkpoint saves in "
+            f"{run_s:.1f} s; loss {first:.4f} -> {last:.4f} (mean of the "
+            f"first and last 5); comm_saving {hist.comm_saving:.4f}")
+        if not (np.isfinite(loss).all() and last < first):
+            raise AssertionError(f"training loss did not fall: {loss}")
+        digest = param_checksum(loop.state["params"])
+        del loop
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        loop = new_loop(ckdir)
+        restore_s = time.perf_counter() - t0
+        if int(loop.state["step"]) != TRAIN_STEPS or \
+                param_checksum(loop.state["params"]) != digest:
+            raise AssertionError(f"restored step {int(loop.state['step'])}, "
+                                 "or parameters differ from the saved ones")
+        loop.run(TRAIN_MORE)
+        if int(loop.state["step"]) != total or \
+                not np.isfinite(loop.hist.loss).all():
+            raise AssertionError(f"resumed loop at step "
+                                 f"{int(loop.state['step'])}")
+        log(f"  a new TrainLoop restored step {TRAIN_STEPS} in {restore_s:.1f}"
+            f" s (parameters bit-identical) and took {TRAIN_MORE} more, loss "
+            f"{np.mean(loop.hist.loss):.4f}")
+
+    # the step alone, past the loop's checkpoints: 3 timed, 2 profiled
+    x, y = next(loop.data_iter)
+    mask, _, _ = loop.oracle.next_mask()
+    batch = lm_batch(x, y, mask_to_weights(mask, TRAIN_BATCH, TRAIN_SEQ),
+                     device)
+    state = loop.state
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, m = loop.step_fn(state, batch)
+        float(m["loss"])
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, m = loop.step_fn(state, batch)
+            float(m["loss"])
+        wall = (time.perf_counter() - t0) * 1e6
+    busy = busy_us(device_spans(prof))
+    log(f"  train step alone: {ms:.1f} ms on the host clock; two profiled "
+        f"steps {wall / 2e3:.1f} ms each, device busy {busy / 2e3:.1f} ms "
+        f"(idle share {1 - busy / wall:.3f})")
+    del loop, state, batch
+    torch.cuda.empty_cache()
+
+    card, card_p = train_twin(device)
+    cpu, cpu_p = train_twin("cpu")
+    np.testing.assert_allclose(card, cpu, **TWIN_TOL)
+    err = max(float(np.max(np.abs(a - b))) for a, b in zip(card_p, cpu_p))
+    for a, b in zip(card_p, cpu_p):
+        np.testing.assert_allclose(a, b, **TWIN_TOL)
+    log(f"  f32 reduced twin, 3 steps: losses {[round(l, 5) for l, _ in card]}"
+        f", card vs CPU max |param diff| {err:.2e}")
+
+
+def sharded_server(mesh, runs, combines, kernels_checked=()):
+    """15b on one rank: phase 4's LeNet ``runs`` (n = 20, P = 431,080) on
+    ``agg_backend="sharded"``, each of ``combines`` in turn. Returns
+    {(label, combine): (x, seconds)}, the launches of the runs, and the
+    errors of the ``kernels_checked`` ((kernel, combine) pairs) against
+    their plain forms on this rank's inputs."""
+    dev = mesh.device
+    train, _ = mnist_like(n_train=4000, n_test=512, seed=0)
+    sets = partition(train, N_AGENTS, overlap=2, seed=0)
+    grad_fn, flat0, _ = lenet.make_agent_grad_fn(sets, 32, device=dev)
+    flat0 = flat0.cpu().numpy()
+    grad_fn(0, flat0, None)                  # cuDNN/cuBLAS set-up, untimed
+    out, errs, step_err = {}, {}, 0.0
+    agg.reset_launches()
+    for label, kernel, overrides in runs:
+        for combine in combines:
+            grad_fn, _, _ = lenet.make_agent_grad_fn(sets, 32, device=dev,
+                                                     flat0=flat0)
+            cfg = EngineConfig(n_agents=N_AGENTS, step_size=lambda t: 0.05,
+                               proj_gamma=1e6, seed=0, agg_backend="sharded",
+                               ledger_combine=combine, device=str(dev),
+                               **overrides)
+            eng = AsyncEngine(grad_fn, flat0, cfg,
+                              latency=default_latency(N_AGENTS, 3, 10.0,
+                                                      seed=0), mesh=mesh)
+            sync(dev)
+            t0 = time.perf_counter()
+            eng.run(1)
+            x_1 = eng.x.copy()
+            eng.run(SHARDED_ITERS - 1)
+            sync(dev)
+            out[(label, combine)] = (x_1, eng.x.copy(),
+                                     time.perf_counter() - t0)
+            if combine == "partial":
+                counts = dict(agg.LAUNCHES)
+                step_err = max(step_err, partial_step_err(eng))
+                agg.LAUNCHES.update(counts)    # the checks do not count
+            if kernel is not None and (kernel, combine) in kernels_checked:
+                counts = dict(agg.LAUNCHES)
+                errs[kernel] = check_shard_kernel(kernel, eng, combine)
+                agg.LAUNCHES.update(counts)    # the checks do not count
+    return out, dict(agg.LAUNCHES), errs, step_err
+
+
+def partial_step_err(eng):
+    """One partial step against one gather step (the device step's bits)
+    on the engine's last iterate and ledger, every agent but every
+    fourth received: max |difference| over max(|x|, 1)."""
+    cfg, led = eng.cfg, eng._dev
+    rx = torch.as_tensor(np.arange(N_AGENTS) % 4 != 0, device=led.device)
+    x = eng._dev_x
+    steps = [make_sharded_aggregate_apply(cfg.rule, cfg.f, cfg.proj_gamma,
+                                          led.mesh, led.axes, N_AGENTS, c)
+             for c in ("gather", "partial")]
+    a, b = (step(x, led.data, rx, 0.05) for step in steps)
+    err = float((a - b).abs().max()) / max(float(a.abs().max()), 1.0)
+    if err > PARTIAL_TOL:
+        raise AssertionError(f"{cfg.rule}: one partial step differs from "
+                             f"the device step by {err:.2e}")
+    return err
+
+
+def check_shard_kernel(kernel, eng, combine):
+    """One call of ``kernel`` against its plain form on this rank's
+    inputs: the rebuilt ledger (gather) or this rank's quantized row
+    block (partial)."""
+    led = eng._dev
+    rx = torch.as_tensor(np.arange(N_AGENTS) % 4 != 0, device=led.device)
+    if combine == "partial":
+        q, scale = gradagg.quantize_int8_parts(led.data)
+        r = rx[led.row0:led.row0 + led.n_loc]
+        out = agg.dequant_accum(q, scale[:, 0], r)
+        ref = agg.dequant_dot(q, scale[:, 0], r)
+    else:
+        g = collectives.ledger_all_rows(led.data, led.axes, N_AGENTS,
+                                        mesh=led.mesh)
+        if kernel == "masked_cge_reduce":
+            out, ref = agg.masked_cge_reduce(g, rx, 1), agg.masked_cge_dot(
+                g, rx, 1)
+        else:
+            out = agg.trimmed_mean_tiled(g, rx, 1)
+            ref = agg.trimmed_mean_running(g, rx, 1)
+    sync(led.device)
+    err = float((out - ref).abs().max())
+    torch.testing.assert_close(out, ref, **KERNEL_TOL)
+    return err
+
+
+def general_step(mesh, twin: bool):
+    """15c on one rank: ``make_general_step`` for each mode, 2 steps with
+    one agent masked per step, on qwen2-0.5b's widths cut to 2 layers in
+    bf16 (AdamW), or (``twin``) reduced qwen2-0.5b in f32 (SGD with
+    momentum) from CPU-drawn weights. Returns {mode: (losses, seconds per
+    step, the parameter checksum, agreed by all ranks)}, and the twin's
+    parameter leaves."""
+    dev = mesh.device
+    if twin:
+        cfg = dataclasses.replace(get_config(SERVE_ARCH).reduced(),
+                                  n_layers=GENERAL_LAYERS)
+    else:
+        cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                                  n_layers=GENERAL_LAYERS)
+    data = lm_batches(markov_tokens(50_000, vocab=cfg.vocab_size, seed=0),
+                      TRAIN_BATCH, TRAIN_SEQ, seed=1)
+    batches = [next(data) for _ in range(GENERAL_STEPS)]
+    out, leaves = {}, {}
+    for mode in GENERAL_MODES:
+        tc = TrainConfig(mode=mode, lr=TRAIN_LR, f=1, tau=2,
+                         remat_policy="none",
+                         optimizer="sgdm" if twin else "adamw")
+        gen = (torch.Generator() if twin
+               else torch.Generator(device=dev)).manual_seed(0)
+        state = init_state(gen, cfg, tc, max_pos=TRAIN_SEQ + 1,
+                           n_agents=SPMD_RANKS, device="cpu" if twin else dev,
+                           mesh=mesh)
+        if twin:
+            state = {k: mmodel.tree_to(v, dev) if k != "step" else v
+                     for k, v in state.items()}
+        step = make_general_step(cfg, tc, mesh)
+        losses, secs = [], []
+        for t, (x, y) in enumerate(batches):
+            mask = np.ones(SPMD_RANKS, np.float32)
+            mask[t % SPMD_RANKS] = 0.0
+            sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, lm_batch(
+                x, y, np.ones((TRAIN_BATCH, TRAIN_SEQ), np.float32), dev),
+                mask)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+        digest = param_checksum(state["params"])
+        lo = torch.tensor([digest], dtype=torch.int64, device=dev)
+        hi = lo.clone()
+        torch.distributed.all_reduce(lo, op=torch.distributed.ReduceOp.MIN)
+        torch.distributed.all_reduce(hi, op=torch.distributed.ReduceOp.MAX)
+        if int(lo) != int(hi) or not np.isfinite(losses).all():
+            raise AssertionError(f"general step {mode}: parameters differ "
+                                 f"across ranks or loss {losses}")
+        out[mode] = (losses, secs, digest)
+        if twin:
+            leaves[mode] = [l.cpu().numpy()
+                            for l in tree_flatten(state["params"])[0]]
+        del state, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out, leaves
+
+
+def spmd_card_rank(rank, world, device="cuda"):
+    """A rank of 15b and 15c on the card (gloo, 4 ranks, mesh data = 4):
+    the sharded server, the general step at full width, its f32 twin."""
+    card_flags()
+    mesh = make_test_mesh(data=world, model=1, device=device)
+    checked = {("masked_cge_reduce", "gather"),
+               ("trimmed_mean_tiled", "gather"), ("dequant_accum", "partial")}
+    server, counts, errs, step_err = sharded_server(mesh, RUNS, COMBINES,
+                                                    checked)
+    general, _ = general_step(mesh, twin=False)
+    twin, twin_leaves = general_step(mesh, twin=True)
+    return dict(server=server, counts=counts, errs=errs, step_err=step_err,
+                general=general, twin=twin, twin_leaves=twin_leaves)
+
+
+def spmd_cpu_rank(rank, world):
+    """A rank of 15c's f32 twin on the CPU (gloo, 4 ranks)."""
+    mesh = make_test_mesh(data=world, model=1, device="cpu")
+    return general_step(mesh, twin=True)
+
+
+def one_rank_group(device, backend):
+    """15b's cge gather run in this process, as the one rank of a
+    process group of ``backend`` (NCCL on the card)."""
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=SPMD_TIMEOUT))
+        try:
+            mesh = make_test_mesh(data=1, model=1, device=device)
+            server, counts, _, _ = sharded_server(mesh, [RUNS[1]],
+                                                  ("gather",))
+        finally:
+            dist.destroy_process_group()
+    return server, counts
+
+
+def drive_spmd_server_and_step(device="cuda", nccl="nccl"):
+    """15b-15c from the parent: spawn the ranks, hold their results."""
+    t0 = time.perf_counter()
+    res = run_ranks(spmd_card_rank, SPMD_RANKS, backend="gloo",
+                    device=device, timeout=SPMD_TIMEOUT, args=(device,),
+                    threads=CORES // SPMD_RANKS)
+    log(f"  {SPMD_RANKS} gloo ranks on the card, mesh data = {SPMD_RANKS}: "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+    # 15b
+    for label, kernel, over in RUNS:
+        row = []
+        for combine in COMBINES:
+            runs = [r["server"][(label, combine)] for r in res]
+            secs = max(secs for _, _, secs in runs)
+            for it, k in ((1, 0), (SHARDED_ITERS, 1)):
+                xs = [run[k] for run in runs]
+                want = MAIN_PATH_X[label, it]
+                if not all(np.array_equal(x, xs[0]) for x in xs):
+                    raise AssertionError(f"{label} {combine}: ranks "
+                                         "disagree")
+                err = float(np.max(np.abs(xs[0] - want)))
+                scale = max(float(np.max(np.abs(want))), 1.0)
+                if combine == "gather" and err != 0.0:
+                    raise AssertionError(f"{label} gather: not bit-identical"
+                                         f" to the device backend ({err})")
+                rel = float(np.linalg.norm(xs[0] - want)
+                            / np.linalg.norm(want))
+                if it > 1:
+                    ok = rel <= RUN_REL[over["rule"]]
+                else:
+                    ok = err <= PARTIAL_TOL * scale
+                if not ok:
+                    raise AssertionError(f"{label} {combine} after {it} "
+                                         f"iterations: |x - x_device| {err}")
+            row.append(f"{combine} {secs / SHARDED_ITERS * 1e3:.1f} ms/iter "
+                       f"(max |x - x_device| {err:.1e}, "
+                       f"||x - x_device|| / ||x_device|| {rel:.2e})")
+        log(f"    {label:30s} " + ", ".join(row))
+    counts = {k: sum(r["counts"][k] for r in res) for k in agg.LAUNCHES}
+    errs = {k: max(r["errs"][k] for r in res) for k in res[0]["errs"]}
+    log(f"  sharded server: every rank's x bit-identical, gather "
+        f"bit-identical to phase 4's device backend, one partial step "
+        f"within {PARTIAL_TOL} * max(|x|, 1) of the device step (after "
+        f"iteration 1 and on iteration {SHARDED_ITERS}'s inputs, max "
+        f"{max(r['step_err'] for r in res):.1e}), after {SHARDED_ITERS} "
+        f"within {RUN_REL} of ||x||; launches per rank "
+        f"{[r['counts'] for r in res]}; kernels vs plain on each rank's "
+        f"inputs, max |err| {errs}")
+    for k in ("masked_cge_reduce", "trimmed_mean_tiled", "dequant_accum"):
+        if any(r["counts"][k] == 0 for r in res):
+            raise AssertionError(f"{k} was not launched on every rank")
+    t0 = time.perf_counter()
+    one = one_rank_group(device, nccl)
+    (label, _), (_, x, secs) = next(iter(one[0].items()))
+    if not np.array_equal(x, MAIN_PATH_X[label, SHARDED_ITERS]):
+        raise AssertionError("one-rank NCCL gather: not bit-identical to the "
+                             "device backend")
+    for k, c in one[1].items():
+        counts[k] += c
+    log(f"  {label} gather on a one-rank NCCL group: bit-identical to the "
+        f"device backend, {secs / SHARDED_ITERS * 1e3:.1f} ms/iter "
+        f"({time.perf_counter() - t0:.1f} s with start-up)")
+    # 15c
+    for mode in GENERAL_MODES:
+        losses, secs, digest = res[0]["general"][mode]
+        if any(r["general"][mode][2] != digest for r in res):
+            raise AssertionError(f"general step {mode}: checksums differ")
+        log(f"    general step {mode:9s} losses "
+            f"{', '.join(f'{l:.4f}' for l in losses)}, "
+            f"{', '.join(f'{s:.2f}' for s in secs)} s per step, parameters "
+            "identical on every rank")
+    cpu = run_ranks(spmd_cpu_rank, SPMD_RANKS, backend="gloo", device="cpu",
+                    timeout=SPMD_TIMEOUT, threads=CORES // SPMD_RANKS)
+    err = 0.0
+    for mode in GENERAL_MODES:
+        np.testing.assert_allclose(res[0]["twin"][mode][0],
+                                   cpu[0][0][mode][0], **TWIN_TOL)
+        for a, b in zip(res[0]["twin_leaves"][mode], cpu[0][1][mode]):
+            np.testing.assert_allclose(a, b, **TWIN_TOL)
+            err = max(err, float(np.max(np.abs(a - b))))
+    log(f"  general step f32 reduced twin, 4 card ranks vs 4 CPU ranks: max "
+        f"|param diff| {err:.2e}")
+    return counts, errs
+
+
+class TPDecodeProbe:
+    """15d, on every rank: after steps ``at`` of a tensor-parallel
+    engine's run, holds ``tp_paged_decode`` on the engine's own pools
+    (this rank's KV-head block), page table and lengths, every layer, on
+    a random query the same on every rank, against the plain form and,
+    bit for bit, the unsharded kernel, both on the whole pools (the
+    ranks' blocks put together by an all-reduce of ``-0.0`` pads). Its
+    launches are kept apart, so the main path's count can leave them
+    out."""
+
+    def __init__(self, at=(2, 4)):
+        self.at, self.steps, self.probes = at, 0, 0
+        self.launches, self.errs, self.gen = 0, [], None
+
+    def __call__(self, eng):
+        self.steps += 1
+        if self.steps not in self.at:
+            return
+        kv, mesh, axes, dev = eng.kv, eng.mesh, eng.rules.tp_axes, eng.device
+        if kv.kv_block is None:
+            raise AssertionError("the TP engine's pools hold every KV head")
+        h0, h1 = kv.kv_block
+        self.probes += 1
+        if self.gen is None:
+            self.gen = torch.Generator(device=dev).manual_seed(7)
+        tbl = torch.tensor(kv.page_table, device=dev)
+        lens = torch.tensor(kv.kv_lens, device=dev)
+        before = dattn.LAUNCHES["paged_flash_decode"]
+        for pos, blk in enumerate(kv.cache):
+            kp, vp = blk["mixer"]["k_pages"], blk["mixer"]["v_pages"]
+            q = torch.randn((kv.page_table.shape[0], eng.cfg.n_heads,
+                             kp.shape[-1]), generator=self.gen,
+                            device=dev).to(kp.dtype)
+            for p in range(kp.shape[0]):
+                whole = []
+                for pool in (kp[p], vp[p]):
+                    full = torch.full(pool.shape[:2] + (eng.cfg.n_kv_heads,)
+                                      + pool.shape[3:], -0.0,
+                                      dtype=pool.dtype, device=pool.device)
+                    full[:, :, h0:h1] = pool
+                    whole.append(mesh.all_reduce(full, axes))
+                out = dattn.tp_paged_decode(
+                    q, kp[p], vp[p], tbl, lens, mesh=mesh,
+                    kv_block=kv.kv_block, n_kv_heads=eng.cfg.n_kv_heads,
+                    tp_axes=axes)
+                name = (f"tp_paged_decode on the engine's pools, layer "
+                        f"{pos}.{p}, step {self.steps}")
+                check(name, out, dattn.paged_decode_plain(q, *whole, tbl,
+                                                          lens),
+                      DECODE_TOL[kp.dtype], self.errs)
+                if not torch.equal(out, dattn.paged_flash_decode(
+                        q, *whole, tbl, lens)):
+                    raise AssertionError(f"{name}: not bit-identical to the "
+                                         "unsharded kernel")
+        sync(dev)
+        self.launches += dattn.LAUNCHES["paged_flash_decode"] - before
+
+
+def tp_engine_run(params, cfg, reqs, mesh=None, ccfg=SERVE_CCFG, k=8,
+                  device="cuda", probe=None):
+    eng = TimedEngine(params, cfg, ccfg, superstep_k=k, mesh=mesh,
+                      device=device)
+    rids = [eng.submit(p, n) for p, n in reqs]
+    out = eng.run() if probe is None else checked_drain(eng, after_step=probe)
+    sync(eng.device)
+    ms = (eng.step_s - eng.prefill_s) / max(eng.stats["decode_steps"], 1) * 1e3
+    return [out[r] for r in rids], dict(eng.stats), ms, eng.infer_cfg
+
+
+def mla_twin_setup(device="cuda"):
+    cfg = get_config("deepseek-v2-236b").reduced()
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu",
+                        max_pos=512)
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(s)).astype(np.int32), 12)
+            for s in (5, 17, 33, 9)]
+    ccfg = PagedCacheConfig(num_slots=4, page_size=8, max_pages_per_seq=8,
+                            num_pages=4 * 8 + 1)
+    return cfg, mmodel.tree_to(params, device), reqs, ccfg
+
+
+def tp_rank(rank, world, reqs, device="cuda"):
+    """A rank of 15d (gloo, 2 ranks, mesh data = 1, model = 2)."""
+    card_flags()
+    mesh = make_test_mesh(data=1, model=world, device=device)
+    cfg = get_config(SERVE_ARCH)
+    params = init_model(torch.Generator(device=device).manual_seed(0), cfg,
+                        device=device)
+    tp_engine_run(params, cfg, serve_requests(cfg, n=2, seed=1), mesh,
+                  device=device)
+    dattn.reset_launches()
+    probe = TPDecodeProbe()
+    streams, stats, ms, _ = tp_engine_run(params, cfg, reqs, mesh,
+                                          device=device, probe=probe)
+    launches = dattn.LAUNCHES["paged_flash_decode"] - probe.launches
+    del params
+    mcfg, mparams, mreqs, mccfg = mla_twin_setup(device)
+    mla, mla_stats, _, _ = tp_engine_run(mparams, mcfg, mreqs, mesh, mccfg,
+                                         device=device)
+    return (streams, stats, ms, launches, mla, mla_stats,
+            (probe.probes, max(probe.errs, default=0.0), probe.launches))
+
+
+def drive_tp_decode(device="cuda"):
+    """15d from the parent: the one-rank engine, then the ranks."""
+    cfg = get_config(SERVE_ARCH)
+    reqs = serve_requests(cfg)[:TP_REQUESTS]
+    params = init_model(torch.Generator(device=device).manual_seed(0), cfg,
+                        device=device)
+    tp_engine_run(params, cfg, serve_requests(cfg, n=2, seed=1),
+                  device=device)                              # warm-up
+    one, one_stats, one_ms, _ = tp_engine_run(params, cfg, reqs,
+                                              device=device)
+    del params
+    mcfg, mparams, mreqs, mccfg = mla_twin_setup(device)
+    mla_one, mla_one_stats, _, mla_infer = tp_engine_run(
+        mparams, mcfg, mreqs, ccfg=mccfg, device=device)
+    t0 = time.perf_counter()
+    res = run_ranks(tp_rank, TP_RANKS, backend="gloo", device=device,
+                    timeout=SPMD_TIMEOUT, args=(reqs, device),
+                    threads=CORES // TP_RANKS)
+    log(f"  {TP_RANKS} gloo ranks on the card, mesh data = 1, model = "
+        f"{TP_RANKS}: {time.perf_counter() - t0:.1f} s with start-up")
+    launches = 0
+    for r, (streams, stats, ms, n, mla, mla_stats, pr) in enumerate(res):
+        if pr[0] != 2:
+            raise AssertionError(f"rank {r}: {pr[0]} probes of the TP decode"
+                                 " on the engine's pools, want 2")
+        if stats != one_stats or not all(
+                np.array_equal(a, b) for a, b in zip(streams, one)):
+            raise AssertionError(f"rank {r}: TP streams or stats differ from "
+                                 "the one-rank engine's")
+        if n != cfg.n_layers * stats["decode_steps"]:
+            raise AssertionError(f"rank {r}: paged_flash_decode launched {n}"
+                                 f" times for {stats['decode_steps']} decode "
+                                 "steps")
+        if mla_stats != mla_one_stats:
+            raise AssertionError(f"rank {r}: MLA stats differ")
+        launches += n
+    log(f"  {SERVE_ARCH} at full width, {cfg.n_heads} query heads and "
+        f"{cfg.n_kv_heads} KV heads over {TP_RANKS} ranks: {TP_REQUESTS} "
+        f"requests, {one_stats['decode_steps']} decode steps; streams and "
+        f"stats identical to the one-rank engine's; paged_flash_decode "
+        f"{res[0][3]} launches per rank (= {cfg.n_layers} x decode steps); "
+        f"{np.mean([r[2] for r in res]):.2f} ms per decode step (one rank "
+        f"alone {one_ms:.2f})")
+    log(f"    tp_paged_decode on each rank's own pools, table and lengths "
+        f"after steps 2 and 4, {cfg.n_layers} layers each, "
+        f"{cfg.n_heads // TP_RANKS} query heads over its "
+        f"{cfg.n_kv_heads // TP_RANKS} KV head: bit-identical to the "
+        f"unsharded kernel on the whole pools, max_abs_err vs the plain form "
+        f"{max(r[6][1] for r in res):.3e} (bf16 rtol/atol 2e-2); "
+        f"{res[0][6][2]} probe launches per rank, left out of the count")
+    same = all(np.array_equal(a, b) for a, b in zip(res[0][4], mla_one))
+    # the engine's model: MoE drop-free, as it serves
+    diff, checked, close, agree = greedy_check(
+        mparams, mla_infer, mccfg.page_size, [p for p, _ in mreqs], res[0][4])
+    log(f"  reduced deepseek-v2 (MLA, f32) at tp = {TP_RANKS}: streams "
+        f"{'identical to' if same else 'differ from'} the one-rank engine's; "
+        f"the plain greedy argmax at {agree} of {checked} positions ({close} "
+        f"within the {LOGIT_TOL} margin)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    card_flags()
 
     log("== 1. card")
     smi = subprocess.run(
@@ -2775,7 +3449,21 @@ def main() -> int:
     del params, fleet
     torch.cuda.empty_cache()
 
-    log("== 15. result")
+    t15 = time.perf_counter()
+    log(f"== 15a. training: TrainLoop, {SERVE_ARCH} at full width, one "
+        "process")
+    drive_train()
+    log(f"== 15b-15c. the sharded server and the general train step on "
+        f"{SPMD_RANKS} ranks")
+    c15, _ = drive_spmd_server_and_step()
+    log(f"== 15d. tensor-parallel decode on {TP_RANKS} ranks")
+    c15["paged_flash_decode"] = drive_tp_decode()
+    for k, c in c15.items():
+        counts[k] += c
+    log(f"  phase 15 in {time.perf_counter() - t15:.1f} s, kernel launches "
+        f"{c15}")
+
+    log("== 16. result")
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

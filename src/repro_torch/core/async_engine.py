@@ -167,9 +167,10 @@ class EngineConfig:
     # "host" = the conformance pipeline: re-stack every iteration and
     # apply the reference rule op by op on ``device``; "device" = resident
     # f32 GradLedger + the rule's kernel-backed twin -> step -> project;
-    # "sharded" belongs to the SPMD slice and is not ported yet
+    # "sharded" = that ledger dp-sharded over a mesh of ranks (pass
+    # ``mesh=``; every rank runs the engine)
     agg_backend: str = "host"
-    # sharded backend: "gather" or "partial" (kept for field parity)
+    # sharded backend: "gather" (bit-identical to "device") or "partial"
     ledger_combine: str = "gather"
     seed: int = 0
     # crash windows: (agent, t_start, t_end) in wall-clock time
@@ -200,7 +201,7 @@ class AsyncEngine:
     def __init__(self, grad_fn, x0: np.ndarray, cfg: EngineConfig,
                  latency: Optional[LatencyModel] = None,
                  loss_fn=None, x_star: Optional[np.ndarray] = None,
-                 transport: Optional[Transport] = None):
+                 transport: Optional[Transport] = None, mesh=None):
         self.grad_fn = grad_fn
         self.x = np.asarray(x0, np.float64).copy()
         self.cfg = cfg
@@ -232,24 +233,36 @@ class AsyncEngine:
         # device buffer + aggregate step (the fast path). The host branch
         # keeps an empty matrix in device mode so shape-based code never
         # sees None.
-        if cfg.agg_backend == "sharded":
-            raise ValueError(
-                "agg_backend='sharded' needs the SPMD layer, which the "
-                "torch port has not reached yet (ROADMAP Queue 1 item 9)")
-        if cfg.agg_backend not in ("host", "device"):
+        if cfg.agg_backend not in ("host", "device", "sharded"):
             raise ValueError(
                 f"unknown agg_backend {cfg.agg_backend!r}; "
-                "expected 'host' or 'device'")
+                "expected 'host', 'device' or 'sharded'")
         self.device = resolve_device(cfg.device)
         self._dev = None
         if cfg.agg_backend == "device":
             from repro_torch.core.ledger import (GradLedger,
                                                  make_aggregate_apply)
             self._dev = GradLedger(cfg.n_agents, x0.size, self.device)
-            self._dev_x = torch.as_tensor(self.x, dtype=torch.float32,
-                                          device=self.device)
             self._agg_apply = make_aggregate_apply(cfg.rule, cfg.f,
                                                    cfg.proj_gamma)
+        elif cfg.agg_backend == "sharded":
+            if mesh is None:
+                raise ValueError("agg_backend='sharded' needs a mesh")
+            if mesh.device != self.device:
+                raise ValueError(f"mesh on {mesh.device}, engine on "
+                                 f"{self.device}")
+            from repro_torch.core.ledger import (
+                ShardedGradLedger, make_sharded_aggregate_apply)
+            from repro_torch.launch.mesh import dp_axis_names
+            axes = dp_axis_names(mesh)
+            self._dev = ShardedGradLedger(cfg.n_agents, x0.size, self.device,
+                                          mesh=mesh, axes=axes)
+            self._agg_apply = make_sharded_aggregate_apply(
+                cfg.rule, cfg.f, cfg.proj_gamma, mesh, axes, cfg.n_agents,
+                cfg.ledger_combine)
+        if self._dev is not None:
+            self._dev_x = torch.as_tensor(self.x, dtype=torch.float32,
+                                          device=self.device)
         self._ledger_g = np.zeros(
             (cfg.n_agents, 0 if self._dev is not None else x0.size))
 

@@ -64,6 +64,14 @@ def tree_unflatten(spec, leaves) -> Tree:
     return build(spec)
 
 
+def tree_map(fn, tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (same structure), rebuilt in ``tree``'s structure."""
+    leaves, spec = tree_flatten(tree)
+    others = [tree_flatten(t)[0] for t in rest]
+    return tree_unflatten(spec, [fn(*xs) for xs in zip(leaves, *others)])
+
+
 class FlatLayout:
     """Cached flat view of a nested container of tensors. Offsets, sizes,
     shapes and dtypes are computed once per model via :func:`layout_of`;
@@ -221,6 +229,128 @@ def make_aggregate_apply(rule: str, f: int, gamma: float) -> Callable:
     def step(x, g, received, eta):
         agg = dev(g, received).to(torch.float32)
         # eta rounded to f32 first, as the reference's jnp.float32(eta)
+        return gradagg.project_ball(x - float(np.float32(eta)) * agg, gamma)
+
+    return step
+
+
+class ShardedGradLedger(GradLedger):
+    """Double-buffered ``(n, P)`` ledger sharded over the dp axes of a
+    :class:`repro_torch.launch.mesh.Mesh`: each rank holds its ``n/dp``
+    agent rows as a local ``(n_loc, P)`` block, in row-major agent order
+    (the linearization of ``collectives.agent_index``). Every rank runs
+    the same host code and sees every upload; a row lands only on the
+    rank that owns it.
+
+    Double-buffer swap protocol. Invariant: the buffer uploads currently
+    target (``_bufs[_cur]``) holds *every* upload ever made, so
+    ``host()`` is exact at any instant, mid-swap included.
+
+    - ``upload``              writes this rank's rows into ``_bufs[_cur]``
+                              and logs them in ``pending``.
+    - ``front_for_aggregate`` returns ``_bufs[_cur]`` as the aggregation
+                              front, replays ``pending`` into the other
+                              buffer and makes it the upload target.
+
+    The two buffers are independent tensors (distinct storage), after
+    ``__init__`` and after ``load``: the aggregate reads the front while
+    later uploads write the back. ``host()`` and ``load()`` are
+    collectives (every rank calls them).
+    """
+
+    def __init__(self, n_agents: int, dim_or_layout, device, *, mesh, axes):
+        from repro_torch.device import resolve as resolve_device
+        from repro_torch.dist import collectives as C   # dist sits above core
+        self.layout = (dim_or_layout if isinstance(dim_or_layout, FlatLayout)
+                       else None)
+        self.device = resolve_device(device)
+        self.n_agents = int(n_agents)
+        self.dim = ledger_dim(dim_or_layout)
+        self.mesh = mesh
+        self.axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        n_shards = mesh.axis_size(self.axes)
+        if self.n_agents % n_shards:
+            raise ValueError(
+                f"n_agents={self.n_agents} not divisible by the "
+                f"{n_shards}-way dp sharding over axes {self.axes}")
+        self.row0, self.n_loc = C.shard_row_slice(self.axes, self.n_agents,
+                                                  mesh=mesh)
+        self._bufs = [ledger_zeros(self.n_loc, self.dim, self.device)
+                      for _ in range(2)]
+        self._cur = 0
+        self._pending: list = []
+        self.swaps = 0
+
+    # ``data`` stays the public name of the authoritative (local) block
+    @property
+    def data(self) -> torch.Tensor:
+        return self._bufs[self._cur]
+
+    def upload(self, idx, rows) -> None:
+        idx = np.asarray(idx, np.int64).reshape(-1)
+        if idx.size == 0:
+            return
+        mine = (idx >= self.row0) & (idx < self.row0 + self.n_loc)
+        if not mine.any():
+            return
+        if isinstance(rows, torch.Tensor):
+            rows = rows.reshape(idx.size, self.dim)[
+                torch.from_numpy(np.nonzero(mine)[0])]
+            rows = rows.to(self.device, torch.float32)
+        else:
+            rows = torch.from_numpy(np.asarray(rows, np.float32).reshape(
+                idx.size, self.dim)[mine]).to(self.device)
+        loc = torch.from_numpy(idx[mine] - self.row0).to(self.device)
+        self._bufs[self._cur].index_copy_(0, loc, rows)
+        self._pending.append((loc, rows))
+
+    def front_for_aggregate(self) -> torch.Tensor:
+        front = self._bufs[self._cur]
+        back = 1 - self._cur
+        for loc, rows in self._pending:
+            self._bufs[back].index_copy_(0, loc, rows)
+        self._pending.clear()
+        self._cur = back
+        self.swaps += 1
+        return front
+
+    def host(self) -> np.ndarray:
+        """The whole ``(n, P)`` ledger as host f32, on every rank
+        (bit-exact: ``ledger_all_rows``)."""
+        from repro_torch.dist import collectives as C
+        full = C.ledger_all_rows(self.data, self.axes, self.n_agents,
+                                 mesh=self.mesh)
+        return full.cpu().numpy().copy()
+
+    def load(self, arr) -> None:
+        """Restore both buffers from a whole ``(n, P)`` snapshot (a
+        snapshot is a settled ledger: no pending uploads survive)."""
+        block = np.array(arr, np.float32, copy=True).reshape(
+            self.n_agents, self.dim)[self.row0:self.row0 + self.n_loc]
+        self._bufs = [torch.from_numpy(block.copy()).to(self.device)
+                      for _ in range(2)]
+        self._pending.clear()
+
+
+def make_sharded_aggregate_apply(rule: str, f: int, gamma: float, mesh,
+                                 axes, n_agents: int,
+                                 combine: str = "gather") -> Callable:
+    """Sharded twin of :func:`make_aggregate_apply` over a dp-sharded
+    ledger: the same rule -> step-size scale -> ``project_ball``, but the
+    rule is the registry's ``bind_sharded`` twin on this rank's
+    ``(n_loc, P)`` block. The iterate and mask are the same on every
+    rank, and so is the update computed after the all-reduce.
+    Signature: ``(x (P,) f32, g_loc (n_loc, P) f32, received (n,) bool,
+    eta)``.
+    """
+    from repro_torch.core import gradagg
+    from repro_torch.dist.registry import get_rule
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    agg_loc = get_rule(rule).bind_sharded(f, axes=axes, n=n_agents,
+                                          mesh=mesh, combine=combine)
+
+    def step(x, g_loc, received, eta):
+        agg = agg_loc(g_loc, received).to(torch.float32)
         return gradagg.project_ball(x - float(np.float32(eta)) * agg, gamma)
 
     return step

@@ -1,7 +1,15 @@
-"""repro_torch.dist — the aggregation-rule registry (``registry``).
+"""repro_torch.dist — the aggregation and sharding layer (counterpart of
+``repro.dist``):
 
-The SPMD layer of ``repro.dist`` (collectives, sharding, the
-``collective``/``spmd`` registry columns) is ported in a later slice.
+- ``repro_torch.dist.registry``     named ``AggregationRule`` objects
+  bundling, per rule, the torch reference (``core.gradagg``), the SPMD
+  collective (``dist.collectives``) and the kernel-backed device twin.
+  ``EngineConfig.rule`` and ``TrainConfig.mode`` both resolve here.
+- ``repro_torch.dist.collectives``  SPMD twins of the reference rules on
+  ``torch.distributed`` (all-reduce only).
+- ``repro_torch.dist.sharding``     logical-axis -> mesh-axis resolution
+  (``MeshRules``) and the per-dim axis specs of trees, batches and
+  caches.
 """
 from repro_torch.dist import registry  # noqa: F401
 from repro_torch.dist.registry import (AggregationRule, get_rule,  # noqa: F401

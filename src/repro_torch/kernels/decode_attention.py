@@ -16,14 +16,20 @@ The wrapper launches the kernel and raises for a tensor that is not on a
 card; ``kernels/ops.py`` decides between it and the plain form by the
 tensor's device. ``LAUNCHES`` counts calls of the wrapper that launched
 the kernel: one call is two CUDA launches, the split partials and their
-combine. :func:`split_plan` decides the split from the shapes alone. The
-tensor-parallel ``tp_paged_decode`` comes with the SPMD slice (ROADMAP
-Queue 1 item 9).
+combine. :func:`split_plan` decides the split from the shapes alone.
+
+:func:`tp_paged_decode` is the tensor-parallel decode: each rank of the
+mesh's tp axes runs the kernel (or the plain form) on its own KV-head
+block, with the split plan of the *unsharded* Hkv, so each head is
+walked exactly as in the replicated engine, and one all-reduce of
+``-0.0``-padded head blocks puts the ``(B, H, Dv)`` output together on
+every rank, bit for bit. It is a wrapper, not a kernel of its own.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -158,11 +164,15 @@ def _check(q, k_pages, v_pages, page_table, kv_lens) -> None:
             raise ValueError(f"{name}: {what} is not 16-byte aligned")
 
 
-def paged_flash_decode(q, k_pages, v_pages, page_table, kv_lens):
+def paged_flash_decode(q, k_pages, v_pages, page_table, kv_lens,
+                       plan_hkv: Optional[int] = None):
     """q: (B, H, D); k_pages: (N, PS, Hkv, D); v_pages: (N, PS, Hkv, Dv);
     page_table: (B, Pmax) int32; kv_lens: (B,) int32 -> (B, H, Dv) in
     q's dtype. Head h reads KV head h // (H // Hkv); table entries past a
-    sequence's length may be -1 or stale (they read page 0, masked)."""
+    sequence's length may be -1 or stale (they read page 0, masked).
+    ``plan_hkv`` (default Hkv) is the KV-head count the split plan is
+    made for: a tensor-parallel shard passes the unsharded count, so its
+    heads split exactly as the whole pool's do."""
     _check(q, k_pages, v_pages, page_table, kv_lens)
     b, h, d = q.shape
     n, ps, hkv, dv = v_pages.shape
@@ -170,7 +180,8 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, kv_lens):
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
-    n_split, per = split_plan(b, hkv, pmax, ps, _sm_count(q.device))
+    n_split, per = split_plan(b, plan_hkv or hkv, pmax, ps,
+                              _sm_count(q.device))
     # per (sequence, KV head, split): m (G), l (G), acc (G, Dv) in f32
     part = torch.empty(b * hkv * n_split * (h // hkv) * (dv + 2),
                        dtype=torch.float32, device=q.device)
@@ -185,3 +196,49 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, kv_lens):
         raise RuntimeError(f"paged_decode launch failed: cudaError {rc}")
     _launches.count(LAUNCHES, "paged_flash_decode")
     return out
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel decode
+
+
+def tp_paged_decode(q, k_pages, v_pages, page_table, kv_lens, *, mesh,
+                    kv_block, n_kv_heads: int, tp_axes=("model",),
+                    impl: str = "auto"):
+    """Tensor-parallel grouped paged decode, called on every rank of
+    ``mesh``.
+
+    q: (B, H, D), the same on every rank; ``kv_block = (h0, h1)``: this
+    rank's KV-head block of the ``n_kv_heads`` (as
+    ``dist.sharding.kv_head_block`` decides it), which k_pages/v_pages
+    ``(N, PS, h1 - h0, D|Dv)`` hold; page_table/kv_lens the same on every
+    rank. ``kv_block=None``: the pools hold every head, and the unsharded
+    dispatcher runs with no collective.
+
+    Each rank runs the grouped decode on its KV-head block and the G
+    query heads each carries (G = H / n_kv_heads), with the split plan of
+    the unsharded ``n_kv_heads``: GQA has no cross-KV-head reduction, so
+    each head's output is the replicated engine's, bit for bit. The head
+    blocks then meet in one all-reduce over the tp axes, every other
+    block ``-0.0`` (``x + -0.0 == x``), so the ``(B, H, Dv)`` output is
+    the same on every rank and the ``wo`` projection that follows runs
+    as in the replicated engine.
+    """
+    from repro_torch.kernels import ops     # ops imports this module
+    if kv_block is None:
+        return ops.paged_decode_attention(q, k_pages, v_pages, page_table,
+                                          kv_lens, impl=impl)
+    b, h, _ = q.shape
+    h0, h1 = kv_block
+    if k_pages.shape[2] != h1 - h0:
+        raise ValueError(f"tp_paged_decode: pools hold {k_pages.shape[2]} "
+                         f"KV heads, the block {kv_block} {h1 - h0}")
+    g = h // n_kv_heads
+    heads = slice(h0 * g, h1 * g)
+    out_loc = ops.paged_decode_attention(
+        q[:, heads].contiguous(), k_pages, v_pages, page_table, kv_lens,
+        impl=impl, plan_hkv=n_kv_heads)
+    full = torch.full((b, h, out_loc.shape[-1]), -0.0, dtype=out_loc.dtype,
+                      device=out_loc.device)
+    full[:, heads] = out_loc
+    return mesh.all_reduce(full, tp_axes)

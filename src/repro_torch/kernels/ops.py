@@ -103,11 +103,14 @@ def dequant_accum(q, scale, received, *, impl: str = "auto"):
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
-                           impl: str = "auto"):
+                           impl: str = "auto", plan_hkv=None):
     """Single-query attention over paged KV (the serving decode hot path).
     q: (B, H, D); k_pages/v_pages: (N, PS, Hkv, D|Dv); page_table:
     (B, Pmax) int32; kv_lens: (B,) int32. Returns (B, H, Dv). Every form
-    is KV-head grouped: head h reads KV head h // (H // Hkv)."""
+    is KV-head grouped: head h reads KV head h // (H // Hkv).
+    ``plan_hkv``: the KV-head count the CUDA kernel's split plan is made
+    for (a tensor-parallel shard's unsharded Hkv); the other forms do not
+    split."""
     impl = _route(impl, q)
     if impl == "ref":
         return _ref.ref_paged_decode_attention(q, k_pages, v_pages,
@@ -115,7 +118,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
     if impl == "plain":
         return _da.paged_decode_plain(q, k_pages, v_pages, page_table,
                                       kv_lens)
-    return _da.paged_flash_decode(q, k_pages, v_pages, page_table, kv_lens)
+    return _da.paged_flash_decode(q, k_pages, v_pages, page_table, kv_lens,
+                                  plan_hkv=plan_hkv)
 
 
 def tree_bucket(tree, width: int = 2048):

@@ -15,9 +15,15 @@ the decode kernel's head dim too).
 
 Caches are written in place (``index_put_`` without accumulate, where the
 reference returns an updated copy or donates the buffer), so a decode
-step allocates no new pool. MLA under a serving mesh (the reference's
-``_mla_tp_shard``) comes with ROADMAP Queue 1 item 9; without a mesh it
-is the identity.
+step allocates no new pool.
+
+Under a serving mesh (``dist.sharding.serve_tp``, installed by the
+tensor-parallel ``ServeEngine``) every rank computes the whole layer
+but its attention: GQA's paged decode appends this rank's KV-head block
+to its pools and attends through ``tp_paged_decode``; MLA's absorbed
+decode splits over query heads (``_mla_tp_shard``). Both meet again in
+one exact all-reduce before ``wo``, so every rank's output is the
+replicated engine's.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import current_serve_tp
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_init,
                                        param_dtype, rotate)
@@ -207,11 +214,26 @@ def apply_gqa(p, x, cfg: ArchConfig, *, rope=None, kv_x=None, cache=None,
             lens = cache_index
             kp, vp = cache["k_pages"], cache["v_pages"]
             ps = kp.shape[1]
-            _paged_append(kp, k_new[:, 0], page_table, lens, ps)
-            _paged_append(vp, v_new[:, 0], page_table, lens, ps)
-            out = ops.paged_decode_attention(
-                q[:, 0].contiguous(), kp, vp, page_table, lens + 1,
-                impl=impl)[:, None]                   # (B, 1, H, hd)
+            k1, v1 = k_new[:, 0], v_new[:, 0]
+            tp_ctx = current_serve_tp()
+            kv_block = tp_ctx[2] if tp_ctx is not None else None
+            if kv_block is not None:             # this rank's KV-head block
+                k1, v1 = (k1[:, kv_block[0]:kv_block[1]],
+                          v1[:, kv_block[0]:kv_block[1]])
+            _paged_append(kp, k1, page_table, lens, ps)
+            _paged_append(vp, v1, page_table, lens, ps)
+            if kv_block is not None:
+                from repro_torch.kernels.decode_attention import (
+                    tp_paged_decode)
+                out = tp_paged_decode(
+                    q[:, 0].contiguous(), kp, vp, page_table, lens + 1,
+                    mesh=tp_ctx[0], kv_block=kv_block,
+                    n_kv_heads=cfg.n_kv_heads, tp_axes=tp_ctx[1],
+                    impl=impl)[:, None]
+            else:
+                out = ops.paged_decode_attention(
+                    q[:, 0].contiguous(), kp, vp, page_table, lens + 1,
+                    impl=impl)[:, None]               # (B, 1, H, hd)
             return project_out(out.to(x.dtype)), cache
         k, v = cache["k"], cache["v"]
         kv_len = _write_decode(cache_index, b, s, (k, k_new), (v, v_new))
@@ -274,6 +296,30 @@ def _rms(x, scale):
     return (y * scale.to(torch.float32)).to(x.dtype)
 
 
+def _mla_tp_shard(absorbed, q_nope, q_rope, w_uk, w_uv, h: int):
+    """The absorbed decode, split over query heads when a serving TP
+    context is active (the identity otherwise): each rank computes its
+    head block (q_nope/q_rope dim 2, w_uk/w_uv dim 1), the latent pools
+    being whole on every rank, and the blocks meet in one all-reduce of
+    ``-0.0`` pads — exact, since per-head math has no cross-head
+    reduction before ``wo``."""
+    tp_ctx = current_serve_tp()
+    if tp_ctx is None:
+        return absorbed(q_nope, q_rope, w_uk, w_uv)
+    mesh, tp_axes, _ = tp_ctx
+    ts = mesh.axis_size(tp_axes)
+    if ts == 1 or h % ts:
+        return absorbed(q_nope, q_rope, w_uk, w_uv)
+    hl, r = h // ts, mesh.axis_index(tp_axes)
+    blk = slice(r * hl, (r + 1) * hl)
+    out_loc = absorbed(q_nope[:, :, blk], q_rope[:, :, blk], w_uk[:, blk],
+                       w_uv[:, blk])
+    full = torch.full(out_loc.shape[:2] + (h,) + out_loc.shape[3:], -0.0,
+                      dtype=out_loc.dtype, device=out_loc.device)
+    full[:, :, blk] = out_loc
+    return mesh.all_reduce(full, tp_axes)
+
+
 def apply_mla(p, x, cfg: ArchConfig, *, positions, cache=None,
               cache_index=None, return_cache=False, page_table=None):
     """Multi-head latent attention. Train and prefill materialise
@@ -310,15 +356,22 @@ def apply_mla(p, x, cfg: ArchConfig, *, positions, cache=None,
             kv_len = _write_decode(cache_index, b, s, (ckv, ckv_new),
                                    (kr, kr_new))
         t = ckv.shape[1]
-        q_abs = torch.einsum("bshn,lhn->bshl", q_nope, p["w_uk"])
-        scores = (torch.einsum("bshl,btl->bhst", q_abs, ckv)
-                  + torch.einsum("bshr,btr->bhst", q_rope, kr)
-                  ).to(torch.float32) * (nope + rp) ** -0.5
-        mask = torch.arange(t, device=x.device)[None, :] < kv_len[:, None]
-        scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
-        w = torch.softmax(scores, dim=-1).to(x.dtype)
-        out_lat = torch.einsum("bhst,btl->bshl", w, ckv)
-        out = torch.einsum("bshl,lhv->bshv", out_lat, p["w_uv"])
+        scale = (nope + rp) ** -0.5
+
+        def absorbed(qn, qr, wuk, wuv):
+            q_abs = torch.einsum("bshn,lhn->bshl", qn, wuk)
+            scores = (torch.einsum("bshl,btl->bhst", q_abs, ckv)
+                      + torch.einsum("bshr,btr->bhst", qr, kr)
+                      ).to(torch.float32) * scale
+            mask = (torch.arange(t, device=x.device)[None, :]
+                    < kv_len[:, None])
+            scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+            w = torch.softmax(scores, dim=-1).to(x.dtype)
+            out_lat = torch.einsum("bhst,btl->bshl", w, ckv)
+            return torch.einsum("bshl,lhv->bshv", out_lat, wuv)
+
+        out = _mla_tp_shard(absorbed, q_nope, q_rope, p["w_uk"], p["w_uv"],
+                            h)
         new_cache = cache
     else:
         k_nope = torch.einsum("btl,lhn->bthn", ckv_new, p["w_uk"])

@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve as resolve_device
@@ -295,7 +296,8 @@ def _positions_for(cfg: ArchConfig, b: int, s: int, offset, device):
 def apply_model(params, tokens, cfg: ArchConfig, *, enc_embed=None,
                 cache=None, cache_index=None, mode: str = "train",
                 moe_groups: int = 1, logits_chunk: int = 0,
-                page_table=None, impl: str = "auto"):
+                page_table=None, impl: str = "auto",
+                remat_policy: str = "none"):
     """Returns (logits, aux_loss, new_cache).
 
     mode: "train" (no cache), "prefill" (returns the populated dense
@@ -309,6 +311,10 @@ def apply_model(params, tokens, cfg: ArchConfig, *, enc_embed=None,
     (prefill/train) the final normed hidden states come back in place of
     the logits, for a caller that unembeds only some positions. ``impl``
     picks the GQA paged-decode attention form (``kernels/ops.py``).
+    ``remat_policy`` other than ``"none"`` recomputes each layer's
+    activations in the backward pass of a train forward
+    (``torch.utils.checkpoint``, non-reentrant): the same numbers, less
+    memory, as the reference's ``jax.checkpoint`` of its period body.
     """
     b, s = tokens.shape
     decode, prefill = mode == "decode", mode == "prefill"
@@ -333,9 +339,15 @@ def apply_model(params, tokens, cfg: ArchConfig, *, enc_embed=None,
               else [_unstack(c, cfg.n_periods) for c in cache])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = [[] for _ in pattern]
+    layer = _apply_layer
+    if (mode == "train" and remat_policy != "none"
+            and torch.is_grad_enabled()):
+        def layer(*args, **kw):
+            return torch.utils.checkpoint.checkpoint(
+                _apply_layer, *args, use_reentrant=False, **kw)
     for pi in range(cfg.n_periods):
         for pos, kind in enumerate(pattern):
-            x, a, nc = _apply_layer(
+            x, a, nc = layer(
                 blocks[pos][pi], x, kind, cfg, layer_idx=pos,
                 positions=positions, rope=rope, moe_groups=moe_groups,
                 cache=caches[pos][pi] if cache is not None else None,

@@ -30,11 +30,20 @@ state would absorb the pad, so those archs group by exact length.
 ``prefix_cache="on"`` (attention-only archs) shares resident prompt
 pages between requests: a hit prefills only its uncached suffix, one
 token per call of the decode program, whose last logits give the first
-generated token; ``"off"`` keeps the grouped admission path. Serving
-meshes come with a later slice (ROADMAP Queue 1 item 9).
+generated token; ``"off"`` keeps the grouped admission path.
+
+``mesh=`` (a ``launch.mesh.Mesh`` over the ranks of a process group,
+``rules=`` optional: only its ``tp_axes`` are read) serves
+tensor-parallel: every rank builds this engine on the same replicated
+parameters and drives it with the same calls; its GQA pools hold its
+KV-head block, decided once from the mesh's own tp extent
+(``dist.sharding.kv_head_block``), and the paged decode runs through
+``tp_paged_decode`` on that block, so the streams and ``stats`` equal
+the one-rank engine's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -44,6 +53,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve as resolve_device
+from repro_torch.dist.sharding import MeshRules, kv_head_block, serve_tp
 from repro_torch.models.layers import unembed
 from repro_torch.models.model import apply_model
 from repro_torch.serve.kv_cache import (PagedCacheConfig, PagedKVCache,
@@ -101,14 +111,33 @@ class ServeEngine:
             # content-addressable per token chunk
             raise ValueError(
                 "prefix_cache requires an attention-only layer pattern")
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "serving meshes (tensor-parallel decode) come with ROADMAP "
-                "Queue 1 item 9")
+        # serving TP: every rank of ``mesh`` runs this engine on the same
+        # replicated parameters and the same host logic; its GQA pools
+        # hold its KV-head block, and only the paged attention splits
+        # (models/attention.py), so every matmul outside it keeps the
+        # one-rank engine's reduction order and the streams match it
+        if rules is not None and mesh is None:
+            raise ValueError(
+                "rules= provided without mesh= — pass the mesh the rules "
+                "describe, or drop rules for the replicated engine")
         self.device = resolve_device(device)
         if params["embed"]["tok"].device != self.device:
             raise ValueError(f"params are on {params['embed']['tok'].device},"
                              f" the engine on {self.device}")
+        self.mesh = mesh
+        if mesh is not None and rules is None:
+            rules = MeshRules(
+                fsdp_axes=(),
+                axis_sizes={a: mesh.shape[a] for a in mesh.axis_names})
+        self.rules = rules
+        self._kv_block = None
+        if mesh is not None:
+            if mesh.device != self.device:
+                raise ValueError(f"mesh on {mesh.device}, the engine on "
+                                 f"{self.device}")
+            if cfg.attention != "mla":
+                self._kv_block = kv_head_block(mesh, rules.tp_axes,
+                                               cfg.n_kv_heads, cfg.n_heads)
         self.params = params
         self.cfg = cfg
         self.superstep_k = int(superstep_k)
@@ -123,7 +152,7 @@ class ServeEngine:
         self.ccfg = ccfg or PagedCacheConfig()
         self.kv = PagedKVCache(cfg, self.ccfg,
                                enable_prefix=(prefix_cache == "on"),
-                               device=self.device)
+                               device=self.device, kv_block=self._kv_block)
         self.sched = Scheduler(self.ccfg, policy=policy)
         # the reference's counters, names and meaning alike
         self.stats = {"prefill_calls": 0, "decode_steps": 0,
@@ -152,9 +181,12 @@ class ServeEngine:
 
     @torch.no_grad()
     def _decode(self, tokens, lens, tbl):
-        logits, _, _ = apply_model(self.params, tokens, self.infer_cfg,
-                                   mode="decode", cache=self.kv.cache,
-                                   cache_index=lens, page_table=tbl)
+        ctx = (serve_tp(self.mesh, self.rules.tp_axes, self._kv_block)
+               if self.mesh is not None else contextlib.nullcontext())
+        with ctx:
+            logits, _, _ = apply_model(self.params, tokens, self.infer_cfg,
+                                       mode="decode", cache=self.kv.cache,
+                                       cache_index=lens, page_table=tbl)
         return logits[:, -1].argmax(-1).to(torch.int32)
 
     @torch.no_grad()
@@ -414,7 +446,7 @@ class ServeEngine:
         restarts cold (its index is not part of the image)."""
         self.kv = PagedKVCache(self.infer_cfg, self.ccfg,
                                enable_prefix=(self.prefix_cache == "on"),
-                               device=self.device)
+                               device=self.device, kv_block=self._kv_block)
         self.sched = Scheduler(self.ccfg, policy=self.sched.policy)
         if image is not None:
             for pos, blk in enumerate(self.kv.cache):

@@ -32,7 +32,7 @@ request re-shares its full prompt blocks that are still resident.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -167,8 +167,10 @@ class SwapState:
     slot_rows: Dict[Any, torch.Tensor]
 
 
-def _paged_block(cfg: ArchConfig, ccfg: PagedCacheConfig, dt, device):
-    """Paged mixer dict for one attention pattern position."""
+def _paged_block(cfg: ArchConfig, ccfg: PagedCacheConfig, dt, device,
+                 n_kv: int):
+    """Paged mixer dict for one attention pattern position (GQA pools of
+    ``n_kv`` KV heads)."""
     lead = (cfg.n_periods, ccfg.num_pages, ccfg.page_size)
     if cfg.attention == "mla":
         m = cfg.mla
@@ -176,7 +178,7 @@ def _paged_block(cfg: ArchConfig, ccfg: PagedCacheConfig, dt, device):
                                          dtype=dt, device=device),
                 "kr_pages": torch.zeros(lead + (m.qk_rope_head_dim,),
                                         dtype=dt, device=device)}
-    shape = lead + (cfg.n_kv_heads, cfg.resolved_head_dim)
+    shape = lead + (n_kv, cfg.resolved_head_dim)
     return {"k_pages": torch.zeros(shape, dtype=dt, device=device),
             "v_pages": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -196,13 +198,19 @@ class PagedKVCache:
     """
 
     def __init__(self, cfg: ArchConfig, ccfg: PagedCacheConfig,
-                 enable_prefix: bool = False, device="cuda"):
+                 enable_prefix: bool = False, device="cuda",
+                 kv_block: Optional[Tuple[int, int]] = None):
+        """``kv_block = (h0, h1)``: the GQA pools hold KV heads h0..h1-1
+        only (a tensor-parallel rank's block, ``dist.sharding.
+        cache_specs``), and admission writes that block of the prefill
+        cache; None holds every head."""
         if cfg.encoder_decoder:
             raise NotImplementedError(
                 "paged serving supports decoder-only archs")
         self.cfg = cfg
         self.ccfg = ccfg
         self.device = resolve_device(device)
+        self.kv_block = kv_block
         self.alloc = PageAllocator(ccfg.num_pages)
         self.prefix = None
         if enable_prefix:
@@ -227,7 +235,10 @@ class PagedKVCache:
         # (its sequence extent unused); attention layers: page pools
         dense = init_cache(cfg, s, 1, device=self.device)
         self.cache = tuple(
-            {"mixer": _paged_block(cfg, ccfg, dt, self.device), "ffn": {}}
+            {"mixer": _paged_block(
+                cfg, ccfg, dt, self.device,
+                kv_block[1] - kv_block[0] if kv_block else cfg.n_kv_heads),
+             "ffn": {}}
             if kind == "attn" else dense[pos]
             for pos, kind in enumerate(cfg.layer_pattern))
 
@@ -334,6 +345,8 @@ class PagedKVCache:
                 continue
             for name, pool in blk["mixer"].items():
                 dense = prefill_cache[pos]["mixer"][name[:-len(PAGED_SUFFIX)]]
+                if self.kv_block and name in ("k_pages", "v_pages"):
+                    dense = dense[..., self.kv_block[0]:self.kv_block[1], :]
                 # dense: (P, 1, s0, ...). One indexed write covers every
                 # complete page; the ragged tail gets its own partial
                 # page write. The causal-invisible right pad is never read.

@@ -143,7 +143,7 @@ def test_reconfigure_changes_r_and_keeps_history():
 
 
 def test_backend_errors():
-    with pytest.raises(ValueError, match="SPMD"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         _run(teng, tred, agg_backend="sharded")
     with pytest.raises(ValueError, match="agg_backend"):
         _run(teng, tred, agg_backend="gpu")

@@ -162,6 +162,33 @@ def test_prefix_cache_and_fleet_entry_points_default_to_cuda(monkeypatch):
         run_fleet_e2e(get_scenario("crash_cascade"), n_requests=2)
 
 
+def test_spmd_entry_points_default_to_cuda(monkeypatch):
+    """The SPMD layer's entry points run on the card unless asked for the
+    CPU (the train state, the loop, the mesh, the sharded ledger and the
+    rank runner), and the runner names its backend: none is picked
+    silently."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.ledger import ShardedGradLedger
+    from repro_torch.launch.loop import TrainLoop
+    from repro_torch.launch.mesh import Mesh, make_test_mesh, run_ranks
+    from repro_torch.launch.train import TrainConfig, init_state
+    cfg = get_config("qwen2-0.5b").reduced()
+    one = Mesh((1, 1), ("data", "model"), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_state(torch.Generator().manual_seed(0), cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TrainLoop(cfg, TrainConfig(), iter(()), n_agents=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_test_mesh(data=1, model=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ShardedGradLedger(2, 4, "cuda", mesh=one, axes=("data",))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_ranks(print, 1, backend="gloo", device="cuda", timeout=5)
+    with pytest.raises(ValueError, match="backend"):
+        run_ranks(print, 1, backend="auto", device="cpu", timeout=5)
+
+
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: chip_smoke.py runs there")

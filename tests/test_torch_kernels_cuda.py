@@ -811,3 +811,84 @@ def test_cge_norm_wrappers_validate_inputs():
         tcn.masked_scale(x, torch.ones(4, device="cuda", dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="scale"):
         tcn.masked_scale(x, torch.ones(3, device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel decode: each rank's KV-head block through the kernel with
+# the unsharded Hkv's split plan, the blocks joined by a -0.0-padded
+# all-reduce (gloo ranks sharing the one card)
+
+
+# (shape of DECODE_SHAPES' layout, tp): phase 6's decode shape over 2
+# ranks, Hkv = 8 over 4, and a 4096-token table over 2, where the split
+# plan of Hkv / tp differs from the unsharded one's
+TP_DECODE = {
+    "qwen2-0.5b": (DECODE_SHAPES["qwen2-0.5b"], 2),
+    "hkv8_tp4": (DECODE_SHAPES["jamba"], 4),
+    "long_tp2": ((2, 8, 4, 64, 64, 16, 256, 513), 2),
+}
+# split_plan's results at 132 SMs, as before tensor-parallel decode
+SPLIT_PLANS = {"qwen2-0.5b": (12, 4), "qwen2-1.5b": (3, 4), "yi-6b": (3, 4),
+               "jamba": (5, 4)}
+
+
+def _bits(t):
+    return t.cpu().view(torch.int16 if t.dtype == torch.bfloat16
+                        else torch.int32)
+
+
+def _tp_decode_rank(rank, world, shape, dtype):
+    from repro_torch.dist.sharding import kv_head_block
+    from repro_torch.kernels.decode_attention import tp_paged_decode
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh(data=1, model=world, device="cuda")
+    q, k, v, tbl, lens = _decode_inputs(shape, dtype, seed=3)
+    whole = tda.paged_flash_decode(q, k, v, tbl, lens)
+    blk = kv_head_block(mesh, ("model",), shape[2], shape[1])
+    h0, h1 = blk or (0, shape[2])
+    before = tda.LAUNCHES["paged_flash_decode"]
+    out = tp_paged_decode(q, k[:, :, h0:h1].contiguous(),
+                          v[:, :, h0:h1].contiguous(), tbl, lens, mesh=mesh,
+                          kv_block=blk, n_kv_heads=shape[2])
+    torch.cuda.synchronize()
+    return (_bits(whole), _bits(out),
+            tda.LAUNCHES["paged_flash_decode"] - before)
+
+
+@needs_cuda
+@pytest.mark.parametrize("name", list(TP_DECODE))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tp_paged_decode_bit_identical_to_unsharded(name, dtype, tmp_path):
+    from repro_torch.launch.mesh import run_ranks
+    shape, tp = TP_DECODE[name]
+    res = run_ranks(_tp_decode_rank, tp, backend="gloo", device="cuda",
+                    timeout=240, args=(shape, dtype),
+                    store_dir=str(tmp_path))
+    for whole, out, launches in res:
+        assert torch.equal(out, whole) and launches == 1
+
+
+@needs_cuda
+def test_tp_paged_decode_one_rank_is_the_kernel(tmp_path):
+    from repro_torch.launch.mesh import run_ranks
+    res = run_ranks(_tp_decode_rank, 1, backend="gloo", device="cuda",
+                    timeout=120, args=(DECODE_SHAPES["qwen2-0.5b"],
+                                       torch.bfloat16),
+                    store_dir=str(tmp_path))
+    whole, out, launches = res[0]
+    assert torch.equal(out, whole) and launches == 1
+
+
+@needs_cuda
+def test_split_plan_defaults_unchanged():
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, want in SPLIT_PLANS.items():
+        b, _, hkv, _, _, ps, pmax, _ = DECODE_SHAPES[name]
+        if n_sm == 132:
+            assert tda.split_plan(b, hkv, pmax, ps, n_sm) == want
+        args = _decode_inputs(DECODE_SHAPES[name], torch.bfloat16, seed=4)
+        assert torch.equal(_bits(tda.paged_flash_decode(*args)),
+                           _bits(tda.paged_flash_decode(*args, plan_hkv=hkv)))
+    b, _, hkv, _, _, ps, pmax, _ = TP_DECODE["long_tp2"][0]
+    assert (tda.split_plan(b, hkv, pmax, ps, n_sm)
+            != tda.split_plan(b, hkv // 2, pmax, ps, n_sm))

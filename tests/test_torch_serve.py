@@ -227,8 +227,11 @@ def test_engine_refuses_what_is_not_ported(arch):
     # the prefix cache is ported: an attention-only arch builds its index
     assert ServeEngine(tp, cfg, device="cpu",
                        prefix_cache="on").kv.prefix is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ServeEngine(tp, cfg, device="cpu", mesh=object())
+    # serving meshes are ported: rules without a mesh is the reference's
+    # ValueError
+    from repro_torch.dist.sharding import MeshRules
+    with pytest.raises(ValueError, match="without mesh"):
+        ServeEngine(tp, cfg, device="cpu", rules=MeshRules())
     with pytest.raises(ValueError, match="superstep_k"):
         ServeEngine(tp, cfg, device="cpu", superstep_k=0)
     eng = ServeEngine(tp, cfg, device="cpu")
