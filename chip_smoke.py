@@ -166,12 +166,15 @@ Phases, each fatal on failure:
    serving again. Prints the ``FleetMetrics`` rows, the quorum
    rows, wall seconds and launches.
 14. Wall-clock chaos: 4 of the fleet's engines as ``EngineReplica``s
-   under ``RealClock`` through ``kill_rejoin`` cut to 12 requests, on the
-   timescale of one request served by 3 replicas at once: nothing lost,
-   no violation, drained, the killed replica declared dead, restarted
-   and rejoined, one restart for each kill and no exception from any
-   replica's engine (the fleet would count one as a crash and restart
-   the replica), the decode kernel launched. Prints the report.
+   under ``RealClock`` through ``kill_rejoin`` with its own 40 requests,
+   on the timescale of one request served by 3 replicas at once, the
+   horizon cut to 40 timescales (of 160): nothing lost, no violation,
+   drained, the killed replica declared dead, restarted and rejoined,
+   one restart for each kill and no exception from any replica's engine
+   (the fleet would count one as a crash and restart the replica), the
+   decode kernel launched. Prints the report, ``recovered`` with
+   ``sr_pre`` and ``sr_post``, how long arrivals go on past the last
+   rejoin, and the deaths of replicas no fault killed.
 15. The SPMD layer on ``torch.distributed``. Ranks are processes
    spawned by ``launch.mesh.run_ranks`` with an explicit backend and a
    time limit; a rank that raises or overruns it ends the script.
@@ -201,16 +204,57 @@ Phases, each fatal on failure:
    ``paged_flash_decode`` launched 24 x decode steps per rank; reduced
    deepseek-v2 (MLA, the absorbed decode split over query heads) at tp =
    2 held to the teacher-forced greedy rule.
-16. A JSON line with every kernel's launches (summed over the phases
-   that drive a path: 4, 6, 8, 9, 10, 11, 12, 13, 14 and 15, all ranks
-   of 15), error and times, the ``nvidia-smi`` line, and as the last
-   line ``{"ok": true, "device": {...}}``.
+16. The placed (FSDP) masked step, the launch serving steps and the
+   example twins.
+   16a: 4 gloo ranks sharing the card (mesh data = 4) place 15a's state
+   (qwen2-0.5b at full width, bf16 parameters, f32 AdamW moments, drawn
+   from one generator) by ``launch.train.place_state`` and take 3 steps
+   of ``make_train_step(..., param_specs=)`` with remat, one agent a
+   rank and 2 of the 4 masked a step: each rank's bytes of parameters
+   and moments (memory_allocated's growth over the placement) equal the
+   meta-device report within 1% and are a quarter of the replicated
+   state's; the gathered parameters are identical on every rank. Two
+   references run first in this process on the same weights and
+   batches: the mirror of the placed step's arithmetic (each agent's
+   bf16 gradient alone, the four summed in f32), which the placed
+   parameters must equal bit for bit after every step, its losses and
+   gradient norms within 1e-6; and the one-process ``make_train_step``
+   (15a's step), against whose update from the initial parameters the
+   placed step's gap is at most ``PLACED_UPDATE_REL`` (an unchanged state
+   reads 1). Prints seconds per step and the peak bytes of gathered
+   weights.
+   16b: reduced qwen2-0.5b (f32, 2 layers) placed on data 2 x model 2,
+   3 steps on the card and on 4 CPU ranks, within 1e-4.
+   16c: ``launch.serve.greedy_generate`` at full width, 4 prompts of 64
+   tokens, 32 new tokens each: tok/s, ``paged_flash_decode`` launched
+   exactly 24 x the decode steps (its count zeroed just before and read
+   just after), the tokens equal to ``ServeEngine.run``'s on the same
+   prompts, whose engine's own pools, page table and lengths hold the
+   decode kernel against ``paged_decode_plain`` after steps 2 and 3,
+   every layer; ``make_prefill_step`` and ``make_decode_step`` under
+   their own ``act_policy``, their argmax equal to the policy-free
+   calls', their constraint points reaching an enclosing recorder (the
+   kinds of a dense model, the batch over "data").
+   16d: ``examples/torch_quickstart.py``, ``torch_byzantine_cge.py`` and
+   ``torch_serve_lm.py`` run in process on the card at their defaults,
+   then the Byzantine one with ``--agg-backend device``, its 9 runs held
+   to the host backend's (the same events, ||x - x*|| within rtol 1e-3
+   at every iteration), and the serving one with ``--device cpu``, its
+   stats and streams equal to the card's; their lines are printed, and
+   the aggregation and decode kernels' launches (zeroed just before each
+   card run) must be above 0. Phase 3 holds the aggregation kernels at
+   the Byzantine example's shape (12 agents, P = 6).
+17. A JSON line with every kernel's launches (summed over the phases
+   that drive a path: 4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16, all
+   ranks of 15), error and times, the ``nvidia-smi`` line, and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is not available or the
 repository's sources are missing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -236,13 +280,15 @@ from repro_torch.core import gradagg  # noqa: E402
 from repro_torch.core.async_engine import (AsyncEngine,  # noqa: E402
                                            EngineConfig, default_latency)
 from repro_torch.core.ledger import (  # noqa: E402
-    make_sharded_aggregate_apply, tree_flatten)
+    make_sharded_aggregate_apply, tree_flatten, tree_map)
 from repro_torch.core.server import AsyncDGDServer  # noqa: E402
 from repro_torch.data.partition import (mask_to_weights,  # noqa: E402
                                         partition)
 from repro_torch.data.synthetic import (lm_batches,  # noqa: E402
                                         markov_tokens, mnist_like)
 from repro_torch.dist import collectives  # noqa: E402
+from repro_torch.dist.act_sharding import act_policy  # noqa: E402
+from repro_torch.dist.sharding import gather_tree  # noqa: E402
 from repro_torch.kernels import _build, agg, ops  # noqa: E402
 from repro_torch.kernels import cge_norms as cgen  # noqa: E402
 from repro_torch.kernels import decode_attention as dattn  # noqa: E402
@@ -251,14 +297,22 @@ from repro_torch.kernels.cases import (CGE_SHAPES, FLASH_CASES,  # noqa: E402
                                        FLASH_TOL, NORM_TOL)
 from repro_torch.launch.loop import StragglerOracle, TrainLoop  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh, run_ranks  # noqa: E402
+from repro_torch.launch.serve import (greedy_generate,  # noqa: E402
+                                      make_decode_step, make_prefill_step)
 from repro_torch.launch.train import (TrainConfig, init_state,  # noqa: E402
-                                      make_general_step, make_train_step)
+                                      lr_at, make_general_step,
+                                      make_optimizer, make_train_step,
+                                      place_state, state_bytes_per_rank,
+                                      value_and_grad)
 from repro_torch.models import attention as mattn  # noqa: E402
 from repro_torch.models import layers as mlayers  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
 from repro_torch.models import model as mmodel  # noqa: E402
 from repro_torch.models.model import classifier_loss  # noqa: E402
 from repro_torch.models.model import apply_model, init_model  # noqa: E402
+from repro_torch.models.model import lm_loss  # noqa: E402
+from repro_torch.optim.optimizers import (apply_updates,  # noqa: E402
+                                          clip_by_global_norm)
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.serve import (EngineReplica, FleetConfig,  # noqa: E402
                                PagedCacheConfig, RealClock, ReplicaKilled,
@@ -432,9 +486,11 @@ def check_f64(name, out, ref, bound):
 def check_kernels():
     errs = {k: [] for k in ("masked_cge_reduce", "trimmed_mean_tiled",
                             "dequant_accum")}
+    # (n, P, received, f); (12, 6, 10, 2) is examples/
+    # torch_byzantine_cge.py's shape on its device backend (phase 16d)
     shapes = [(N_AGENTS, P_LENET, N_AGENTS - 3, 1), (7, 4097, 5, 1),
               (N_AGENTS, 1_000_003, N_AGENTS, 2), (3, 1, 3, 0),
-              (64, P_LENET, 45, 2), (4097, 20_000, 2868, 1)]
+              (64, P_LENET, 45, 2), (4097, 20_000, 2868, 1), (12, 6, 10, 2)]
     for i, (n, p, m, f) in enumerate(shapes + [shapes[0]]):
         g, rx = ledger(n, p, m, seed=i)
         mis = i == len(shapes)
@@ -2179,21 +2235,45 @@ class SharedPageProbe:
             return
         self.probes += 1
         self.shared = max(self.shared, shared)
-        tbl = torch.tensor(kv.page_table, device="cuda")
-        lens = torch.tensor(kv.kv_lens, device="cuda")
-        before = dattn.LAUNCHES["paged_flash_decode"]
-        for pos, blk in enumerate(kv.cache):
-            kp, vp = blk["mixer"]["k_pages"], blk["mixer"]["v_pages"]
-            q = torch.randn((kv.page_table.shape[0], eng.cfg.n_heads,
-                             kp.shape[-1]), generator=self.gen,
-                            device="cuda").to(kp.dtype)
-            for p in range(kp.shape[0]):
-                check(f"paged_flash_decode on the engine's shared pages, "
-                      f"layer {pos}.{p}",
-                      dattn.paged_flash_decode(q, kp[p], vp[p], tbl, lens),
-                      dattn.paged_decode_plain(q, kp[p], vp[p], tbl, lens),
-                      DECODE_TOL[kp.dtype], self.errs)
-        self.launches += dattn.LAUNCHES["paged_flash_decode"] - before
+        self.launches += probe_decode(eng, self.gen, self.errs,
+                                      "the engine's shared pages")
+
+
+def probe_decode(eng, gen, errs, what) -> int:
+    """Holds ``paged_flash_decode`` against its plain form on ``eng``'s
+    own pools, page table and lengths, every layer, on a random query
+    from ``gen``; returns the kernel's launches."""
+    kv = eng.kv
+    tbl = torch.tensor(kv.page_table, device="cuda")
+    lens = torch.tensor(kv.kv_lens, device="cuda")
+    before = dattn.LAUNCHES["paged_flash_decode"]
+    for pos, blk in enumerate(kv.cache):
+        kp, vp = blk["mixer"]["k_pages"], blk["mixer"]["v_pages"]
+        q = torch.randn((kv.page_table.shape[0], eng.cfg.n_heads,
+                         kp.shape[-1]), generator=gen,
+                        device="cuda").to(kp.dtype)
+        for p in range(kp.shape[0]):
+            check(f"paged_flash_decode on {what}, layer {pos}.{p}",
+                  dattn.paged_flash_decode(q, kp[p], vp[p], tbl, lens),
+                  dattn.paged_decode_plain(q, kp[p], vp[p], tbl, lens),
+                  DECODE_TOL[kp.dtype], errs)
+    return dattn.LAUNCHES["paged_flash_decode"] - before
+
+
+class StepProbe:
+    """``probe_decode`` after the engine's steps in ``at`` (while its
+    slots are active)."""
+
+    def __init__(self, at=(2, 3)):
+        self.at, self.steps, self.launches, self.errs = at, 0, 0, []
+        self.gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def __call__(self, eng):
+        self.steps += 1
+        if self.steps in self.at:
+            self.launches += probe_decode(
+                eng, self.gen, self.errs,
+                f"the engine's pools after step {self.steps}")
 
 
 def checked_drain(eng, max_steps: int = 10_000, after_step=None):
@@ -2613,8 +2693,10 @@ def drive_fleet(params, fleet):
 
 
 WALLCLOCK_N = 4
-WALLCLOCK_REQUESTS = 12      # the reference's smoke size
 WALLCLOCK_STUB_WORK = 0.3    # StubReplica work_time at scale 1
+# the run's horizon, in timescales (kill_rejoin's own is 160): its 40
+# arrivals end at 20, and a run of 12 arrivals took 17
+WALLCLOCK_T_MAX = 40.0
 
 
 class CheckedReplica(EngineReplica):
@@ -2639,8 +2721,11 @@ class CheckedReplica(EngineReplica):
 
 def drive_wallclock(fleet):
     """Phase 14: 4 of the fleet's engines as ``EngineReplica``s under
-    ``RealClock``, through ``kill_rejoin`` cut to 12 requests. Outcomes
-    only, never timings.
+    ``RealClock``, through ``kill_rejoin`` with its own 40 requests, so
+    that arrivals go on past the replicas' rejoins and ``recovered``
+    (``sr_post / sr_pre``, answered shares before the fault and after
+    the last rejoin) reads a number. Outcomes only, never timings; the
+    horizon is cut to ``WALLCLOCK_T_MAX`` timescales.
 
     The timescale comes from one measured request, as the reference's
     wall-clock benchmark sets it, but from the request as a dispatch
@@ -2671,7 +2756,7 @@ def drive_wallclock(fleet):
     log(f"  one request {lat * 1e3:.1f} ms on one replica, {lat3 * 1e3:.1f} "
         f"ms on 3 at once (host clock): timescale {scale:.3f}")
     plan = dataclasses.replace(PLANS["kill_rejoin"](WALLCLOCK_N, scale=scale),
-                               n_requests=WALLCLOCK_REQUESTS)
+                               t_max=WALLCLOCK_T_MAX * scale)
     cfg = FleetConfig(n_replicas=WALLCLOCK_N, r=1, seed=0,
                       heartbeat_period=2.0 * scale, init_interval=2.0 * scale)
     dattn.reset_launches()
@@ -2680,13 +2765,25 @@ def drive_wallclock(fleet):
     wall = time.perf_counter() - t0
     launches = dattn.LAUNCHES["paged_flash_decode"]
     d = rep.as_dict()
-    log(f"  kill_rejoin cut to {WALLCLOCK_REQUESTS} requests in {wall:.1f} s "
+    log(f"  kill_rejoin, {plan.n_requests} requests, in {wall:.1f} s "
         f"(heartbeat {cfg.heartbeat_period:.3f} s); paged_flash_decode "
         f"launched {launches} times")
     log(f"    {json.dumps(d)}")
     log("    transitions " + ", ".join(
         f"{t:.3f} replica {j} {a} -> {b}" for t, j, a, b in rep.transition_log))
     log("    latencies " + " ".join(f"{x:.3f}" for x in rep.latencies))
+    faulted = {ev.replica for ev in plan.events}
+    false_deaths = [(t, j) for t, j, _, b in rep.transition_log
+                    if b == "dead" and j not in faulted]
+    rejoins = [t for t, _, a, b in rep.transition_log
+               if a == "recovering" and b == "healthy"]
+    last_arrival = (plan.n_requests - 1 + 0.26) * plan.arrival_period
+    past = last_arrival - max(rejoins, default=float("nan"))
+    log(f"    recovered {rep.recovered:.4f} (sr_pre {rep.sr_pre:.4f}, sr_post "
+        f"{rep.sr_post:.4f}); arrivals go on {past:.1f} s past the last "
+        f"rejoin ({past / wall:.1%} of the {wall:.1f} s run); deaths of "
+        f"replicas no fault killed: {len(false_deaths)} "
+        + " ".join(f"(replica {j} at {t:.1f} s)" for t, j in false_deaths))
     if rep.lost or rep.violations or not rep.drained:
         raise AssertionError(f"wall-clock kill_rejoin: {d}")
     for j in {ev.replica for ev in plan.events}:
@@ -3351,6 +3448,493 @@ def drive_tp_decode(device="cuda"):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 16. the placed (FSDP) masked step, the launch serving steps and the
+#     example twins
+
+
+# 16a: 15a's configuration on 4 ranks (data = 4), one agent a rank, 2 of
+# the 4 masked a step. Two references on the same batches from the same
+# weights (bf16 parameters, f32 AdamW). The mirror (``mirror_step``)
+# follows the placed step's arithmetic, each agent's bf16 gradient alone
+# and the four summed in f32, so the placed step must equal it bit for
+# bit after every step (the H100 gave bit-identity at all 3). The
+# one-process ``make_train_step`` rounds one bf16 gradient of the whole
+# batch instead: on the H100 that moved 2.3% of the parameters after one
+# step and ||p - p_one|| / ||p_one - p0|| stayed within 0.0709 over the
+# 3 steps. PLACED_UPDATE_REL is about three times that: an unchanged
+# state reads 1 and a sign-flipped update 2
+PLACED_STEPS, PLACED_AGENTS, PLACED_MASKED = 3, 4, 2
+PLACED_UPDATE_REL = 0.2
+PLACED_METRIC_TOL = dict(rtol=1e-6, atol=0.0)   # loss and grad norm sums
+# the meta-device report against memory_allocated's growth over the
+# placement: the allocator rounds each block up to 512 bytes
+PLACED_BYTES_REL = 0.01
+# 16d: the Byzantine example's device backend against its host backend,
+# as tests/test_torch_examples.py holds them on the CPU (f32 rules that
+# reduce in another order over 2,000 rounds)
+EXAMPLE_DIST_TOL = dict(rtol=1e-3, atol=1e-6)
+# 16c: greedy_generate at full width
+GREEDY_PROMPTS, GREEDY_PROMPT_LEN, GREEDY_NEW, GREEDY_PAGE = 4, 64, 32, 16
+
+
+def placed_tc(remat: str) -> TrainConfig:
+    """15a's training configuration (lr 3e-3 cosine, AdamW)."""
+    total = TRAIN_STEPS + TRAIN_MORE
+    return TrainConfig(mode="masked", lr=TRAIN_LR, lr_kind="cosine",
+                       lr_total=total, warmup=total // 20,
+                       remat_policy=remat)
+
+
+def placed_batches(vocab: int):
+    """16a's batches: 15a's data, 2 of 4 agents masked per step."""
+    data = lm_batches(markov_tokens(200_000, vocab=vocab, seed=0),
+                      TRAIN_BATCH, TRAIN_SEQ, seed=1)
+    oracle = StragglerOracle(PLACED_AGENTS, PLACED_MASKED, seed=2)
+    out = []
+    for _ in range(PLACED_STEPS):
+        x, y = next(data)
+        mask, _, _ = oracle.next_mask()
+        out.append((x, y, mask_to_weights(mask, TRAIN_BATCH, TRAIN_SEQ)))
+    return out
+
+
+def mirror_step(cfg, tc):
+    """16a's second reference: the placed step's arithmetic in one
+    process. Each agent's block of the batch alone through the loss over
+    the global weight sum, its gradient in the parameters' dtype (bf16),
+    the blocks' gradients summed in f32 and rounded to that dtype, as the
+    placed step's dp all-reduce sums its ranks'; then
+    ``make_train_step``'s clipping, AdamW and update."""
+    opt = make_optimizer(tc)
+
+    def loss_fn(params, batch, denom):
+        logits, aux, _ = apply_model(params, batch["tokens"], cfg,
+                                     mode="train", remat_policy="none")
+        return lm_loss(logits, batch["targets"], batch["weights"], aux,
+                       aux_coef=tc.aux_coef, denom=denom)
+
+    def step(state, batch):
+        params = state["params"]
+        per = batch["tokens"].shape[0] // PLACED_AGENTS
+        denom = torch.clamp(batch["weights"].to(torch.float32).sum(),
+                            min=1.0)
+        loss, total = 0.0, None
+        for a in range(PLACED_AGENTS):
+            blk = {k: v[a * per:(a + 1) * per] for k, v in batch.items()}
+            l, g = value_and_grad(lambda p, b: loss_fn(p, b, denom),
+                                  params, blk)
+            g = tree_map(lambda t: t.to(torch.float32), g)
+            total = g if total is None else tree_map(torch.add, total, g)
+            loss += float(l)
+        grads = tree_map(lambda t, p: t.to(p.dtype), total, params)
+        grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
+        s = int(state["step"])
+        updates, new_opt = opt.update(grads, state["opt"], params, s)
+        return ({"params": apply_updates(params, updates, lr_at(tc, s)),
+                 "opt": new_opt, "step": state["step"] + 1},
+                {"loss": loss, "grad_norm": gnorm})
+
+    return step
+
+
+def placed_reference(tmp, device="cuda"):
+    """16a's references from the same generator's weights and on the same
+    batches: ``make_train_step`` in one process (15a's step) and the
+    mirror of the placed step's arithmetic. The initial parameters and
+    each reference's after every step are saved under ``tmp``. Returns
+    {name: (losses, grad norms, seconds per step)}."""
+    cfg = get_config(SERVE_ARCH)
+    tc = placed_tc("none")
+    makers = {"one": lambda: make_train_step(cfg, tc,
+                                             moe_groups=PLACED_AGENTS),
+              "mirror": lambda: mirror_step(cfg, tc)}
+    out = {}
+    for name, make in makers.items():
+        state = init_state(torch.Generator(device=device).manual_seed(0),
+                           cfg, tc, max_pos=TRAIN_SEQ + 1, device=device)
+        if name == "one":
+            torch.save(mmodel.tree_to(state["params"], "cpu"),
+                       os.path.join(tmp, "p0.pt"))
+        step = make()
+        losses, norms, secs = [], [], []
+        for i, (x, y, w) in enumerate(placed_batches(cfg.vocab_size)):
+            sync(device)
+            t0 = time.perf_counter()
+            state, m = step(state, lm_batch(x, y, w, device))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            secs.append(time.perf_counter() - t0)
+            torch.save(mmodel.tree_to(state["params"], "cpu"),
+                       os.path.join(tmp, f"{name}{i}.pt"))
+        out[name] = (losses, norms, secs)
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def tree_gap(tree, ref, p0, device):
+    """(max |tree - ref|, the share of elements bit-identical,
+    ||tree - ref|| / ||ref - p0||: the gap against ``ref``'s update from
+    ``p0``), in f64."""
+    mx, eq, n, d2, u2 = 0.0, 0, 0, 0.0, 0.0
+    for a, b, p in zip(tree_flatten(tree)[0], tree_flatten(ref)[0],
+                       tree_flatten(p0)[0]):
+        a, b, p = a.to(device), b.to(device), p.to(device)
+        d = a.double() - b.double()
+        mx = max(mx, float(d.abs().max()))
+        eq += int((a == b).sum())
+        n += a.numel()
+        d2 += float(torch.square(d).sum())
+        u2 += float(torch.square(b.double() - p.double()).sum())
+        del d
+    return mx, eq / n, (d2 / u2) ** 0.5
+
+
+def agreed(mesh, tree) -> bool:
+    """Whether ``tree``'s bits are the same on every rank (an all-reduced
+    checksum's minimum and maximum)."""
+    lo = torch.tensor([param_checksum(tree)], dtype=torch.int64,
+                      device=mesh.device)
+    hi = lo.clone()
+    torch.distributed.all_reduce(lo, op=torch.distributed.ReduceOp.MIN)
+    torch.distributed.all_reduce(hi, op=torch.distributed.ReduceOp.MAX)
+    return int(lo) == int(hi)
+
+
+def placed_full_width(mesh, ref_dir):
+    """16a on one rank: the whole state drawn from one generator, placed
+    (memory_allocated before and after), 3 placed steps with remat, the
+    gathered parameters checked across ranks and (rank 0) against the
+    one-process step's."""
+    dev = mesh.device
+    cfg = get_config(SERVE_ARCH)
+    tc = placed_tc("full")
+    full = init_state(torch.Generator(device=dev).manual_seed(0), cfg, tc,
+                      max_pos=TRAIN_SEQ + 1, device=dev)
+    whole = sum(l.numel() * l.element_size() for k in ("params", "opt")
+                for l in tree_flatten(full[k])[0])
+    before = torch.cuda.memory_allocated(dev)
+    state, specs = place_state(full, mesh)
+    placed = torch.cuda.memory_allocated(dev) - before
+    del full
+    torch.cuda.empty_cache()
+    report = state_bytes_per_rank(cfg, tc, mesh.shape,
+                                  max_pos=TRAIN_SEQ + 1)
+    step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS, dp="data",
+                           tp="model", param_specs=specs["params"],
+                           sizes=mesh.shape, mesh=mesh)
+    losses, norms, secs, gaps = [], [], [], {}
+    p0 = torch.load(os.path.join(ref_dir, "p0.pt")) if mesh.rank == 0 \
+        else None
+    for i, (x, y, w) in enumerate(placed_batches(cfg.vocab_size)):
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, lm_batch(x, y, w, dev))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+        params = gather_tree(state["params"], specs["params"], mesh)
+        if mesh.rank == 0:
+            for ref in ("one", "mirror"):
+                gaps[ref, i] = tree_gap(params, torch.load(
+                    os.path.join(ref_dir, f"{ref}{i}.pt")), p0, dev)
+    same = agreed(mesh, params)
+    out = dict(placed=placed, whole=whole, report=report, losses=losses,
+               norms=norms, secs=secs, peak=step.placement.peak_bytes,
+               same=same, gaps=gaps)
+    del state, params, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def placed_twin(mesh):
+    """16b on one rank: reduced qwen2-0.5b (2 layers, f32, SGD with
+    momentum, remat) from CPU-drawn weights, placed on ``mesh``, 3 steps;
+    (losses, the gathered parameter leaves, agreed by all ranks)."""
+    dev = mesh.device
+    cfg = dataclasses.replace(get_config(SERVE_ARCH).reduced(),
+                              n_layers=GENERAL_LAYERS)
+    tc = TrainConfig(mode="masked", optimizer="sgdm", lr=3e-2,
+                     remat_policy="full")
+    state = init_state(torch.Generator().manual_seed(0), cfg, tc,
+                       max_pos=TRAIN_SEQ + 1, device="cpu")
+    state = {k: mmodel.tree_to(v, dev) if k != "step" else v
+             for k, v in state.items()}
+    state, specs = place_state(state, mesh)
+    step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS, dp="data",
+                           tp="model", param_specs=specs["params"],
+                           sizes=mesh.shape, mesh=mesh)
+    losses = []
+    for x, y, w in placed_batches(cfg.vocab_size):
+        state, m = step(state, lm_batch(x, y, w, dev))
+        losses.append(float(m["loss"]))
+    params = gather_tree(state["params"], specs["params"], mesh)
+    if not agreed(mesh, params):
+        raise AssertionError("16b: gathered parameters differ across ranks")
+    return losses, [l.cpu().numpy() for l in tree_flatten(params)[0]]
+
+
+def placed_card_rank(rank, world, ref_dir, device="cuda"):
+    """A rank of 16a and 16b on the card (gloo, 4 ranks)."""
+    card_flags()
+    out = placed_full_width(make_test_mesh(data=world, model=1,
+                                           device=device), ref_dir)
+    out["twin"] = placed_twin(make_test_mesh(data=2, model=2,
+                                             device=device))
+    return out
+
+
+def placed_cpu_rank(rank, world):
+    """A rank of 16b on the CPU (gloo, 4 ranks, data 2 x model 2)."""
+    return placed_twin(make_test_mesh(data=2, model=2, device="cpu"))
+
+
+def drive_placed(device="cuda"):
+    """16a-16b from the parent."""
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        refs = placed_reference(tmp, device)
+        t0 = time.perf_counter()
+        res = run_ranks(placed_card_rank, SPMD_RANKS, backend="gloo",
+                        device=device, timeout=SPMD_TIMEOUT,
+                        args=(tmp, device), threads=CORES // SPMD_RANKS)
+        card_s = time.perf_counter() - t0
+    r0 = res[0]
+    log(f"  16a: {SERVE_ARCH} at full width on {SPMD_RANKS} gloo ranks "
+        f"sharing the card (data = {SPMD_RANKS}), {card_s:.1f} s with "
+        f"start-up and 16b")
+    for r, o in enumerate(res):
+        log(f"    rank {r}: parameters and moments {o['placed']:,} B after "
+            f"placement (memory_allocated), meta-device report "
+            f"{o['report']['total']:,} B (params {o['report']['params']:,}, "
+            f"moments {o['report']['opt']:,}), replicated state "
+            f"{o['whole']:,} B: {o['placed'] / o['whole']:.4f} of it; peak "
+            f"gathered weights {o['peak']:,} B")
+    log(f"    placed: losses {r0['losses']}, grad norms {r0['norms']}, s "
+        f"per step " + ", ".join(f"{s:.2f}" for s in r0["secs"]))
+    for name, (losses, norms, secs) in refs.items():
+        log(f"    {name:6s}: losses {losses}, grad norms {norms}, ms per "
+            f"step " + ", ".join(f"{s * 1e3:.1f}" for s in secs))
+    log(f"    gathered parameters identical on every rank: "
+        f"{all(o['same'] for o in res)}")
+    for (ref, i), (mx, eq, rel) in sorted(r0["gaps"].items()):
+        log(f"    after step {i + 1}, placed vs {ref:6s}: max |diff| "
+            f"{mx:.3e}, {eq:.4f} bit-identical, ||diff|| / ||update|| "
+            f"{rel:.3e}" + (f" (bound {PLACED_UPDATE_REL})" if ref == "one"
+                            else ""))
+    for r, o in enumerate(res):
+        if abs(o["placed"] - o["report"]["total"]) > \
+                PLACED_BYTES_REL * o["report"]["total"]:
+            raise AssertionError(f"16a rank {r}: {o['placed']} B placed, "
+                                 f"the report says {o['report']['total']}")
+        if not 0.24 < o["placed"] / o["whole"] < 0.26:
+            raise AssertionError(f"16a rank {r}: holds {o['placed']} of "
+                                 f"{o['whole']} B, not a quarter")
+    if not all(o["same"] for o in res):
+        raise AssertionError("16a: gathered parameters differ across ranks")
+    for (ref, i), (mx, eq, rel) in r0["gaps"].items():
+        if ref == "mirror" and not (mx == 0.0 and eq == 1.0):
+            raise AssertionError(f"16a step {i + 1}: the placed step is not "
+                                 f"the mirror's arithmetic (max |diff| {mx})")
+        if ref == "one" and not rel <= PLACED_UPDATE_REL:
+            raise AssertionError(f"16a step {i + 1}: ||diff|| / ||update|| "
+                                 f"{rel} against the one-process step")
+    if not np.isfinite(r0["losses"]).all():
+        raise AssertionError(f"16a: losses {r0['losses']}")
+    np.testing.assert_allclose(r0["losses"], refs["mirror"][0],
+                               **PLACED_METRIC_TOL)
+    np.testing.assert_allclose(r0["norms"], refs["mirror"][1],
+                               **PLACED_METRIC_TOL)
+    np.testing.assert_allclose(r0["losses"], refs["one"][0], rtol=1e-2)
+
+    t0 = time.perf_counter()
+    cpu = run_ranks(placed_cpu_rank, SPMD_RANKS, backend="gloo",
+                    device="cpu", timeout=SPMD_TIMEOUT,
+                    threads=CORES // SPMD_RANKS)
+    cpu_s = time.perf_counter() - t0
+    (card_l, card_p), (cpu_l, cpu_p) = r0["twin"], cpu[0]
+    np.testing.assert_allclose(card_l, cpu_l, **TWIN_TOL)
+    err = 0.0
+    for a, b in zip(card_p, cpu_p):
+        np.testing.assert_allclose(a, b, **TWIN_TOL)
+        err = max(err, float(np.max(np.abs(a - b))))
+    for o in res[1:]:
+        for a, b in zip(o["twin"][1], card_p):
+            np.testing.assert_array_equal(a, b)
+    log(f"  16b: reduced {SERVE_ARCH} (f32, {GENERAL_LAYERS} layers, remat) "
+        f"placed on data 2 x model 2, {PLACED_STEPS} steps: losses "
+        f"{[round(l, 5) for l in card_l]}; card vs {SPMD_RANKS} CPU ranks "
+        f"({cpu_s:.1f} s) max |param diff| {err:.2e} (tolerance "
+        f"{TWIN_TOL['atol']:.0e})")
+
+
+@torch.no_grad()
+def drive_launch_serve(device="cuda"):
+    """16c: ``greedy_generate`` at full width against ``ServeEngine.run``
+    on the same prompts, decode launches counted; the prefill and decode
+    steps under an activation policy against the policy-free calls."""
+    cfg = get_config(SERVE_ARCH)
+    params = init_model(torch.Generator(device=device).manual_seed(0), cfg,
+                        device=device)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (GREEDY_PROMPTS, GREEDY_PROMPT_LEN)).astype(
+            np.int32)
+    max_len = GREEDY_PROMPT_LEN + GREEDY_NEW
+    greedy_generate(params, cfg, prompts[:1, :8], max_len=max_len, steps=2,
+                    page_size=GREEDY_PAGE, device=device)       # warm-up
+    dattn.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    out = greedy_generate(params, cfg, torch.from_numpy(prompts).to(device),
+                          max_len=max_len, steps=GREEDY_NEW,
+                          page_size=GREEDY_PAGE, device=device)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dattn.LAUNCHES["paged_flash_decode"]
+    per_seq = -(-max_len // GREEDY_PAGE)
+    eng = ServeEngine(params, cfg, PagedCacheConfig(
+        num_slots=GREEDY_PROMPTS, page_size=GREEDY_PAGE,
+        num_pages=GREEDY_PROMPTS * per_seq + 1, max_pages_per_seq=per_seq),
+        superstep_k=8, device=device)
+    rids = [eng.submit(p, GREEDY_NEW) for p in prompts]
+    probe = StepProbe()
+    ref = checked_drain(eng, after_step=probe)
+    same = all(np.array_equal(out[i, GREEDY_PROMPT_LEN:].cpu().numpy(),
+                              ref[rid]) for i, rid in enumerate(rids))
+    steps = eng.stats["decode_steps"]
+    log(f"  16c: greedy_generate, {SERVE_ARCH} at full width, "
+        f"{GREEDY_PROMPTS} prompts of {GREEDY_PROMPT_LEN} tokens, "
+        f"{GREEDY_NEW} new each: {wall:.2f} s, "
+        f"{GREEDY_PROMPTS * GREEDY_NEW / wall:.1f} tok/s; paged_flash_decode "
+        f"launched {launches} times = {gqa_layers(cfg)} layers x {steps} "
+        f"decode steps: {launches == gqa_layers(cfg) * steps}; tokens equal "
+        f"ServeEngine.run's: {same}; the kernel on that engine's pools and "
+        f"table after steps {probe.at}, every layer, against "
+        f"paged_decode_plain: max |err| {max(probe.errs):.3e}")
+    if tuple(out.shape) != (GREEDY_PROMPTS, max_len) or not same or \
+            launches != gqa_layers(cfg) * steps or steps != GREEDY_NEW - 1 \
+            or len(probe.errs) != len(probe.at) * gqa_layers(cfg):
+        raise AssertionError(f"16c: shape {tuple(out.shape)}, streams equal "
+                             f"{same}, {launches} launches, {steps} steps")
+
+    policy = dict(dp="data", tp="model", sizes={"data": SPMD_RANKS,
+                                                "model": 1})
+    batch = {"tokens": torch.from_numpy(prompts).to(device)}
+    recs = {"prefill": [], "decode": []}
+    with act_policy(None, None, recorder=recs["prefill"]):
+        tok, cache = make_prefill_step(cfg, **policy)(params, batch)
+    tok0, cache0 = make_prefill_step(cfg)(params, batch)
+    dense = [dense_cache(cfg, c, GREEDY_PROMPTS, GREEDY_PROMPT_LEN + 1,
+                         device) for c in (cache, cache0)]
+    pos = torch.tensor(GREEDY_PROMPT_LEN, dtype=torch.int32)
+    with act_policy(None, None, recorder=recs["decode"]):
+        nxt, _ = make_decode_step(cfg, **policy)(
+            params, {"tokens": tok[:, None], "cache": dense[0], "pos": pos})
+    nxt0, _ = make_decode_step(cfg)(
+        params, {"tokens": tok0[:, None], "cache": dense[1], "pos": pos})
+    kinds = {m: sorted({k for k, _, _ in r}) for m, r in recs.items()}
+    log(f"  16c: make_prefill_step / make_decode_step under act_policy"
+        f"({policy}): tokens {tok.tolist()} / {nxt.tolist()}, equal to the "
+        f"policy-free calls': {torch.equal(tok, tok0)} / "
+        f"{torch.equal(nxt, nxt0)}; constraint points recorded by an "
+        f"enclosing recorder: " + ", ".join(
+            f"{m} {len(r)} ({len(set(r))} distinct, kinds {kinds[m]})"
+            for m, r in recs.items()))
+    if not (torch.equal(tok, tok0) and torch.equal(nxt, nxt0)) or \
+            tok.dtype != torch.int32:
+        raise AssertionError("16c: the steps' tokens differ under a policy")
+    want = {"prefill": ["act", "ffn", "heads4", "logits"],
+            "decode": ["act", "ffn", "hd_tp", "logits"]}
+    for m, r in recs.items():
+        if kinds[m] != want[m] or any(spec[0] != "data" for _, _, spec in r):
+            raise AssertionError(f"16c {m}: the step's policy did not reach "
+                                 f"the model: {sorted(set(r))}")
+    del params, eng, cache, cache0, dense
+    torch.cuda.empty_cache()
+    return launches
+
+
+def example_main(name, argv):
+    """``examples/<name>.py``'s ``main(argv)`` in this process; its lines
+    logged indented."""
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        lines = mod.main(argv)
+    log(f"  {name} {' '.join(argv)} ({time.perf_counter() - t0:.1f} s):")
+    for line in "\n".join(lines).splitlines():
+        log(f"    {line}")
+    return lines
+
+
+@contextlib.contextmanager
+def caught_runs():
+    """Every ``AsyncEngine.run`` history inside the block, in call order,
+    appended to the list it yields."""
+    runs, run = [], AsyncEngine.run
+
+    def caught(self, iters):
+        h = run(self, iters)
+        runs.append(h)
+        return h
+
+    AsyncEngine.run = caught
+    try:
+        yield runs
+    finally:
+        AsyncEngine.run = run
+
+
+def drive_examples():
+    """16d: the three example twins on the card at their defaults; the
+    Byzantine one again on the device backend, its 9 runs held to the
+    host backend's (the same events, ||x - x*|| within
+    ``EXAMPLE_DIST_TOL`` at every iteration); the serving one again on
+    the CPU, where the decode is its plain form, the streams equal.
+    Returns the kernel launches of the card's runs."""
+    counts = dict.fromkeys(("paged_flash_decode", "masked_cge_reduce",
+                            "trimmed_mean_tiled"), 0)
+    example_main("torch_quickstart", [])
+    with caught_runs() as host:
+        example_main("torch_byzantine_cge", [])
+    agg.reset_launches()
+    with caught_runs() as dev:
+        example_main("torch_byzantine_cge", ["--agg-backend", "device"])
+    for k in ("masked_cge_reduce", "trimmed_mean_tiled"):
+        counts[k] = agg.LAUNCHES[k]
+    worst = 0.0
+    for h, d in zip(host, dev, strict=True):
+        if d.n_rx != h.n_rx or d.comm_time != h.comm_time:
+            raise AssertionError("16d: the device backend's events differ "
+                                 "from the host backend's")
+        np.testing.assert_allclose(d.dist, h.dist, **EXAMPLE_DIST_TOL)
+        worst = max(worst, float(np.max(np.abs(np.subtract(d.dist,
+                                                           h.dist)))))
+    log(f"  16d: the device backend's {len(dev)} runs against the host "
+        f"backend's: the same events, max | ||x - x*|| diff | {worst:.3e} "
+        f"over every iteration (tolerance {EXAMPLE_DIST_TOL})")
+    dattn.reset_launches()
+    card = example_main("torch_serve_lm", [])
+    counts["paged_flash_decode"] = dattn.LAUNCHES["paged_flash_decode"]
+    cpu = example_main("torch_serve_lm", ["--device", "cpu"])
+    # every line but the first, which times the run: stats and streams
+    same = card[1:] == cpu[1:]
+    streams = [l for l in card if l.lstrip().startswith("req ")]
+    log(f"  16d: torch_serve_lm's engine stats and {len(streams)} streams "
+        f"on the card equal the CPU's: {same}")
+    log(f"  16d launches: {counts}")
+    if not (same and streams):
+        raise AssertionError("16d: torch_serve_lm's streams differ between "
+                             "the card and the CPU")
+    if not all(counts.values()):
+        raise AssertionError(f"16d: a kernel was not launched: {counts}")
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3463,7 +4047,20 @@ def main() -> int:
     log(f"  phase 15 in {time.perf_counter() - t15:.1f} s, kernel launches "
         f"{c15}")
 
-    log("== 16. result")
+    t16 = time.perf_counter()
+    log(f"== 16a-16b. the placed (FSDP) masked step on {SPMD_RANKS} ranks")
+    drive_placed()
+    log("== 16c. launch.serve: greedy_generate and the serving steps")
+    c16 = {"paged_flash_decode": drive_launch_serve()}
+    log("== 16d. the example twins on the card")
+    for k, c in drive_examples().items():
+        c16[k] = c16.get(k, 0) + c
+    for k, c in c16.items():
+        counts[k] += c
+    log(f"  phase 16 in {time.perf_counter() - t16:.1f} s, kernel launches "
+        f"{c16}")
+
+    log("== 17. result")
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

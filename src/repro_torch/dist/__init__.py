@@ -8,8 +8,11 @@
 - ``repro_torch.dist.collectives``  SPMD twins of the reference rules on
   ``torch.distributed`` (all-reduce only).
 - ``repro_torch.dist.sharding``     logical-axis -> mesh-axis resolution
-  (``MeshRules``) and the per-dim axis specs of trees, batches and
-  caches.
+  (``MeshRules``), the per-dim axis specs of trees, batches and caches,
+  and the storage of a tree by its specs (shard, gather, ``Placement``).
+- ``repro_torch.dist.act_sharding`` the models' activation constraint
+  points (``constrain``, ``act_policy``) and the storage -> compute
+  gather (``constrain_tree``).
 """
 from repro_torch.dist import registry  # noqa: F401
 from repro_torch.dist.registry import (AggregationRule, get_rule,  # noqa: F401

@@ -18,9 +18,12 @@ Placement by leaf name, as the reference's:
 - embeddings ("tok"): vocab <- fsdp, d_model <- tp
 - norms / biases / scalars: replicated
 
-The port places no training parameter by these specs yet (its train
-meshes replicate parameters); the serving engine splits its page pools
-by ``cache_specs``' kv-head rule applied to its mesh's own extents
+The placed train step stores each leaf of its state as this rank's
+block under these specs (:func:`shard_tree`; :func:`gather_tree` is the
+inverse) and gathers blocks whole for compute (:class:`Placement`, the
+gather ``act_sharding.constrain_tree`` runs); :func:`bytes_per_rank`
+counts what a rank holds. The serving engine splits its page pools by
+``cache_specs``' kv-head rule applied to its mesh's own extents
 (``kv_head_block``), and ``serve_tp`` carries the mesh and that block to
 the attention code.
 """
@@ -28,8 +31,12 @@ from __future__ import annotations
 
 import dataclasses
 import fnmatch
+import math
 import threading
-from typing import Any, Dict, Optional, Tuple
+import weakref
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 Tree = Any
 
@@ -306,3 +313,204 @@ def cache_specs(rules: MeshRules, cache: Tree,
         return tuple(dims)
 
     return _map_with_path(spec, cache)
+
+
+# ---------------------------------------------------------------------------
+# storage: this rank's block of each leaf, and the way back
+#
+# A spec entry splits its dimension into equal blocks over its axes,
+# row-major in the order the entry lists them (JAX's PartitionSpec
+# layout); axes the mesh lacks, or of size 1, do not split. Every entry
+# ``tree_specs`` keeps divides its dimension, so blocks are even.
+#
+# Every collective is an all-reduce. A gather writes the bytes of this
+# rank's block into a zero byte buffer of the whole leaves and sums the
+# bytes (uint8) over the mesh: a byte plus zeros is that byte, so every
+# bit pattern comes back whatever the order of the sum, NaN payloads
+# included (a float sum keeps ``-0.0`` pads exact but not NaNs: gloo's
+# bf16 sum returns one canonical NaN, and an f32 sum quiets a signalling
+# one). Only the ranks at coordinate 0 of every axis a leaf is
+# replicated over write it, so no block is counted twice, and all of a
+# call's leaves, of any dtype, travel in one all-reduce.
+
+ALIGN = 16          # byte offset of each leaf in a gather's buffer
+
+
+def _split_axes(entry, mesh) -> Tuple[str, ...]:
+    """The axes of a spec entry that split its dimension on ``mesh``."""
+    return tuple(a for a in _used(entry) if mesh.shape.get(a, 1) > 1)
+
+
+def block_slices(spec, shape, mesh) -> Tuple[slice, ...]:
+    """This rank's block of a leaf of ``shape`` stored under ``spec``."""
+    out = []
+    for entry, dim in zip(tuple(spec) + (None,) * len(shape), shape):
+        axes = _split_axes(entry, mesh)
+        n = mesh.axis_size(axes)
+        if dim % n:
+            raise ValueError(f"spec entry {entry!r} splits {dim} into "
+                             f"{n} uneven blocks")
+        size = dim // n
+        start = mesh.axis_index(axes) * size
+        out.append(slice(start, start + size))
+    return tuple(out)
+
+
+def _spec_axes(spec, mesh) -> Tuple[str, ...]:
+    return tuple(a for e in spec for a in _split_axes(e, mesh))
+
+
+def _zip_specs(tree, specs):
+    """(leaf, spec) pairs in ``tree``'s leaf order (dict keys sorted);
+    the structure is read from ``tree``, so spec tuples stay leaves."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _zip_specs(tree[k], specs[k])
+    elif isinstance(tree, (list, tuple)):
+        for t, sp in zip(tree, specs):
+            yield from _zip_specs(t, sp)
+    elif tree is not None:
+        yield tree, tuple(specs)
+
+
+def shard_tree(tree: Tree, specs: Tree, mesh) -> Tree:
+    """This rank's block of every leaf (a contiguous copy)."""
+    out = [leaf[block_slices(sp, leaf.shape, mesh)].clone(
+               memory_format=torch.contiguous_format)
+           for leaf, sp in _zip_specs(tree, specs)]
+    return _rebuild(tree, iter(out))
+
+
+def _contributes(spec, mesh) -> bool:
+    """Whether this rank adds its block of a leaf to a gather: it sits at
+    coordinate 0 of every mesh axis the leaf is replicated over."""
+    used, c = set(_spec_axes(spec, mesh)), mesh.coords()
+    return all(c[a] == 0 for a in mesh.axis_names if a not in used)
+
+
+def _gather_leaves(leaves: Sequence[torch.Tensor], specs, full_shapes,
+                   mesh) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """Whole leaves from this rank's blocks; a leaf no axis splits comes
+    back as it is. Returns (leaves, the byte buffer the others view, or
+    None where no leaf is split)."""
+    out: List[Optional[torch.Tensor]] = list(leaves)
+    idx = [i for i, sp in enumerate(specs) if _spec_axes(sp, mesh)]
+    if not idx:
+        return out, None
+    offs, n = [], 0
+    for i in idx:
+        offs.append(n)
+        n += -(-math.prod(full_shapes[i]) * leaves[i].element_size()
+               // ALIGN) * ALIGN
+    flat = torch.zeros(n, dtype=torch.uint8, device=leaves[idx[0]].device)
+
+    def view(buf, i, off):
+        size = math.prod(full_shapes[i]) * leaves[i].element_size()
+        return buf[off:off + size].view(leaves[i].dtype).view(
+            full_shapes[i])
+
+    for i, off in zip(idx, offs):
+        if _contributes(specs[i], mesh):
+            view(flat, i, off)[block_slices(specs[i], full_shapes[i],
+                                            mesh)] = leaves[i]
+    flat = mesh.all_reduce(flat, mesh.axis_names)
+    for i, off in zip(idx, offs):
+        out[i] = view(flat, i, off)
+    return out, flat
+
+
+def full_shape(spec, local_shape, mesh) -> Tuple[int, ...]:
+    """The whole leaf's shape from this rank's block's."""
+    return tuple(d * mesh.axis_size(_split_axes(e, mesh))
+                 for e, d in zip(tuple(spec) + (None,) * len(local_shape),
+                                 local_shape))
+
+
+def gather_tree(tree: Tree, specs: Tree, mesh) -> Tree:
+    """The inverse of :func:`shard_tree`: every leaf whole on every rank,
+    bit for bit (every rank must call it)."""
+    pairs = list(_zip_specs(tree, specs))
+    leaves = [l for l, _ in pairs]
+    sp = [s for _, s in pairs]
+    shapes = [full_shape(s, l.shape, mesh) for l, s in pairs]
+    out, _ = _gather_leaves(leaves, sp, shapes, mesh)
+    return _rebuild(tree, iter(out))
+
+
+def bytes_per_rank(tree: Tree, specs: Tree, sizes: Dict[str, int]) -> int:
+    """Bytes of ``tree``'s leaves one rank holds under ``specs`` on a mesh
+    of axis ``sizes`` (shapes only: meta tensors do)."""
+    total = 0
+    for leaf, sp in _zip_specs(tree, specs):
+        n = math.prod(leaf.shape)
+        for e in sp:
+            n //= math.prod(sizes.get(a, 1) for a in _used(e))
+        total += n * leaf.element_size()
+    return total
+
+
+class _Gather(torch.autograd.Function):
+    """Storage blocks -> whole leaves (one all-reduce of bytes); the
+    backward all-reduces the whole gradients over the dp axes only (the
+    model ranks computed the same gradient), adds each reduced leaf's
+    squared norm to the placement's record, and returns this rank's
+    block of each."""
+
+    @staticmethod
+    def forward(ctx, plc, specs, *leaves):
+        ctx.plc, ctx.specs, ctx.device = plc, specs, leaves[0].device
+        ctx.dtypes = [l.dtype for l in leaves]
+        shapes = [full_shape(s, l.shape, plc.mesh)
+                  for l, s in zip(leaves, specs)]
+        ctx.full = shapes
+        out, flat = _gather_leaves(leaves, specs, shapes, plc.mesh)
+        if flat is not None:
+            plc._hold(flat)
+        return tuple(o if o is not l else l.view_as(l)
+                     for o, l in zip(out, leaves))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plc = ctx.plc
+        full = [torch.zeros(s, dtype=torch.float32, device=ctx.device)
+                if g is None else g.to(torch.float32)
+                for g, s in zip(grads, ctx.full)]
+        sizes = [math.prod(s) for s in ctx.full]
+        flat = plc.mesh.all_reduce(torch.cat([g.reshape(-1) for g in full]),
+                                   plc.dp)
+        out = []
+        for g, s, sp, dtype in zip(torch.split(flat, sizes), ctx.full,
+                                   ctx.specs, ctx.dtypes):
+            g = g.view(s).to(dtype)
+            plc.sq_norms.append(torch.sum(torch.square(g.to(torch.float32))))
+            out.append(g[block_slices(sp, s, plc.mesh)].contiguous())
+        return (None, None) + tuple(out)
+
+
+class Placement:
+    """The gather of a placed train step on ``mesh`` with dp axes ``dp``:
+    :meth:`gather` is what ``act_sharding.constrain_tree`` runs under
+    ``act_sharding.placement``. It records the squared norm of every
+    dp-reduced whole gradient leaf as its backward sees it
+    (``sq_norms``), and the most bytes of gathered leaves alive at once
+    (``peak_bytes``)."""
+
+    def __init__(self, mesh, dp: Tuple[str, ...]):
+        self.mesh, self.dp = mesh, tuple(dp)
+        self.sq_norms: List[torch.Tensor] = []
+        self.live_bytes = self.peak_bytes = 0
+
+    def _hold(self, flat: torch.Tensor) -> None:
+        n = flat.numel() * flat.element_size()
+        self.live_bytes += n
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        weakref.finalize(flat.untyped_storage(), self._release, n)
+
+    def _release(self, n: int) -> None:
+        self.live_bytes -= n
+
+    def gather(self, tree: Tree, specs: Tree) -> Tree:
+        pairs = list(_zip_specs(tree, specs))
+        out = _Gather.apply(self, tuple(s for _, s in pairs),
+                            *(l for l, _ in pairs))
+        return _rebuild(tree, iter(out))

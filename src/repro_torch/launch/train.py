@@ -7,7 +7,12 @@ Two paths:
    weights. The host (straggler oracle / telemetry) zeroes the weights
    of the r masked agents' examples, so their gradients vanish from the
    one bulk gradient: dropping a straggler costs no extra collective.
-   One process, no mesh.
+   One process, or, *placed* (``param_specs=``), every rank of a mesh:
+   the reference's FSDP storage (each rank holds its block of every
+   parameter and moment, ``place_state``), each period's parameters
+   gathered just before it runs, the gradients reduced back to the
+   blocks by the gather's backward. Compute stays replicated over the
+   model axes: every rank gathers its blocks whole.
 
 2. ``general`` (:func:`make_general_step`, every rank of a mesh whose dp
    axes carry one agent per rank): per-agent gradients per dp rank,
@@ -28,9 +33,12 @@ Every entry point runs on the card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import ctypes.util
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -40,11 +48,16 @@ from repro_torch.core.ledger import (layout_of, ledger_zeros, tree_flatten,
                                      tree_map, tree_unflatten)
 from repro_torch.device import resolve as resolve_device
 from repro_torch.dist import collectives as C
+from repro_torch.dist.act_sharding import _norm_axes, act_policy, placement
 from repro_torch.dist.registry import resolve_mode
+from repro_torch.dist.sharding import (MeshRules, Placement, batch_specs,
+                                       block_slices, bytes_per_rank,
+                                       shard_tree, tree_specs)
 from repro_torch.launch.mesh import dp_axis_names, n_agents_of
 from repro_torch.models.model import apply_model, init_model, lm_loss
 from repro_torch.optim.optimizers import (adamw, apply_updates,
-                                          clip_by_global_norm, sgd)
+                                          clip_by_global_norm, clip_to_norm,
+                                          sgd)
 
 Tree = Any
 
@@ -66,8 +79,28 @@ class TrainConfig:
     logits_fp32: bool = False
 
 
+def _load_cosf():
+    name = ctypes.util.find_library("m")
+    if name is None:
+        raise OSError("the C math library (libm) was not found: lr_at's "
+                      "cosine needs its cosf")
+    fn = ctypes.CDLL(name).cosf
+    fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    return fn
+
+
+_cosf = _load_cosf()
+
+
 def lr_at(tc: TrainConfig, step) -> float:
-    """The step size at ``step``, computed in f32 as the reference's."""
+    """The step size at ``step``, bit for bit the reference's f32 value.
+
+    Every operation rounds to f32 as the reference's does. Its cosine is
+    XLA's f32 ``cos``, which on the CPU gives the C library's ``cosf``
+    bit for bit; numpy's and torch's f32 cosines are other polynomials
+    (each differs from it at some arguments by a few ulps, up to tens
+    near the horizon, where 1 + cos cancels). So the cosine here is
+    ``cosf`` itself, called on the f32 argument."""
     f32 = np.float32
     s = f32(int(step))
     if tc.lr_kind == "inv_t":
@@ -76,7 +109,8 @@ def lr_at(tc: TrainConfig, step) -> float:
         frac = np.clip((s - f32(tc.warmup))
                        / f32(max(tc.lr_total - tc.warmup, 1)),
                        f32(0.0), f32(1.0))
-        base = f32(0.5 * tc.lr) * (f32(1.0) + np.cos(f32(math.pi) * frac))
+        cos = f32(_cosf(f32(math.pi) * frac))
+        base = f32(0.5 * tc.lr) * (f32(1.0) + cos)
     else:
         base = f32(tc.lr)
     if tc.warmup and s < tc.warmup:
@@ -123,18 +157,72 @@ def init_state(generator, cfg: ArchConfig, tc: TrainConfig,
     return state
 
 
+def abstract_state(cfg: ArchConfig, tc: TrainConfig, max_pos: int = 32768,
+                   n_agents: int = 1) -> Dict[str, Tree]:
+    """``init_state`` on the meta device: every leaf's shape and dtype,
+    no storage, no generator draws (the reference's ``jax.eval_shape``)."""
+    return init_state(None, cfg, tc, max_pos=max_pos, n_agents=n_agents,
+                      device="meta")
+
+
+# ---------------------------------------------------------------------------
+# placement of the train state (the reference's FSDP storage)
+
+
+def state_rules(mesh_shape: Dict[str, int]) -> MeshRules:
+    """The storage rules of a mesh of axis sizes ``mesh_shape``: the
+    reference's defaults (fsdp over "data", tp over "model")."""
+    return MeshRules(axis_sizes=dict(mesh_shape))
+
+
+def place_state(state: Dict[str, Tree], mesh) -> Tuple[Dict[str, Tree],
+                                                       Dict[str, Tree]]:
+    """(this rank's block of every leaf of ``state``, the specs):
+    ``tree_specs(state, state_rules(mesh.shape))``, under which
+    parameters, AdamW moments and SGD momentum share each parameter's
+    spec. ``dist.sharding.gather_tree`` is the way back."""
+    specs = tree_specs(state, state_rules(mesh.shape))
+    return shard_tree(state, specs, mesh), specs
+
+
+def state_bytes_per_rank(cfg: ArchConfig, tc: TrainConfig,
+                         sizes: Dict[str, int],
+                         max_pos: int = 32768) -> Dict[str, int]:
+    """Bytes of parameters and optimizer moments one rank holds under the
+    storage specs (:func:`state_rules`) on a mesh of axis ``sizes``,
+    beside the whole state's: from :func:`abstract_state` on the meta
+    device, no allocation, for any config and mesh."""
+    state = abstract_state(cfg, tc, max_pos=max_pos)
+    specs = tree_specs(state, state_rules(sizes))
+    out = {k: bytes_per_rank(state[k], specs[k], sizes)
+           for k in ("params", "opt")}
+    out["total"] = out["params"] + out["opt"]
+    out["whole"] = sum(bytes_per_rank(state[k], specs[k], {})
+                       for k in ("params", "opt"))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # loss
 
 
-def make_loss_fn(cfg: ArchConfig, tc: TrainConfig, moe_groups: int):
+def _policy(dp, tp, sizes):
+    return (act_policy(dp, tp, sizes) if (dp is not None or tp is not None)
+            else contextlib.nullcontext())
+
+
+def make_loss_fn(cfg: ArchConfig, tc: TrainConfig, moe_groups: int,
+                 dp=None, tp=None, sizes=None):
+    """The reference's loss (``lm_loss`` of a train forward), under
+    ``act_policy(dp, tp, sizes)`` where dp or tp is given."""
     def loss_fn(params, batch):
-        logits, aux, _ = apply_model(
-            params, batch["tokens"], cfg, mode="train",
-            enc_embed=batch.get("enc_embed"), moe_groups=moe_groups,
-            remat_policy=tc.remat_policy)
-        return lm_loss(logits, batch["targets"], batch["weights"], aux,
-                       aux_coef=tc.aux_coef)
+        with _policy(dp, tp, sizes):
+            logits, aux, _ = apply_model(
+                params, batch["tokens"], cfg, mode="train",
+                enc_embed=batch.get("enc_embed"), moe_groups=moe_groups,
+                remat_policy=tc.remat_policy)
+            return lm_loss(logits, batch["targets"], batch["weights"], aux,
+                           aux_coef=tc.aux_coef)
     return loss_fn
 
 
@@ -154,14 +242,29 @@ def value_and_grad(loss_fn, params, batch):
 # masked fast path
 
 
-def make_train_step(cfg: ArchConfig, tc: TrainConfig,
-                    moe_groups: int = 1) -> Callable:
+def make_train_step(cfg: ArchConfig, tc: TrainConfig, moe_groups: int = 1,
+                    dp=None, tp=None, param_specs=None, sizes=None,
+                    mesh=None) -> Callable:
     """Algorithm 1 / synchronous step: ``step(state, batch) -> (state,
     {"loss", "grad_norm"})``. ``batch["weights"]`` carries the agent mask
-    (zeros for dropped stragglers)."""
+    (zeros for dropped stragglers). ``dp``, ``tp`` and ``sizes`` install
+    the activation policy (``dist.act_sharding``) around the forward.
+
+    With ``param_specs`` (the parameters' storage specs, ``place_state``'s
+    ``specs["params"]``) the step is *placed* on ``mesh``: called on every
+    rank with the same global batch and this rank's blocks of the state
+    (``place_state``), it takes its dp block of the batch, gathers the
+    parameters period by period and returns this rank's blocks of the new
+    state. The reference passes its compute layout here and lets GSPMD
+    derive storage from the state's shardings; the port has no
+    partitioner, so the gather reads the storage specs, and its compute
+    layout is whole on every rank."""
     resolve_mode(tc.mode)               # fail fast on unknown modes
     opt = make_optimizer(tc)
-    loss_fn = make_loss_fn(cfg, tc, moe_groups)
+    if param_specs is not None:
+        return _make_placed_step(cfg, tc, moe_groups, opt, dp, tp,
+                                 param_specs, sizes, mesh)
+    loss_fn = make_loss_fn(cfg, tc, moe_groups, dp=dp, tp=tp, sizes=sizes)
 
     def step(state, batch):
         if tc.accum_steps > 1:
@@ -198,6 +301,89 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig,
                 new_state[key] = state[key]
         return new_state, {"loss": loss, "grad_norm": gnorm}
 
+    return step
+
+
+def _make_placed_step(cfg, tc, moe_groups, opt, dp, tp, param_specs, sizes,
+                      mesh) -> Callable:
+    """The masked step on every rank of ``mesh`` over FSDP storage.
+
+    - The loss is the global one split by rank: ``sum_local(w * xent) /
+      max(sum_all(w), 1)``, the weight sum all-reduced over dp before the
+      backward, and MoE's aux (a mean over dispatch groups) scaled by
+      this rank's share of the groups; the gradients summed over dp are
+      then the global gradient.
+    - The gather's backward holds each dp-reduced gradient leaf whole for
+      a moment before slicing; the global norm for clipping is taken
+      there, the same on every rank with no further collective (on a
+      one-rank mesh, where the blocks are whole, from the blocks as
+      ``make_train_step`` takes it).
+    - The optimizer and ``apply_updates`` are elementwise, so they run on
+      the blocks as they are."""
+    if mesh is None:
+        raise ValueError("param_specs places the step on a mesh: pass mesh=")
+    if tc.accum_steps > 1:
+        raise NotImplementedError(
+            "the placed step takes its global norm from one backward; "
+            "microbatch accumulation (accum_steps > 1) is not placed")
+    dp_axes = _norm_axes(dp) if dp is not None else dp_axis_names(mesh)
+    n_dp = mesh.axis_size(dp_axes)
+    if cfg.moe is not None and moe_groups % n_dp:
+        raise ValueError(f"moe_groups={moe_groups} does not split over "
+                         f"{n_dp} dp ranks")
+    groups = max(moe_groups // n_dp, 1)
+    aux_share = groups / moe_groups
+    policy_dp = dp if dp is not None else dp_axes
+    rules = MeshRules(axis_sizes=dict(mesh.shape), dp_axes=dp_axes)
+    plc = Placement(mesh, dp_axes)
+    whole = mesh.size == 1
+    split = {a for a in dp_axes if mesh.shape[a] > 1}
+
+    def loss_fn(params, batch, denom):
+        with act_policy(policy_dp, tp, sizes):
+            logits, aux, _ = apply_model(
+                params, batch["tokens"], cfg, mode="train",
+                enc_embed=batch.get("enc_embed"), moe_groups=groups,
+                remat_policy=tc.remat_policy, param_specs=param_specs)
+            return lm_loss(logits, batch["targets"], batch["weights"],
+                           aux * aux_share, aux_coef=tc.aux_coef,
+                           denom=denom)
+
+    def step(state, batch):
+        local = {}
+        for key, x in batch.items():
+            spec = batch_specs(rules, {key: x})[key]
+            if x.dim() and {a for a in _norm_axes(spec[0])
+                            if mesh.shape.get(a, 1) > 1} != split:
+                raise ValueError(f"batch[{key!r}] dim 0 ({x.shape[0]}) does "
+                                 f"not split over the dp axes {dp_axes}")
+            local[key] = x[block_slices(spec, x.shape, mesh)] if x.dim() \
+                else x
+        w_all = mesh.all_reduce(local["weights"].to(torch.float32).sum(),
+                                dp_axes)
+        denom = torch.clamp(w_all, min=1.0)
+        plc.sq_norms.clear()
+        with placement(plc.gather):
+            loss, grads = value_and_grad(
+                lambda p, b: loss_fn(p, b, denom), state["params"], local)
+        loss = mesh.all_reduce(loss.to(w_all.device), dp_axes)
+        if whole:
+            if tc.clip_norm:
+                grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
+            else:
+                gnorm = torch.sqrt(C.tree_sq_norm(grads))
+        else:
+            gnorm = torch.sqrt(sum(plc.sq_norms))
+            if tc.clip_norm:
+                grads = clip_to_norm(grads, tc.clip_norm, gnorm)
+        s = int(state["step"])
+        updates, new_opt = opt.update(grads, state["opt"], state["params"], s)
+        params = apply_updates(state["params"], updates, lr_at(tc, s))
+        new_state = {"params": params, "opt": new_opt,
+                     "step": state["step"] + 1}
+        return new_state, {"loss": loss, "grad_norm": gnorm}
+
+    step.placement = plc
     return step
 
 

@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.act_sharding import constrain
 from repro_torch.dist.sharding import current_serve_tp
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_init,
@@ -187,8 +188,10 @@ def apply_gqa(p, x, cfg: ArchConfig, *, rope=None, kv_x=None, cache=None,
     hd = cfg.resolved_head_dim
     g = cfg.n_heads // cfg.n_kv_heads
 
-    def expand_kv(t):
-        return torch.repeat_interleave(t, g, dim=2) if g > 1 else t
+    def expand_kv(t, kind="heads4"):
+        # KV repeated to the H query heads (the reference's TP layout)
+        return constrain(torch.repeat_interleave(t, g, dim=2) if g > 1
+                         else t, kind)
 
     def project_out(out):
         return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
@@ -196,12 +199,13 @@ def apply_gqa(p, x, cfg: ArchConfig, *, rope=None, kv_x=None, cache=None,
     q = _proj_q(p, x, cfg)
     if cache is not None and "ck" in cache:
         # cross-attention against the cached encoder K/V
-        out = plain_attention(q, expand_kv(cache["ck"]),
+        out = plain_attention(constrain(q, "heads4"), expand_kv(cache["ck"]),
                               expand_kv(cache["cv"]), causal=False)
         return project_out(out), cache
     if kv_x is not None:
         k, v = _proj_kv(p, kv_x, cfg)
-        out = attention_math(q, expand_kv(k), expand_kv(v), causal=False)
+        out = attention_math(constrain(q, "heads4"), expand_kv(k),
+                             expand_kv(v), causal=False)
         return project_out(out), ({"ck": k, "cv": v} if return_cache
                                   else None)
 
@@ -237,12 +241,14 @@ def apply_gqa(p, x, cfg: ArchConfig, *, rope=None, kv_x=None, cache=None,
             return project_out(out.to(x.dtype)), cache
         k, v = cache["k"], cache["v"]
         kv_len = _write_decode(cache_index, b, s, (k, k_new), (v, v_new))
-        out = plain_attention(q, expand_kv(k), expand_kv(v), causal=False,
+        # the decode's layout: head_dim over tp
+        out = plain_attention(constrain(q, "hd_tp"), expand_kv(k, "hd_tp"),
+                              expand_kv(v, "hd_tp"), causal=False,
                               kv_len=kv_len)
         new_cache = cache
     else:
-        out = attention_math(q, expand_kv(k_new), expand_kv(v_new),
-                             causal=causal)
+        out = attention_math(constrain(q, "heads4"), expand_kv(k_new),
+                             expand_kv(v_new), causal=causal)
         if return_cache:
             new_cache = {"k": k_new, "v": v_new}
     return project_out(out), new_cache
@@ -378,8 +384,9 @@ def apply_mla(p, x, cfg: ArchConfig, *, positions, cache=None,
         v = torch.einsum("btl,lhv->bthv", ckv_new, p["w_uv"])
         k = torch.cat([k_nope, kr_new[:, :, None, :].expand(b, s, h, rp)],
                       dim=-1)
-        out = attention_math(torch.cat([q_nope, q_rope], dim=-1), k, v,
-                             causal=True)
+        out = attention_math(
+            constrain(torch.cat([q_nope, q_rope], dim=-1), "heads4"),
+            constrain(k, "heads4"), constrain(v, "heads4"), causal=True)
         new_cache = ({"ckv": ckv_new, "kr": kr_new} if return_cache
                      else None)
     return out.reshape(b, s, h * vd).to(x.dtype) @ p["wo"], new_cache

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.act_sharding import constrain
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -154,12 +155,13 @@ def init_mlp(gen, cfg: ArchConfig, device, d_ff: Optional[int] = None):
 
 def apply_mlp(p, x, cfg: ArchConfig):
     if cfg.act == "swiglu":
-        g = x @ p["w_gate"]
-        u = x @ p["w_up"]
+        g = constrain(x @ p["w_gate"], "ffn")
+        u = constrain(x @ p["w_up"], "ffn")
         h = F.silu(g.to(torch.float32)).to(x.dtype) * u
         return h @ p["w_down"]
     h = x @ p["w_in"] + p["b_in"]
-    h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    h = constrain(F.gelu(h.to(torch.float32), approximate="tanh")
+                  .to(x.dtype), "ffn")
     return h @ p["w_out"] + p["b_out"]
 
 

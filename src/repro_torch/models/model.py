@@ -28,6 +28,8 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve as resolve_device
+from repro_torch.dist.act_sharding import (constrain, constrain_tree,
+                                           current_placement, strip_leading)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -224,7 +226,7 @@ def _apply_layer(p, x, kind, cfg, *, layer_idx, positions, rope,
                               cache_index=cache_index,
                               return_cache=return_cache,
                               page_table=page_table, impl=impl)
-    x = x + y
+    x = constrain(x + y, "act")
 
     new_cross = None
     if enc_out is not None or (cache and "cross" in cache
@@ -237,7 +239,7 @@ def _apply_layer(p, x, kind, cfg, *, layer_idx, positions, rope,
             y, new_cross = A.apply_gqa(p["cross"], hx, cfg, kv_x=enc_out,
                                        causal=False,
                                        return_cache=return_cache)
-        x = x + y
+        x = constrain(x + y, "act")
 
     aux = None
     h = L.apply_norm(p["norm2"], x, cfg)
@@ -250,7 +252,7 @@ def _apply_layer(p, x, kind, cfg, *, layer_idx, positions, rope,
         y, aux = M.apply_moe(p["ffn"], h, cfg, cfg.moe, n_groups=moe_groups)
     else:
         y = L.apply_mlp(p["ffn"], h, cfg)
-    x = x + y
+    x = constrain(x + y, "act")
 
     new_cache = None
     if return_cache or (cache is not None and cache_index is not None):
@@ -297,7 +299,7 @@ def apply_model(params, tokens, cfg: ArchConfig, *, enc_embed=None,
                 cache=None, cache_index=None, mode: str = "train",
                 moe_groups: int = 1, logits_chunk: int = 0,
                 page_table=None, impl: str = "auto",
-                remat_policy: str = "none"):
+                remat_policy: str = "none", param_specs=None):
     """Returns (logits, aux_loss, new_cache).
 
     mode: "train" (no cache), "prefill" (returns the populated dense
@@ -311,16 +313,35 @@ def apply_model(params, tokens, cfg: ArchConfig, *, enc_embed=None,
     (prefill/train) the final normed hidden states come back in place of
     the logits, for a caller that unembeds only some positions. ``impl``
     picks the GQA paged-decode attention form (``kernels/ops.py``).
-    ``remat_policy`` other than ``"none"`` recomputes each layer's
+    ``remat_policy`` other than ``"none"`` recomputes each period's
     activations in the backward pass of a train forward
     (``torch.utils.checkpoint``, non-reentrant): the same numbers, less
     memory, as the reference's ``jax.checkpoint`` of its period body.
+
+    ``param_specs`` (the storage specs of ``params``, ``dist.sharding.
+    tree_specs``) brings each parameter from its storage layout to the
+    compute layout through ``constrain_tree``, as the reference's manual
+    ZeRO-3 does: the non-block parameters once, each period's block
+    parameters just before the period runs (inside its checkpoint, so a
+    recomputation gathers again). Under the placed train step's
+    ``act_sharding.placement`` that is a gather of this rank's shards;
+    with none active, the identity.
     """
     b, s = tokens.shape
     decode, prefill = mode == "decode", mode == "prefill"
+    pattern = cfg.layer_pattern
+    blk_specs = [None] * len(pattern)
+    gather = current_placement()   # a recomputation may run on another thread
+    if param_specs is not None:
+        params = dict(params)
+        for key in ("embed", "norm_f", "enc_norm_f", "enc_pos", "encoder"):
+            if key in params and key in param_specs:
+                params[key] = constrain_tree(params[key], param_specs[key],
+                                             gather)
+        blk_specs = [strip_leading(ps) for ps in param_specs["blocks"]]
     positions = _positions_for(cfg, b, s, cache_index if decode else 0,
                                tokens.device)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = constrain(L.embed_tokens(params["embed"], tokens, cfg), "act")
     if cfg.rope == "learned":
         x = x + params["embed"]["pos"][positions].to(x.dtype)
     rope = None
@@ -333,54 +354,72 @@ def apply_model(params, tokens, cfg: ArchConfig, *, enc_embed=None,
     if cfg.encoder_decoder and enc_embed is not None:
         enc_out = _apply_encoder(params, enc_embed, cfg)
 
-    pattern = cfg.layer_pattern
-    blocks = [_unstack(bp, cfg.n_periods) for bp in params["blocks"]]
-    caches = (None if cache is None
-              else [_unstack(c, cfg.n_periods) for c in cache])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    new_caches = [[] for _ in pattern]
-    layer = _apply_layer
-    if (mode == "train" and remat_policy != "none"
-            and torch.is_grad_enabled()):
-        def layer(*args, **kw):
-            return torch.utils.checkpoint.checkpoint(
-                _apply_layer, *args, use_reentrant=False, **kw)
-    for pi in range(cfg.n_periods):
+    def period(x, aux, blk_params, blk_caches):
+        """One period of the layer pattern: (x, aux, its new caches)."""
+        x = constrain(x, "act")
+        blk_params = [constrain_tree(bp, bs, gather)
+                      for bp, bs in zip(blk_params, blk_specs)]
+        ncs = []
         for pos, kind in enumerate(pattern):
-            x, a, nc = layer(
-                blocks[pos][pi], x, kind, cfg, layer_idx=pos,
+            x, a, nc = _apply_layer(
+                blk_params[pos], x, kind, cfg, layer_idx=pos,
                 positions=positions, rope=rope, moe_groups=moe_groups,
-                cache=caches[pos][pi] if cache is not None else None,
+                cache=blk_caches[pos] if blk_caches is not None else None,
                 cache_index=cache_index if decode else None,
                 return_cache=prefill, enc_out=enc_out,
                 page_table=page_table if decode else None, impl=impl)
             if a is not None:
                 aux = aux + a
+            ncs.append(nc)
+        return x, aux, ncs
+
+    run = period
+    if (mode == "train" and remat_policy != "none"
+            and torch.is_grad_enabled()):
+        def run(*args):
+            return torch.utils.checkpoint.checkpoint(
+                period, *args, use_reentrant=False)
+    blocks = [_unstack(bp, cfg.n_periods) for bp in params["blocks"]]
+    caches = (None if cache is None
+              else [_unstack(c, cfg.n_periods) for c in cache])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = [[] for _ in pattern]
+    for pi in range(cfg.n_periods):
+        x, aux, ncs = run(
+            x, aux, [bp[pi] for bp in blocks],
+            None if caches is None else [c[pi] for c in caches])
+        for pos, nc in enumerate(ncs):
             new_caches[pos].append(nc)
     new_cache = None
     if prefill:
         new_cache = tuple(_stack(ncs) for ncs in new_caches)
     elif decode:
         new_cache = cache
-    x = L.apply_norm(params["norm_f"], x, cfg)
+    x = constrain(L.apply_norm(params["norm_f"], x, cfg), "act")
     if logits_chunk and not decode:
         return x, aux, new_cache
-    return L.unembed(params["embed"], x, cfg), aux, new_cache
+    return (constrain(L.unembed(params["embed"], x, cfg), "logits"), aux,
+            new_cache)
 
 
 # ---------------------------------------------------------------------------
 # losses
 
 
-def lm_loss(logits, targets, weights, aux=0.0, aux_coef: float = 0.01):
+def lm_loss(logits, targets, weights, aux=0.0, aux_coef: float = 0.01,
+            denom=None):
     """Weighted token cross-entropy; weights carry padding and the
-    Algorithm-1 agent mask (masked agents' tokens get weight 0)."""
+    Algorithm-1 agent mask (masked agents' tokens get weight 0). The
+    weighted sum is divided by ``max(sum(weights), 1)``, or by ``denom``
+    where given (a placed step's global weight sum over its ranks)."""
     lf = logits.to(torch.float32)
     m = lf.amax(-1, keepdim=True).detach()
     logz = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
     gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
     w = weights.to(torch.float32)
-    loss = ((logz - gold) * w).sum() / torch.clamp(w.sum(), min=1.0)
+    if denom is None:
+        denom = torch.clamp(w.sum(), min=1.0)
+    loss = ((logz - gold) * w).sum() / denom
     return loss + aux_coef * aux
 
 

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.dist.act_sharding import constrain
 from repro_torch.models.layers import (_normal, apply_mlp, dense_init,
                                        init_mlp, param_dtype)
 
@@ -142,9 +143,9 @@ def apply_moe(p, x, cfg: ArchConfig, moe: MoEConfig,
         n_groups = 1
     tpg = tokens // n_groups
     c = _capacity(tpg, moe)
-    outs, auxs = zip(*(_moe_group(p, xg, moe, c)
-                       for xg in x.reshape(n_groups, tpg, d)))
-    out = torch.stack(outs).reshape(b, s, d)
+    xg = constrain(x.reshape(n_groups, tpg, d), "moe_tokens")
+    outs, auxs = zip(*(_moe_group(p, g, moe, c) for g in xg))
+    out = constrain(torch.stack(outs), "moe_tokens").reshape(b, s, d)
     if moe.num_shared_experts:
         out = out + apply_mlp(p["shared"], x, cfg)
     if moe.dense_residual:

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.act_sharding import constrain
 from repro_torch.models.layers import (_normal, apply_group_norm,
                                        dense_init, param_dtype)
 
@@ -108,7 +109,7 @@ def apply_mamba(p, x, cfg: ArchConfig, *, cache=None, return_cache=False):
     rank = _dt_rank(cfg)
 
     xz = x @ p["w_in"]
-    xh, z = xz[..., :di], xz[..., di:]
+    xh, z = constrain(xz[..., :di], "ffn"), constrain(xz[..., di:], "ffn")
     decode = cache is not None and s == 1
     if decode:
         window = torch.cat([cache["conv"], xh], dim=1)      # (B, K, di)
@@ -274,9 +275,9 @@ def apply_rwkv_time(p, x, cfg: ArchConfig, *, cache=None,
     mixed = x[:, :, None] + dx[:, :, None] * (p["mu"][None, None] + dd)
     xw, xk, xv, xr, xg = (mixed[:, :, i] for i in range(5))
 
-    r = (xr @ p["w_r"]).reshape(b, s, h, hd)
-    k = (xk @ p["w_k"]).reshape(b, s, h, hd)
-    v = (xv @ p["w_v"]).reshape(b, s, h, hd)
+    r = constrain((xr @ p["w_r"]).reshape(b, s, h, hd), "heads4")
+    k = constrain((xk @ p["w_k"]).reshape(b, s, h, hd), "heads4")
+    v = constrain((xv @ p["w_v"]).reshape(b, s, h, hd), "heads4")
     g = F.silu((xg @ p["w_g"]).to(torch.float32)).to(x.dtype)
     wdec = torch.exp(-torch.exp(
         p["w0"] + (torch.tanh(xw @ p["w_a"]) @ p["w_b"]).to(torch.float32)
@@ -312,7 +313,8 @@ def apply_rwkv_channel(p, x, cfg: ArchConfig, *, cache=None,
     xk = x + dx * p["cm_mu_k"]
     xr = x + dx * p["cm_mu_r"]
     r = torch.sigmoid((xr @ p["cm_wr"]).to(torch.float32)).to(x.dtype)
-    k = torch.square(F.relu((xk @ p["cm_wk"]).to(torch.float32))).to(x.dtype)
+    k = constrain(xk @ p["cm_wk"], "ffn")
+    k = torch.square(F.relu(k.to(torch.float32))).to(x.dtype)
     out = r * (k @ p["cm_wv"])
     new_cache = None
     if cache is not None:

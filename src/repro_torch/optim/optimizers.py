@@ -94,10 +94,16 @@ def apply_updates(params, updates, lr):
 # global-norm clipping (used by the LM training loop)
 
 
+def clip_to_norm(grads, max_norm: float, norm):
+    """``grads`` scaled so that a global norm ``norm`` becomes at most
+    ``max_norm`` (each leaf in f32, cast back to its dtype)."""
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
+                    grads)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     sq = sum(torch.sum(torch.square(g.to(torch.float32)))
              for g in tree_flatten(grads)[0])
     norm = torch.sqrt(sq)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
-                    grads), norm
+    return clip_to_norm(grads, max_norm, norm), norm

@@ -1,9 +1,11 @@
-"""The port stands alone: every module of ``repro_torch`` and
-``chip_smoke.py`` import with ``jax`` and ``repro`` made unimportable, no
-source line imports either, and the entry points refuse to run on the
-CPU unless asked: ``device="cuda"`` without CUDA raises (the engines,
-the serving stack and the simulator's train runner and fleet), and
-``chip_smoke.py`` exits non-zero with no result line."""
+"""The port stands alone: every module of ``repro_torch``,
+``chip_smoke.py`` and the ``examples/torch_*.py`` twins import with
+``jax`` and ``repro`` made unimportable, no source line imports either,
+and the entry points refuse to run on the CPU unless asked:
+``device="cuda"`` without CUDA raises (the engines, the serving stack,
+``launch.serve.greedy_generate``, the simulator's train runner and fleet,
+and the examples' ``main``), and ``chip_smoke.py`` exits non-zero with no
+result line."""
 import re
 import shutil
 import subprocess
@@ -16,6 +18,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 _IMPORT_ALL = f"""
 import importlib, importlib.util, pkgutil, sys
@@ -27,9 +30,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke",
-                                              {str(ROOT / "chip_smoke.py")!r})
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for path in [{str(ROOT / "chip_smoke.py")!r},
+             *{[str(p) for p in EXAMPLES]!r}]:
+    spec = importlib.util.spec_from_file_location("m", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "repro"))]
 assert not loaded, loaded
@@ -46,7 +50,9 @@ def test_port_imports_without_jax_or_repro():
 
 def test_no_source_line_imports_jax_or_repro():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b")
-    files = [*(SRC / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    files = [*(SRC / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+             *EXAMPLES]
+    assert len(EXAMPLES) == 4
     bad = [f"{p}:{i}" for p in files
            for i, line in enumerate(p.read_text().splitlines(), 1)
            if pat.match(line)]
@@ -187,6 +193,32 @@ def test_spmd_entry_points_default_to_cuda(monkeypatch):
         run_ranks(print, 1, backend="gloo", device="cuda", timeout=5)
     with pytest.raises(ValueError, match="backend"):
         run_ranks(print, 1, backend="auto", device="cpu", timeout=5)
+
+
+def _example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_launch_serve_and_examples_default_to_cuda(monkeypatch):
+    """``greedy_generate`` and the three example twins run on the card
+    unless asked for the CPU (``--device cpu``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models.model import init_model
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        greedy_generate(params, cfg, np.zeros((1, 4), np.int32), 16, 2)
+    for name in ("torch_quickstart", "torch_byzantine_cge",
+                 "torch_serve_lm"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            _example(name).main([])
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

@@ -114,6 +114,24 @@ def test_lr_at_matches_jax(kind, warmup):
             rtol=1e-6)
 
 
+# the full cosine horizons: lr_total = 1000 (warmup 0 and 15) and
+# examples/train_lm.py's defaults (300 steps, warmup 300 // 20 = 15), every
+# step and past the end, equal to the reference's f32 value bit for bit
+@pytest.mark.parametrize("total,warmup", [(1000, 0), (1000, 15), (300, 15)])
+def test_lr_at_cosine_bit_exact_over_the_horizon(total, warmup):
+    tc = ttrain.TrainConfig(lr_kind="cosine", lr=3e-3, lr_total=total,
+                            warmup=warmup)
+    jtc = jtrain.TrainConfig(**dataclasses.asdict(tc))
+    steps = jnp.arange(total + 3, dtype=jnp.int32)
+    ref = np.asarray(jax.vmap(lambda s: jtrain.lr_at(jtc, s))(steps))
+    ours = np.array([ttrain.lr_at(tc, s) for s in range(total + 3)],
+                    np.float32)
+    assert ref.dtype == np.float32
+    bad = np.flatnonzero(ours.view(np.int32) != ref.view(np.int32))
+    assert bad.size == 0, [(int(s), float(ours[s]), float(ref[s]))
+                           for s in bad[:10]]
+
+
 def test_init_state_ledger_and_err_rows():
     cfg, _ = _cfgs(layers=1)
     st = ttrain.init_state(torch.Generator().manual_seed(0), cfg,
