@@ -244,7 +244,20 @@ Phases, each fatal on failure:
    the aggregation and decode kernels' launches (zeroed just before each
    card run) must be above 0. Phase 3 holds the aggregation kernels at
    the Byzantine example's shape (12 agents, P = 6).
-17. A JSON line with every kernel's launches (summed over the phases
+17. The dry run (``launch.dryrun``, ``launch.hlo_analysis``) against
+   the card. 17a: 15a's step (qwen2-0.5b at full width,
+   ``examples/train_lm.py``'s defaults, one rank) under ``OpCounter`` on
+   the meta device and on the card: the FLOPs and HBM bytes equal op by
+   op (any op that differs is named), the dry run's peak of live
+   temporaries within 20% of ``max_memory_allocated`` above the
+   arguments; ms per step and TFLOP/s (the trace's FLOPs over the step
+   time) beside the card's dense bf16 peak. 17b: 16a's placed step on a
+   ``RecordingMesh`` of 16a's shape on the meta device: its collectives
+   (kind, axes, group, bytes, count) equal those each of 16a's 4 gloo
+   ranks counted through its real mesh in its first step. 17c:
+   ``launch.serve``'s dense decode step (8 rows, position 512 of 1024)
+   on the meta device and on the card: the FLOPs equal.
+18. A JSON line with every kernel's launches (summed over the phases
    that drive a path: 4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16, all
    ranks of 15), error and times, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -257,6 +270,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import gc
 import json
 import os
 import subprocess
@@ -295,11 +309,15 @@ from repro_torch.kernels import decode_attention as dattn  # noqa: E402
 from repro_torch.kernels import flash_attention as fattn  # noqa: E402
 from repro_torch.kernels.cases import (CGE_SHAPES, FLASH_CASES,  # noqa: E402
                                        FLASH_TOL, NORM_TOL)
+from repro_torch.launch.hlo_analysis import (OpCounter,  # noqa: E402
+                                            analyze, diff)
 from repro_torch.launch.loop import StragglerOracle, TrainLoop  # noqa: E402
-from repro_torch.launch.mesh import make_test_mesh, run_ranks  # noqa: E402
+from repro_torch.launch.mesh import (RecordingMesh,  # noqa: E402
+                                     make_test_mesh, run_ranks)
 from repro_torch.launch.serve import (greedy_generate,  # noqa: E402
                                       make_decode_step, make_prefill_step)
-from repro_torch.launch.train import (TrainConfig, init_state,  # noqa: E402
+from repro_torch.launch.train import (TrainConfig,  # noqa: E402
+                                      abstract_state, init_state,
                                       lr_at, make_general_step,
                                       make_optimizer, make_train_step,
                                       place_state, state_bytes_per_rank,
@@ -3630,7 +3648,11 @@ def placed_full_width(mesh, ref_dir):
     for i, (x, y, w) in enumerate(placed_batches(cfg.vocab_size)):
         sync(dev)
         t0 = time.perf_counter()
-        state, m = step(state, lm_batch(x, y, w, dev))
+        # step 1's collectives as the real mesh reports them (phase 17b)
+        with OpCounter() if i == 0 else contextlib.nullcontext() as cnt:
+            state, m = step(state, lm_batch(x, y, w, dev))
+        if i == 0:
+            collectives = cnt.table()["collectives"]
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         secs.append(time.perf_counter() - t0)
@@ -3642,7 +3664,7 @@ def placed_full_width(mesh, ref_dir):
     same = agreed(mesh, params)
     out = dict(placed=placed, whole=whole, report=report, losses=losses,
                norms=norms, secs=secs, peak=step.placement.peak_bytes,
-               same=same, gaps=gaps)
+               same=same, gaps=gaps, collectives=collectives)
     del state, params, step
     torch.cuda.empty_cache()
     return out
@@ -3691,7 +3713,8 @@ def placed_cpu_rank(rank, world):
 
 
 def drive_placed(device="cuda"):
-    """16a-16b from the parent."""
+    """16a-16b from the parent. Returns each rank's collectives of its
+    first placed step, as its real mesh reported them (phase 17b)."""
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         refs = placed_reference(tmp, device)
         t0 = time.perf_counter()
@@ -3766,6 +3789,7 @@ def drive_placed(device="cuda"):
         f"{[round(l, 5) for l in card_l]}; card vs {SPMD_RANKS} CPU ranks "
         f"({cpu_s:.1f} s) max |param diff| {err:.2e} (tolerance "
         f"{TWIN_TOL['atol']:.0e})")
+    return [o["collectives"] for o in res]
 
 
 @torch.no_grad()
@@ -3936,6 +3960,161 @@ def drive_examples():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 17. the dry run against the card
+
+
+# the dry run's peak of live temporaries against the allocator's peak
+# above the arguments: the allocator rounds every block up to 512 bytes
+# and some kernels take workspace the op trace does not show
+DRY_TEMP_REL = 0.2
+DRY_DECODE_ROWS, DRY_DECODE_LEN, DRY_DECODE_POS = 8, 1024, 512
+META = torch.device("meta")
+
+
+def lm_batch_meta(rows: int, seq: int):
+    return {"tokens": torch.empty((rows, seq), dtype=torch.int32,
+                                  device=META),
+            "targets": torch.empty((rows, seq), dtype=torch.int32,
+                                   device=META),
+            "weights": torch.empty((rows, seq), dtype=torch.float32,
+                                   device=META)}
+
+
+def counted(fn, *args):
+    """(fn's output, its OpCounter)."""
+    with OpCounter() as cnt:
+        out = fn(*args)
+    return out, cnt
+
+
+def require_same_ops(what, dry, card, keys=("flops", "bytes")):
+    """Fail naming every op whose ``keys`` differ between the dry run's
+    count and the card's."""
+    bad = {op: (x, y) for op, (x, y) in diff(dry, card).items()
+           if any((x or {}).get(k, 0) != (y or {}).get(k, 0)
+                  for k in keys)}
+    if bad:
+        raise AssertionError(f"{what}: ops dispatched differently on meta "
+                             f"and on the card: {bad}")
+
+
+def dry_train_step(bf16_rate: float, device="cuda"):
+    """17a: 15a's step (``make_train_step``, examples/train_lm.py's
+    defaults) on the meta device and on the card under one counter.
+    Returns the card's parameters."""
+    cfg = get_config(SERVE_ARCH)
+    tc = placed_tc("none")
+    step = make_train_step(cfg, tc, moe_groups=TRAIN_AGENTS)
+    state = abstract_state(cfg, tc, max_pos=TRAIN_SEQ + 1)
+    _, dry = counted(step, state, lm_batch_meta(TRAIN_BATCH, TRAIN_SEQ))
+
+    state = init_state(torch.Generator(device=device).manual_seed(0), cfg,
+                       tc, max_pos=TRAIN_SEQ + 1, device=device)
+    x, y = next(lm_batches(markov_tokens(200_000, vocab=cfg.vocab_size,
+                                         seed=0), TRAIN_BATCH, TRAIN_SEQ,
+                           seed=1))
+    mask, _, _ = StragglerOracle(TRAIN_AGENTS, TRAIN_R, seed=2).next_mask()
+    batch = lm_batch(x, y, mask_to_weights(mask, TRAIN_BATCH, TRAIN_SEQ),
+                     device)
+    state, m = step(state, batch)     # warm: the library workspaces
+    float(m["loss"])
+    gc.collect()                      # no garbage among the arguments
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    (new, _), card = counted(step, state, batch)
+    sync(device)
+    card_temp = torch.cuda.max_memory_allocated(device) - base
+    state = new
+    del new
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, m = step(state, batch)
+        float(m["loss"])
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+
+    a, c = analyze(dry), analyze(card)
+    tflops = a["flops"] / (ms * 1e-3) / 1e12
+    log(f"  17a: {SERVE_ARCH} at full width, 15a's step (batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, one rank): meta {a['flops']:.6e} "
+        f"FLOPs and {a['hbm_bytes']:.6e} HBM bytes, card {c['flops']:.6e} "
+        f"and {c['hbm_bytes']:.6e}; differing ops: {diff(dry, card)}")
+    log(f"    temporaries: dry run {dry.peak_temp_bytes:,} B, card "
+        f"max_memory_allocated above the arguments {card_temp:,} B "
+        f"({dry.peak_temp_bytes / card_temp:.4f}; bound 1 +- "
+        f"{DRY_TEMP_REL})")
+    log(f"    step {ms:.2f} ms on the host clock (3 steps, synchronized): "
+        f"{tflops:.3f} TFLOP/s, {tflops * 1e12 / bf16_rate:.5f} of the "
+        f"card's dense bf16 peak {bf16_rate / 1e12:.0f} TFLOP/s")
+    require_same_ops("17a", dry, card)
+    if abs(dry.peak_temp_bytes - card_temp) > DRY_TEMP_REL * card_temp:
+        raise AssertionError(f"17a: dry-run temporaries "
+                             f"{dry.peak_temp_bytes} B against the card's "
+                             f"{card_temp} B")
+    return state["params"]
+
+
+def dry_placed_collectives(placed_collectives):
+    """17b: 16a's placed step (data = 4, remat) on a recording mesh of
+    the same shape on the meta device: its collectives against those each
+    of 16a's gloo ranks counted through its real mesh."""
+    cfg = get_config(SERVE_ARCH)
+    tc = placed_tc("full")
+    mesh = RecordingMesh((SPMD_RANKS, 1), ("data", "model"))
+    state, specs = place_state(abstract_state(cfg, tc,
+                                              max_pos=TRAIN_SEQ + 1), mesh)
+    step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS, dp="data",
+                           tp="model", param_specs=specs["params"],
+                           sizes=mesh.shape, mesh=mesh)
+    _, dry = counted(step, state, lm_batch_meta(TRAIN_BATCH, TRAIN_SEQ))
+    want = dry.table()["collectives"]
+    a = analyze(dry)
+    log(f"  17b: 16a's placed step, recorded: {a['collective_count']:.0f} "
+        f"all-reduces, {a['collectives']['all-reduce']:.6e} wire bytes a "
+        f"rank; " + ", ".join(
+            f"rank {r} {'equal' if got == want else 'DIFFERENT'}"
+            for r, got in enumerate(placed_collectives)))
+    for r, got in enumerate(placed_collectives):
+        if got != want:
+            raise AssertionError(f"17b rank {r}: the real mesh reported "
+                                 f"{got}, the dry run {want}")
+
+
+@torch.no_grad()
+def dry_decode_step(params, device="cuda"):
+    """17c: ``launch.serve``'s dense decode step on the meta device and on
+    the card (17a's weights)."""
+    cfg = get_config(SERVE_ARCH)
+    step = make_decode_step(cfg)
+
+    def batch(dev):
+        return {"tokens": torch.zeros((DRY_DECODE_ROWS, 1),
+                                      dtype=torch.int32, device=dev),
+                "cache": mmodel.init_cache(cfg, DRY_DECODE_ROWS,
+                                           DRY_DECODE_LEN, device=dev),
+                "pos": DRY_DECODE_POS}
+    meta_params = init_model(None, cfg, device=META)
+    _, dry = counted(step, meta_params, batch(META))
+    (tok, _), card = counted(step, params, batch(device))
+    a, c = analyze(dry), analyze(card)
+    log(f"  17c: dense decode, {DRY_DECODE_ROWS} rows at position "
+        f"{DRY_DECODE_POS} of {DRY_DECODE_LEN}: meta {a['flops']:.6e} "
+        f"FLOPs, card {c['flops']:.6e}; differing ops: {diff(dry, card)}")
+    require_same_ops("17c", dry, card, keys=("flops",))
+    if tok.shape != (DRY_DECODE_ROWS,):
+        raise AssertionError(f"17c: next tokens of shape {tok.shape}")
+
+
+def drive_dryrun(placed_collectives, bf16_rate: float):
+    """17a-17c."""
+    params = dry_train_step(bf16_rate)
+    dry_placed_collectives(placed_collectives)
+    dry_decode_step(params)
+    del params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4049,7 +4228,7 @@ def main() -> int:
 
     t16 = time.perf_counter()
     log(f"== 16a-16b. the placed (FSDP) masked step on {SPMD_RANKS} ranks")
-    drive_placed()
+    placed_collectives = drive_placed()
     log("== 16c. launch.serve: greedy_generate and the serving steps")
     c16 = {"paged_flash_decode": drive_launch_serve()}
     log("== 16d. the example twins on the card")
@@ -4060,7 +4239,13 @@ def main() -> int:
     log(f"  phase 16 in {time.perf_counter() - t16:.1f} s, kernel launches "
         f"{c16}")
 
-    log("== 17. result")
+    t17 = time.perf_counter()
+    log("== 17. the dry run (launch.dryrun, launch.hlo_analysis) against "
+        "the card")
+    drive_dryrun(placed_collectives, bf16_rate)
+    log(f"  phase 17 in {time.perf_counter() - t17:.1f} s")
+
+    log("== 18. result")
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

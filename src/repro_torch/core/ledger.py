@@ -49,19 +49,21 @@ def tree_flatten(tree: Tree) -> Tuple[List[torch.Tensor], Any]:
     return [tree], None
 
 
+def _build(s, it):
+    if s is None:
+        return next(it)
+    kind, keys, subs = s
+    if kind == "dict":
+        return {k: _build(sub, it) for k, sub in zip(keys, subs)}
+    items = [_build(sub, it) for sub in subs]
+    return tuple(items) if kind == "tuple" else items
+
+
 def tree_unflatten(spec, leaves) -> Tree:
-    it = iter(leaves)
-
-    def build(s):
-        if s is None:
-            return next(it)
-        kind, keys, subs = s
-        if kind == "dict":
-            return {k: build(sub) for k, sub in zip(keys, subs)}
-        items = [build(sub) for sub in subs]
-        return tuple(items) if kind == "tuple" else items
-
-    return build(spec)
+    # a module-level function: a nested recursive closure would be a
+    # reference cycle holding ``leaves`` (tensors) until the garbage
+    # collector runs, not until the caller drops the tree
+    return _build(spec, iter(leaves))
 
 
 def tree_map(fn, tree: Tree, *rest: Tree) -> Tree:

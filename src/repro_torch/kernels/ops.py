@@ -8,7 +8,10 @@ contract:
 - ``"cuda"``   the CUDA kernel; its wrapper raises for a tensor that is
                not on a card,
 - ``"auto"``   decided by the tensor's device: a CUDA tensor gets the
-               kernel (or an exception), a CPU tensor the plain form.
+               kernel (or an exception), a CPU tensor the plain form, and
+               a meta tensor (a dry run, ``launch.dryrun``) the plain
+               form too: it is the form with shape rules, and a dry run
+               builds and launches no kernel.
 
 This is the one place that decides by device; the kernel wrappers only
 launch. ``tree_bucket`` lays a parameter or gradient tree out as the rows
@@ -33,7 +36,12 @@ def _route(impl: str, x) -> str:
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     if impl == "auto":
-        return "cuda" if x.device.type == "cuda" else "plain"
+        dev = x.device.type
+        if dev == "cuda":
+            return "cuda"
+        if dev in ("cpu", "meta"):
+            return "plain"
+        raise ValueError(f"no form of the kernels for a {dev!r} tensor")
     return impl
 
 

@@ -17,6 +17,14 @@ one-rank NCCL group then carries every collective).
 and time limit, rendezvousing through a ``FileStore``; a rank that
 raises or overruns the limit makes it raise, after every process it
 started has ended.
+
+A :class:`RecordingMesh` is a mesh seen from one rank with no process
+group behind it: its collectives return a copy and are only reported,
+which is what the dry run (``launch.dryrun``) runs the port's steps on,
+on the meta device. Every ``all_reduce``, of a real mesh or a recording
+one, reports ``(kind, axes, group size, bytes)`` to the collective
+sinks installed with :func:`watch_collectives`, from whatever thread
+calls it (a backward pass on a card runs on autograd's own thread).
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import os
 import pickle
 import queue
 import tempfile
+import threading
 import time
 import traceback
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
@@ -38,9 +47,43 @@ from repro_torch.device import resolve as resolve_device
 
 DP_AXES = ("pod", "data")
 
+_sinks: list = []               # process-wide: every thread reports here
+_sinks_lock = threading.Lock()
+
 
 def _axes(axes) -> Tuple[str, ...]:
     return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class watch_collectives:
+    """Context manager: while active, ``sink(kind, axes, group_size,
+    nbytes)`` is called for every collective any :class:`Mesh` of this
+    process runs, on any thread (``axes`` in the mesh's axis order,
+    ``nbytes`` the payload of one rank)."""
+
+    def __init__(self, sink: Callable):
+        self._sink = sink
+
+    def __enter__(self):
+        with _sinks_lock:
+            _sinks.append(self._sink)
+        return self._sink
+
+    def __exit__(self, *exc):
+        with _sinks_lock:
+            _sinks.remove(self._sink)
+        return False
+
+
+def _report(kind: str, mesh, axes, x: torch.Tensor) -> None:
+    with _sinks_lock:
+        sinks = list(_sinks)
+    if not sinks:
+        return
+    sub = tuple(a for a in mesh.axis_names if a in _axes(axes))
+    nbytes = x.numel() * x.element_size()
+    for sink in sinks:
+        sink(kind, sub, mesh.axis_size(sub), nbytes)
 
 
 class Mesh:
@@ -127,18 +170,47 @@ class Mesh:
         itself is left alone). Every rank of the group must call it."""
         g = self.group(axes)
         y = x.clone(memory_format=torch.contiguous_format)
+        _report("all-reduce", self, axes, y)
         if g is not None:
             dist.all_reduce(y, op=dist.ReduceOp.SUM, group=g)
         return y
 
 
-def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+class RecordingMesh(Mesh):
+    """The mesh ``shape`` seen from rank ``rank`` alone, with no process
+    group: ``all_reduce`` returns a contiguous copy of ``x`` (this rank's
+    own contribution, of the sum's shape and dtype) and reports the
+    collective to the sinks of :func:`watch_collectives`. Tensors live on
+    ``device``, the meta device by default, so a step runs on it with
+    shapes alone."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
+                 rank: int = 0, device="meta"):
+        super().__init__(shape, axis_names, device=device, groups=False)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not in a mesh of {self.size}")
+        self.rank = rank
+
+    def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
+        y = x.clone(memory_format=torch.contiguous_format)
+        _report("all-reduce", self, axes, y)
+        return y
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         record: bool = False):
     """Single pod: (16, 16) ("data", "model") = 256 ranks. Multi-pod:
-    (2, 16, 16) ("pod", "data", "model") = 512. Groups are made only
-    when a process group of that size exists; otherwise the mesh is its
-    shape alone."""
+    (2, 16, 16) ("pod", "data", "model") = 512. With ``record`` the mesh
+    is a :class:`RecordingMesh` of rank 0 (on the meta device unless
+    ``device`` says otherwise). Otherwise groups are made only when a
+    process group of that size exists, and the mesh is its shape alone
+    when none does; its device is the card unless ``device`` says
+    otherwise."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if record:
+        return RecordingMesh(shape, axes, device=device or "meta")
+    device = device or "cuda"
     live = dist.is_initialized() and dist.get_world_size() == math.prod(shape)
     return Mesh(shape, axes, device=device, groups=live)
 

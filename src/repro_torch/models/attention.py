@@ -258,10 +258,15 @@ def _write_decode(cache_index, b: int, s: int, *pairs):
     """Write each (dense cache (B, T, ...), new rows (B, S, ...)) pair at
     ``cache_index``, in place: a (B,) vector writes row b's one token at
     its own length (a ragged continuous batch), a scalar writes all rows'
-    S tokens at one position. Returns the (B,) valid lengths."""
+    S tokens at one position. Returns the (B,) valid lengths. A scalar
+    position is read on the host as it is given (an int or a host
+    tensor), before anything moves to the cache's device: no copy to the
+    device and back, and a step runs on meta tensors."""
     dev = pairs[0][0].device
-    idx = torch.as_tensor(cache_index, device=dev)
+    idx = (cache_index if isinstance(cache_index, torch.Tensor)
+           else torch.as_tensor(cache_index))
     if idx.dim():
+        idx = idx.to(dev)
         rows = torch.arange(b, device=dev)
         for buf, new in pairs:
             buf.index_put_((rows, idx.long()), new[:, 0].to(buf.dtype))

@@ -111,7 +111,8 @@ def rope_cos_sin(positions, head_dim: int, theta: float,
             raise ValueError("3-row positions need mrope_sections")
         sec = torch.repeat_interleave(
             torch.arange(len(mrope_sections), device=positions.device),
-            torch.as_tensor(mrope_sections, device=positions.device))
+            torch.as_tensor(mrope_sections, device=positions.device),
+            output_size=sum(mrope_sections))    # known here: no device read
         half = head_dim // 2
         sec = torch.cat([sec, sec[-1:].expand(max(half - sec.numel(), 0))]
                         )[:half]

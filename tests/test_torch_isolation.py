@@ -1,7 +1,9 @@
 """The port stands alone: every module of ``repro_torch``,
 ``chip_smoke.py`` and the ``examples/torch_*.py`` twins import with
 ``jax`` and ``repro`` made unimportable, no source line imports either,
-and the entry points refuse to run on the CPU unless asked:
+the dry run (``launch.dryrun``, ``launch.hlo_analysis``) among them, a
+meta-device dry run builds and launches no kernel, and the entry points
+refuse to run on the CPU unless asked:
 ``device="cuda"`` without CUDA raises (the engines, the serving stack,
 ``launch.serve.greedy_generate``, the simulator's train runner and fleet,
 and the examples' ``main``), and ``chip_smoke.py`` exits non-zero with no
@@ -37,6 +39,8 @@ for path in [{str(ROOT / "chip_smoke.py")!r},
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "repro"))]
 assert not loaded, loaded
+assert {{"repro_torch.launch.dryrun",
+         "repro_torch.launch.hlo_analysis"}} <= set(names), names
 print(len(names))
 """
 
@@ -231,3 +235,40 @@ def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_meta_dry_run_builds_no_kernel(monkeypatch, tmp_path):
+    """A dry run on the meta device takes every kernel's plain form by
+    the tensors' device: nothing is built, loaded or launched, and asking
+    for the CUDA kernel on a meta tensor raises."""
+    from repro_torch.kernels import _build, agg, cge_norms, ops
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch import dryrun
+    calls = []
+
+    def refuse(*args, **kwargs):
+        calls.append(args)
+        raise AssertionError("a dry run built a kernel")
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    mods = (agg, cge_norms, decode_attention, flash_attention)
+    before = [dict(m.LAUNCHES) for m in mods]
+    for arch, shape in (("qwen2-0.5b", "decode_32k"),
+                        ("qwen2-0.5b", "train_4k"),
+                        ("deepseek-v2-236b", "prefill_32k")):
+        rec = dryrun.run_cell(arch, shape, False, out_dir=str(tmp_path),
+                              cfg_patch={"n_layers": 1})
+        assert rec["ok"], rec.get("traceback")
+    q = torch.empty((2, 4, 64), device="meta")
+    pages = torch.empty((3, 8, 2, 64), device="meta")
+    table = torch.zeros((2, 2), dtype=torch.int32, device="meta")
+    lens = torch.ones(2, dtype=torch.int32, device="meta")
+    out = ops.paged_decode_attention(q, pages, pages, table, lens)
+    assert out.shape == (2, 4, 64) and out.device.type == "meta"
+    assert ops.block_sq_norms(torch.empty((5, 16), device="meta")).shape \
+        == (5,)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_decode_attention(q, pages, pages, table, lens,
+                                   impl="cuda")
+    assert calls == []
+    assert [dict(m.LAUNCHES) for m in mods] == before
