@@ -97,7 +97,7 @@ Phases, each fatal on failure:
 10. The e2e harness (``repro_torch.sim.e2e``): one ``EngineFleet`` of 8
    replicas of qwen2-0.5b at full width over phase 6's weights (2 slots,
    8-token pages, superstep_k = 4, 8 new tokens a request) replays
-   ``e2e_steady`` and ``crash_cascade``, each cut to its first 16
+   ``e2e_steady`` and ``crash_cascade``, cut to their first 8 and 16
    requests (of 32 and 40; printed as ``reduced``), on the same warm
    fleet, drained between them. The decode kernel's count is
    zeroed just before each run and read just after. Both runs must have
@@ -181,8 +181,8 @@ Phases, each fatal on failure:
    15a: ``TrainLoop`` (the masked step, Algorithm 1 by loss weights) on
    qwen2-0.5b at full width with ``examples/train_lm.py``'s defaults (8
    agents, r = 2, batch 8 x 64, lr 3e-3 cosine; bf16 parameters, f32
-   AdamW moments): 30 steps with a checkpoint every 10, a new loop that
-   restores step 30 bit for bit and takes 5 more; the loss must fall;
+   AdamW moments): 10 steps with a checkpoint at 10, a new loop that
+   restores step 10 bit for bit and takes 5 more; the loss must fall;
    the step alone timed and profiled (idle share); the f32 reduced twin,
    card against CPU within 1e-4.
    15b: 4 gloo ranks sharing the card (mesh data = 4) run phase 4's four
@@ -257,7 +257,27 @@ Phases, each fatal on failure:
    ranks counted through its real mesh in its first step. 17c:
    ``launch.serve``'s dense decode step (8 rows, position 512 of 1024)
    on the meta device and on the card: the FLOPs equal.
-18. A JSON line with every kernel's launches (summed over the phases
+18. Tensor-parallel compute over "model" for the dense decoders
+   (``dist.tp``), on 4 gloo ranks sharing the card (mesh data 2 x model
+   2). 18a: 16a's placed masked step (qwen2-0.5b at full width, bf16
+   parameters, f32 AdamW, 4 agents with 2 masked a step; no remat), 3
+   steps: seconds per step, each rank's bytes of parameters and moments
+   within 1% of the meta-device report, the gathered parameters
+   identical on every rank, a step's FLOPs and collectives on the card
+   equal op by op to a ``RecordingMesh``'s count on the meta device, and
+   those FLOPs over the same step's at data 2 x model 1 (meta) within
+   ``TPC_FLOP_RATIO``; the f32 twin (full width, 2 layers, SGD with
+   momentum, remat: its recomputation on autograd's thread runs the TP
+   layers too) within 1e-4 of the one-process ``make_train_step`` on the
+   same batches and identical on every rank. 18b: ``launch.serve``'s
+   ``make_prefill_step`` and ``make_decode_step`` on ``place_params``'
+   blocks and ``place_cache``'s cache (head_dim over model), 16c's 4
+   prompts of 64 (2 a dp rank) and 32 new tokens: every model rank of a
+   dp block streams the same tokens, one rank's greedy argmax along them
+   wherever its top-2 margin exceeds ``LOGIT_TOL``; ms per decode step
+   beside one rank's. No kernel lies on this path (the reference's
+   train, prefill and dense decode call no Pallas kernel).
+19. A JSON line with every kernel's launches (summed over the phases
    that drive a path: 4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16, all
    ranks of 15), error and times, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -315,7 +335,8 @@ from repro_torch.launch.loop import StragglerOracle, TrainLoop  # noqa: E402
 from repro_torch.launch.mesh import (RecordingMesh,  # noqa: E402
                                      make_test_mesh, run_ranks)
 from repro_torch.launch.serve import (greedy_generate,  # noqa: E402
-                                      make_decode_step, make_prefill_step)
+                                      make_decode_step, make_prefill_step,
+                                      place_cache, place_params)
 from repro_torch.launch.train import (TrainConfig,  # noqa: E402
                                       abstract_state, init_state,
                                       lr_at, make_general_step,
@@ -1713,9 +1734,9 @@ def drive_simulator():
 # 10. the e2e harness at full width
 
 
-# (name, requests run of the scenario's): both cut to their first 16 to
+# (name, requests run of the scenario's): cut to their first 8 and 16 to
 # leave phases 12-14 room in the script's time
-E2E_RUNS = (("e2e_steady", 16), ("crash_cascade", 16))
+E2E_RUNS = (("e2e_steady", 8), ("crash_cascade", 16))
 E2E_REPLICAS = 8
 
 
@@ -1796,7 +1817,7 @@ def plain_greedy_check(params, cfg, ecfg, report):
 
 def drive_e2e(params):
     """``run_e2e`` on one fleet of 8 full-width qwen2-0.5b replicas over
-    phase 6's weights: ``e2e_steady``, then ``crash_cascade`` cut to 16
+    phase 6's weights: ``e2e_steady`` cut to 8, then ``crash_cascade`` to 16
     requests, on the same warm fleet. The decode kernel's count is
     zeroed just before each run and read just after."""
     cfg = get_config(SERVE_ARCH)
@@ -2835,7 +2856,7 @@ def drive_wallclock(fleet):
 
 # 15a: examples/train_lm.py's defaults at qwen2-0.5b's full width
 TRAIN_AGENTS, TRAIN_R, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 2, 8, 64, 3e-3
-TRAIN_STEPS, TRAIN_MORE, TRAIN_CKPT_EVERY = 30, 5, 10
+TRAIN_STEPS, TRAIN_MORE, TRAIN_CKPT_EVERY = 10, 5, 10
 # the f32 reduced twins, card against CPU: the same operations, sums in
 # another order, over a few steps
 TWIN_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -4115,6 +4136,325 @@ def drive_dryrun(placed_collectives, bf16_rate: float):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 18. tensor-parallel compute over "model" for the dense decoders
+
+
+# 18a: 16a's agents, mask and batches on data 2 x model 2 (no remat: the
+# f32 twin recomputes, so a recomputation on autograd's thread is held to
+# the one-process step there); the f32 twin
+# (full width, 2 layers, SGD with momentum: AdamW would turn the
+# reordered sums of near-zero gradients into updates of about lr) against
+# the one-process step within TWIN_TOL. 18b: 16c's prompts.
+TPC_DATA, TPC_MODEL = 2, 2
+TPC_TWIN_LAYERS = 2
+TPC_FLOP_RATIO = (0.45, 0.60)      # rank FLOPs at model 2 over model 1
+
+
+def tpc_twin():
+    """(config, train config) of 18a's f32 twin."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              n_layers=TPC_TWIN_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    return cfg, TrainConfig(mode="masked", optimizer="sgdm", lr=3e-2,
+                            remat_policy="full")
+
+
+def tpc_meta_count(model: int):
+    """18a's placed step (16a's configuration, no remat) on rank 0 of a
+    recording mesh data 2 x ``model``, on the meta device."""
+    cfg = get_config(SERVE_ARCH)
+    tc = placed_tc("none")
+    mesh = RecordingMesh((TPC_DATA, model), ("data", "model"))
+    state, specs = place_state(abstract_state(cfg, tc,
+                                              max_pos=TRAIN_SEQ + 1), mesh)
+    step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS, dp="data",
+                           tp="model", param_specs=specs["params"],
+                           sizes=mesh.shape, mesh=mesh)
+    _, cnt = counted(step, state, lm_batch_meta(TRAIN_BATCH, TRAIN_SEQ))
+    return cnt.table()
+
+
+def tpc_grow(cfg, prefill, rows, max_len, mesh):
+    """A decode cache of ``max_len`` positions in ``place_cache``'s layout
+    holding a tensor-parallel prefill's cache."""
+    cache = place_cache(mmodel.init_cache(cfg, rows, max_len,
+                                          device=mesh.device), cfg, mesh)
+    for blk, pre in zip(cache, prefill):
+        for name, leaf in blk["mixer"].items():
+            src = pre["mixer"][name]
+            leaf[:, :, :src.shape[2]] = src
+    return cache
+
+
+@torch.no_grad()
+def tpc_serve(mesh, prompts):
+    """18b on one rank: this dp rank's prompts through ``make_prefill_step``
+    and ``make_decode_step`` on ``place_params``' blocks; (tokens, ms per
+    decode step)."""
+    dev = mesh.device
+    cfg = get_config(SERVE_ARCH)
+    params = place_params(init_model(torch.Generator(device=dev)
+                                     .manual_seed(0), cfg, device=dev),
+                          cfg, mesh)
+    rows = len(prompts) // TPC_DATA
+    d = mesh.axis_index("data")
+    mine = torch.from_numpy(prompts[d * rows:(d + 1) * rows]).to(dev)
+    prefill = make_prefill_step(cfg, mesh=mesh)
+    decode = make_decode_step(cfg, mesh=mesh)
+    tok, pre = prefill(params, {"tokens": mine})
+    cache = tpc_grow(cfg, pre, rows, GREEDY_PROMPT_LEN + GREEDY_NEW, mesh)
+    out = [tok]
+    sync(dev)
+    t0 = time.perf_counter()
+    for i in range(GREEDY_NEW - 1):
+        tok, _ = decode(params, {"tokens": tok[:, None], "cache": cache,
+                                 "pos": GREEDY_PROMPT_LEN + i})
+        out.append(tok)
+    sync(dev)
+    ms = (time.perf_counter() - t0) / (GREEDY_NEW - 1) * 1e3
+    toks = torch.stack(out, 1).cpu().numpy()
+    del params, cache, pre
+    return toks, ms
+
+
+def tpc_card_rank(rank, world, ref_dir, prompts, device="cuda"):
+    """A rank of 18a and 18b on the card (gloo, data 2 x model 2)."""
+    card_flags()
+    mesh = make_test_mesh(data=TPC_DATA, model=TPC_MODEL, device=device)
+    dev = mesh.device
+    cfg = get_config(SERVE_ARCH)
+    tc = placed_tc("none")
+    full = init_state(torch.Generator(device=dev).manual_seed(0), cfg, tc,
+                      max_pos=TRAIN_SEQ + 1, device=dev)
+    whole = sum(l.numel() * l.element_size() for k in ("params", "opt")
+                for l in tree_flatten(full[k])[0])
+    before = torch.cuda.memory_allocated(dev)
+    state, specs = place_state(full, mesh)
+    placed = torch.cuda.memory_allocated(dev) - before
+    del full
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS, dp="data",
+                           tp="model", param_specs=specs["params"],
+                           sizes=mesh.shape, mesh=mesh)
+    losses, secs = [], []
+    t_rank = time.perf_counter()
+    for i, (x, y, w) in enumerate(placed_batches(cfg.vocab_size)):
+        last = i == PLACED_STEPS - 1         # counted: the card's ops
+        sync(dev)
+        t0 = time.perf_counter()
+        with OpCounter() if last else contextlib.nullcontext() as cnt:
+            state, m = step(state, lm_batch(x, y, w, dev))
+            losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        if last:
+            table = cnt.table()
+    same = agreed(mesh, gather_tree(state["params"], specs["params"], mesh))
+    out = dict(placed=placed, whole=whole, losses=losses, secs=secs,
+               table=table, same=same, tp=step.placement.tp,
+               report=state_bytes_per_rank(cfg, tc, mesh.shape,
+                                           max_pos=TRAIN_SEQ + 1))
+    del state, step
+    torch.cuda.empty_cache()
+    out["steps_s"] = time.perf_counter() - t_rank
+
+    t0 = time.perf_counter()
+    cfg32, tc32 = tpc_twin()
+    state = init_state(torch.Generator(device=dev).manual_seed(1), cfg32,
+                       tc32, max_pos=TRAIN_SEQ + 1, device=dev)
+    state, specs = place_state(state, mesh)
+    step = make_train_step(cfg32, tc32, moe_groups=PLACED_AGENTS, dp="data",
+                           tp="model", param_specs=specs["params"],
+                           sizes=mesh.shape, mesh=mesh)
+    for x, y, w in placed_batches(cfg32.vocab_size):
+        state, m = step(state, lm_batch(x, y, w, dev))
+    params = gather_tree(state["params"], specs["params"], mesh)
+    out["twin_same"] = agreed(mesh, params)
+    if mesh.rank == 0:                # the parent holds it to its reference
+        torch.save(mmodel.tree_to(params, "cpu"),
+                   os.path.join(ref_dir, "tpc_twin_tp.pt"))
+    del state, step, params
+    torch.cuda.empty_cache()
+    out["twin_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["tokens"], out["decode_ms"] = tpc_serve(mesh, prompts)
+    out["serve_s"] = time.perf_counter() - t0
+    return out
+
+
+@torch.no_grad()
+def tpc_one_rank(prompts, device="cuda"):
+    """18b's one-rank reference: the same prefill and greedy decode steps
+    with whole parameters; (tokens, ms per decode step, parameters)."""
+    cfg = get_config(SERVE_ARCH)
+    params = init_model(torch.Generator(device=device).manual_seed(0), cfg,
+                        device=device)
+    batch = torch.from_numpy(prompts).to(device)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    prefill(params, {"tokens": batch[:, :8]})                 # warm-up
+    tok, pre = prefill(params, {"tokens": batch})
+    cache = dense_cache(cfg, pre, len(prompts),
+                        GREEDY_PROMPT_LEN + GREEDY_NEW, device)
+    out = [tok]
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(GREEDY_NEW - 1):
+        tok, _ = decode(params, {"tokens": tok[:, None], "cache": cache,
+                                 "pos": GREEDY_PROMPT_LEN + i})
+        out.append(tok)
+    sync(device)
+    ms = (time.perf_counter() - t0) / (GREEDY_NEW - 1) * 1e3
+    return torch.stack(out, 1).cpu().numpy(), ms, params
+
+
+@torch.no_grad()
+def tpc_teacher_forced(params, prompts, streams, device="cuda"):
+    """One rank's logits along ``streams`` (the prefill's last position,
+    then each decode fed the stream's previous token): (B, T, V) f32."""
+    cfg = get_config(SERVE_ARCH)
+    batch = torch.from_numpy(prompts).to(device)
+    logits, _, pre = apply_model(params, batch, cfg, mode="prefill")
+    out = [logits[:, -1].float()]
+    cache = dense_cache(cfg, pre, len(prompts),
+                        GREEDY_PROMPT_LEN + GREEDY_NEW, device)
+    feed = torch.from_numpy(streams).to(device)
+    for i in range(streams.shape[1] - 1):
+        logits, _, _ = apply_model(params, feed[:, i:i + 1], cfg,
+                                   mode="decode", cache=cache,
+                                   cache_index=GREEDY_PROMPT_LEN + i)
+        out.append(logits[:, -1].float())
+    return torch.stack(out, 1)
+
+
+def drive_tp_compute(device="cuda"):
+    """18a-18b: the placed masked step and launch.serve's steps of
+    qwen2-0.5b at full width, tensor-parallel over model = 2 on 4 gloo
+    ranks sharing the card (data 2 x model 2)."""
+    t_all = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    prompts = np.random.default_rng(0).integers(       # 16c's prompts
+        0, cfg.vocab_size, (GREEDY_PROMPTS, GREEDY_PROMPT_LEN)).astype(
+            np.int32)
+    one_tok, one_ms, params = tpc_one_rank(prompts, device)
+    t_one = time.perf_counter() - t_all
+    t0 = time.perf_counter()
+    cfg32, tc32 = tpc_twin()
+    state = init_state(torch.Generator(device=device).manual_seed(1), cfg32,
+                       tc32, max_pos=TRAIN_SEQ + 1, device=device)
+    step = make_train_step(cfg32, tc32, moe_groups=PLACED_AGENTS)
+    for x, y, w in placed_batches(cfg32.vocab_size):
+        state, _ = step(state, lm_batch(x, y, w, device))
+    ref = state["params"]
+    del state, step
+    t_twin = time.perf_counter() - t0
+
+    def meta_counts():
+        t0 = time.perf_counter()
+        out = tpc_meta_count(TPC_MODEL), tpc_meta_count(1)
+        return out + (time.perf_counter() - t0,)
+
+    # the meta counts (host work only) on a thread while the ranks run
+    ex = ThreadPoolExecutor(1)
+    counting = ex.submit(meta_counts)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        res = run_ranks(tpc_card_rank, TPC_DATA * TPC_MODEL, backend="gloo",
+                        device=device, timeout=SPMD_TIMEOUT,
+                        args=(tmp, prompts, device),
+                        threads=CORES // (TPC_DATA * TPC_MODEL))
+        ranks_s = time.perf_counter() - t0
+        dry, dry1, t_meta = counting.result()
+        ex.shutdown()
+        twin = torch.load(os.path.join(tmp, "tpc_twin_tp.pt"))
+    pairs = [(a.to(device), b) for a, b in zip(tree_flatten(twin)[0],
+                                               tree_flatten(ref)[0])]
+    twin_err = max(float((a - b).abs().max()) for a, b in pairs)
+    for a, b in pairs:
+        torch.testing.assert_close(a, b, **TWIN_TOL)
+    del twin, ref, pairs
+    r0 = res[0]
+    a, a1 = analyze(dry), analyze(dry1)
+    log(f"  18a: {SERVE_ARCH} at full width, bf16, the placed masked step "
+        f"on data {TPC_DATA} x model {TPC_MODEL} (4 gloo ranks sharing the "
+        f"card, {ranks_s:.1f} s with start-up: rank 0's state and steps "
+        f"{r0['steps_s']:.1f} s, twin {r0['twin_s']:.1f} s, 18b "
+        f"{r0['serve_s']:.1f} s; before the ranks, one rank's serving "
+        f"{t_one:.1f} s and the twin's reference {t_twin:.1f} s; beside "
+        f"them, the two meta counts {t_meta:.1f} s), tp axes {r0['tp']}")
+    for r, o in enumerate(res):
+        log(f"    rank {r}: parameters and moments {o['placed']:,} B after "
+            f"placement, meta-device report {o['report']['total']:,} B, "
+            f"replicated state {o['whole']:,} B; s per step " + ", ".join(
+                f"{t:.2f}" for t in o["secs"]))
+    log(f"    losses {r0['losses']}; gathered parameters identical on every "
+        f"rank: {all(o['same'] for o in res)}")
+    card_flops = analyze(r0["table"])["flops"]
+    log(f"    rank FLOPs of a step: card (the last) {card_flops:.6e}, "
+        f"recording mesh (meta) {a['flops']:.6e}; at data "
+        f"{TPC_DATA} x model 1 (meta) {a1['flops']:.6e}: ratio "
+        f"{a['flops'] / a1['flops']:.4f}; all-reduces a rank "
+        f"{a['collective_count']:.0f} ({a['collectives']['all-reduce']:.6e} "
+        f"wire bytes) against {a1['collective_count']:.0f} "
+        f"({a1['collectives']['all-reduce']:.6e})")
+    log(f"    f32 twin ({TPC_TWIN_LAYERS} layers, full width, SGD-momentum) "
+        f"against the one-process make_train_step after {PLACED_STEPS} "
+        f"steps: max |param diff| {twin_err:.3e} (tolerance "
+        f"{TWIN_TOL['atol']:.0e}); identical on every rank: "
+        f"{all(o['twin_same'] for o in res)}")
+    for r, o in enumerate(res):
+        require_same_ops(f"18a rank {r}", dry, o["table"], keys=("flops",))
+        if o["table"]["collectives"] != dry["collectives"]:
+            raise AssertionError(f"18a rank {r}: collectives "
+                                 f"{o['table']['collectives']}, recorded "
+                                 f"{dry['collectives']}")
+        if abs(o["placed"] - o["report"]["total"]) > \
+                PLACED_BYTES_REL * o["report"]["total"]:
+            raise AssertionError(f"18a rank {r}: {o['placed']} B placed, "
+                                 f"the report says {o['report']['total']}")
+    ratio = a["flops"] / a1["flops"]
+    if not (all(o["same"] and o["twin_same"] for o in res)
+            and r0["tp"] == ("model",) and np.isfinite(r0["losses"]).all()
+            and TPC_FLOP_RATIO[0] <= ratio <= TPC_FLOP_RATIO[1]):
+        raise AssertionError(f"18a: same {[o['same'] for o in res]}, twin "
+                             f"{[o['twin_same'] for o in res]}, tp "
+                             f"{r0['tp']}, losses {r0['losses']}, FLOP "
+                             f"ratio {ratio}")
+
+    # 18b: every model rank of a dp block streams the same tokens; the
+    # streams against one rank's greedy argmax wherever it is clear
+    rows = GREEDY_PROMPTS // TPC_DATA
+    streams = np.concatenate([res[d * TPC_MODEL]["tokens"]
+                              for d in range(TPC_DATA)])
+    for r, o in enumerate(res):
+        d = r // TPC_MODEL
+        if not np.array_equal(o["tokens"], streams[d * rows:(d + 1) * rows]):
+            raise AssertionError(f"18b rank {r}: tokens differ from its "
+                                 "dp block's other model rank")
+    lg = tpc_teacher_forced(params, prompts, streams, device)
+    top2 = lg.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL
+    agree = lg.argmax(-1).cpu().numpy() == streams
+    clear = clear.cpu().numpy()
+    mean_ms = float(np.mean([o["decode_ms"] for o in res]))
+    log(f"  18b: launch.serve prefill + {GREEDY_NEW - 1} decode steps, "
+        f"{GREEDY_PROMPTS} prompts of {GREEDY_PROMPT_LEN}, on data "
+        f"{TPC_DATA} x model {TPC_MODEL}: {mean_ms:.2f} ms per decode "
+        f"step (ranks " + ", ".join(
+            f"{o['decode_ms']:.2f}" for o in res) + f") against one rank's "
+        f"{one_ms:.2f}; streams equal to one rank's greedy tokens: "
+        f"{np.array_equal(streams, one_tok)} ({int((streams == one_tok).sum())}"
+        f" of {streams.size} positions); the one-rank argmax along the "
+        f"streams at {int(agree.sum())} of {agree.size} positions, "
+        f"{int((~clear).sum())} within the {LOGIT_TOL} margin")
+    if not agree[clear].all():
+        raise AssertionError("18b: a stream leaves one rank's greedy argmax "
+                             "at a clear margin")
+    del params
+    torch.cuda.empty_cache()
+    log(f"  phase 18 in {time.perf_counter() - t_all:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4245,7 +4585,11 @@ def main() -> int:
     drive_dryrun(placed_collectives, bf16_rate)
     log(f"  phase 17 in {time.perf_counter() - t17:.1f} s")
 
-    log("== 18. result")
+    log("== 18. tensor-parallel compute over model: the placed step and "
+        "launch.serve's steps on data 2 x model 2")
+    drive_tp_compute()
+
+    log("== 19. result")
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

@@ -13,6 +13,9 @@
 - ``repro_torch.dist.act_sharding`` the models' activation constraint
   points (``constrain``, ``act_policy``) and the storage -> compute
   gather (``constrain_tree``).
+- ``repro_torch.dist.tp``           tensor-parallel compute over the
+  "model" axes for the dense decoders: the context the layers read and
+  Megatron's four autograd Functions on all-reduces.
 """
 from repro_torch.dist import registry  # noqa: F401
 from repro_torch.dist.registry import (AggregationRule, get_rule,  # noqa: F401

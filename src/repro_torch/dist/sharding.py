@@ -20,8 +20,10 @@ Placement by leaf name, as the reference's:
 
 The placed train step stores each leaf of its state as this rank's
 block under these specs (:func:`shard_tree`; :func:`gather_tree` is the
-inverse) and gathers blocks whole for compute (:class:`Placement`, the
-gather ``act_sharding.constrain_tree`` runs); :func:`bytes_per_rank`
+inverse) and gathers each block to its block of the compute layout
+(:func:`compute_rules`, the reference's ``param_cspecs``: whole leaves
+for the families without tensor-parallel compute; :class:`Placement`,
+the gather ``act_sharding.constrain_tree`` runs); :func:`bytes_per_rank`
 counts what a rank holds. The serving engine splits its page pools by
 ``cache_specs``' kv-head rule applied to its mesh's own extents
 (``kv_head_block``), and ``serve_tp`` carries the mesh and that block to
@@ -381,42 +383,67 @@ def shard_tree(tree: Tree, specs: Tree, mesh) -> Tree:
     return _rebuild(tree, iter(out))
 
 
-def _contributes(spec, mesh) -> bool:
-    """Whether this rank adds its block of a leaf to a gather: it sits at
-    coordinate 0 of every mesh axis the leaf is replicated over."""
-    used, c = set(_spec_axes(spec, mesh)), mesh.coords()
-    return all(c[a] == 0 for a in mesh.axis_names if a not in used)
-
-
 def _gather_leaves(leaves: Sequence[torch.Tensor], specs, full_shapes,
-                   mesh) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
-    """Whole leaves from this rank's blocks; a leaf no axis splits comes
-    back as it is. Returns (leaves, the byte buffer the others view, or
-    None where no leaf is split)."""
+                   mesh, targets=None
+                   ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """Each leaf from this rank's block under its storage spec to its
+    block under its ``targets`` spec (None: every leaf whole); a leaf
+    whose block is already that comes back as it is. The all-reduce runs
+    over the mesh axes no target splits, so each target block is
+    gathered from the ranks that share it. Returns (leaves, the byte
+    buffer the others view, or None where nothing is gathered)."""
     out: List[Optional[torch.Tensor]] = list(leaves)
-    idx = [i for i, sp in enumerate(specs) if _spec_axes(sp, mesh)]
+    targets = list(targets) if targets is not None else [()] * len(leaves)
+    kept = {a for t in targets for a in _spec_axes(t, mesh)}
+    group = tuple(a for a in mesh.axis_names if a not in kept)
+    tshape = [block_shape(t, s, mesh) for t, s in zip(targets, full_shapes)]
+    idx = [i for i, sp in enumerate(specs)
+           if _spec_axes(sp, mesh) != _spec_axes(targets[i], mesh)]
     if not idx:
         return out, None
     offs, n = [], 0
     for i in idx:
         offs.append(n)
-        n += -(-math.prod(full_shapes[i]) * leaves[i].element_size()
+        n += -(-math.prod(tshape[i]) * leaves[i].element_size()
                // ALIGN) * ALIGN
     flat = torch.zeros(n, dtype=torch.uint8, device=leaves[idx[0]].device)
 
     def view(buf, i, off):
-        size = math.prod(full_shapes[i]) * leaves[i].element_size()
-        return buf[off:off + size].view(leaves[i].dtype).view(
-            full_shapes[i])
+        size = math.prod(tshape[i]) * leaves[i].element_size()
+        return buf[off:off + size].view(leaves[i].dtype).view(tshape[i])
 
+    c = mesh.coords()
     for i, off in zip(idx, offs):
-        if _contributes(specs[i], mesh):
-            view(flat, i, off)[block_slices(specs[i], full_shapes[i],
-                                            mesh)] = leaves[i]
-    flat = mesh.all_reduce(flat, mesh.axis_names)
+        used = set(_spec_axes(specs[i], mesh))
+        if all(c[a] == 0 for a in group if a not in used):
+            view(flat, i, off)[_within(specs[i], targets[i], full_shapes[i],
+                                       mesh)] = leaves[i]
+    flat = mesh.all_reduce(flat, group)
     for i, off in zip(idx, offs):
         out[i] = view(flat, i, off)
     return out, flat
+
+
+def block_shape(spec, shape, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a leaf of ``shape`` under ``spec``."""
+    return tuple(s.stop - s.start for s in block_slices(spec, shape, mesh))
+
+
+def _within(spec, target, shape, mesh) -> Tuple[slice, ...]:
+    """Where this rank's block under ``spec`` lies in its block under
+    ``target``, which must hold it: per dimension, the target's
+    splitting axes lead the storage spec's."""
+    out = []
+    pad = (None,) * len(shape)
+    for s, t, se, te in zip(block_slices(spec, shape, mesh),
+                            block_slices(target, shape, mesh),
+                            tuple(spec) + pad, tuple(target) + pad):
+        ax, tx = _split_axes(se, mesh), _split_axes(te, mesh)
+        if ax[:len(tx)] != tx:
+            raise ValueError(f"a block under {spec} does not lie in one "
+                             f"block under {target}")
+        out.append(slice(s.start - t.start, s.stop - t.start))
+    return tuple(out)
 
 
 def full_shape(spec, local_shape, mesh) -> Tuple[int, ...]:
@@ -449,21 +476,34 @@ def bytes_per_rank(tree: Tree, specs: Tree, sizes: Dict[str, int]) -> int:
     return total
 
 
+def compute_rules(mesh_shape: Dict[str, int], **kw) -> MeshRules:
+    """The reference's compute layout on a mesh of axis sizes
+    ``mesh_shape``: its storage rules with no fsdp axes
+    (``tree_specs(params, compute_rules(...))`` is its ``param_cspecs``):
+    column weights split their fan-out over tp, row weights their fan-in,
+    the embedding its model columns; the rest whole."""
+    return MeshRules(axis_sizes=dict(mesh_shape), fsdp_axes=(), **kw)
+
+
 class _Gather(torch.autograd.Function):
-    """Storage blocks -> whole leaves (one all-reduce of bytes); the
-    backward all-reduces the whole gradients over the dp axes only (the
-    model ranks computed the same gradient), adds each reduced leaf's
-    squared norm to the placement's record, and returns this rank's
-    block of each."""
+    """Storage blocks -> compute blocks (one all-reduce of bytes over the
+    axes the compute layout does not split; whole leaves where it splits
+    nothing). The backward all-reduces the compute blocks' gradients over
+    the dp axes only: a leaf the tp ranks split holds this rank's block
+    of the gradient, and a leaf they replicate arrives whole and
+    tp-reduced already (``dist.tp.copy_to_tp``). It records each reduced
+    leaf's squared norm on the placement, split or replicated over tp,
+    and returns this rank's storage block of each."""
 
     @staticmethod
     def forward(ctx, plc, specs, *leaves):
+        mesh = plc.mesh
         ctx.plc, ctx.specs, ctx.device = plc, specs, leaves[0].device
         ctx.dtypes = [l.dtype for l in leaves]
-        shapes = [full_shape(s, l.shape, plc.mesh)
-                  for l, s in zip(leaves, specs)]
+        shapes = [full_shape(s, l.shape, mesh) for l, s in zip(leaves, specs)]
+        ctx.targets = [plc.target(s) for s in specs]
         ctx.full = shapes
-        out, flat = _gather_leaves(leaves, specs, shapes, plc.mesh)
+        out, flat = _gather_leaves(leaves, specs, shapes, mesh, ctx.targets)
         if flat is not None:
             plc._hold(flat)
         return tuple(o if o is not l else l.view_as(l)
@@ -471,34 +511,67 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        plc = ctx.plc
-        full = [torch.zeros(s, dtype=torch.float32, device=ctx.device)
-                if g is None else g.to(torch.float32)
-                for g, s in zip(grads, ctx.full)]
-        sizes = [math.prod(s) for s in ctx.full]
-        flat = plc.mesh.all_reduce(torch.cat([g.reshape(-1) for g in full]),
-                                   plc.dp)
+        plc, mesh = ctx.plc, ctx.plc.mesh
+        shapes = [block_shape(t, s, mesh)
+                  for t, s in zip(ctx.targets, ctx.full)]
+        blocks = [torch.zeros(s, dtype=torch.float32, device=ctx.device)
+                  if g is None else g.to(torch.float32)
+                  for g, s in zip(grads, shapes)]
+        sizes = [math.prod(s) for s in shapes]
+        flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in blocks]),
+                               plc.dp)
         out = []
-        for g, s, sp, dtype in zip(torch.split(flat, sizes), ctx.full,
-                                   ctx.specs, ctx.dtypes):
+        for g, s, full, sp, t, dtype in zip(
+                torch.split(flat, sizes), shapes, ctx.full, ctx.specs,
+                ctx.targets, ctx.dtypes):
             g = g.view(s).to(dtype)
-            plc.sq_norms.append(torch.sum(torch.square(g.to(torch.float32))))
-            out.append(g[block_slices(sp, s, plc.mesh)].contiguous())
+            sq = torch.sum(torch.square(g.to(torch.float32)))
+            (plc.sq_norms_split if _spec_axes(t, mesh)
+             else plc.sq_norms).append(sq)
+            out.append(g[_within(sp, t, full, mesh)].contiguous())
         return (None, None) + tuple(out)
 
 
 class Placement:
     """The gather of a placed train step on ``mesh`` with dp axes ``dp``:
     :meth:`gather` is what ``act_sharding.constrain_tree`` runs under
-    ``act_sharding.placement``. It records the squared norm of every
-    dp-reduced whole gradient leaf as its backward sees it
-    (``sq_norms``), and the most bytes of gathered leaves alive at once
-    (``peak_bytes``)."""
+    ``act_sharding.placement``. It brings each storage block to its block
+    of the compute layout: the storage spec less every axis but ``tp``
+    (the tensor-parallel axes the compute keeps; none: whole leaves, the
+    other families' compute). It records the squared norm of every
+    dp-reduced gradient leaf as its backward sees it (``sq_norms`` for
+    leaves whole on every rank, ``sq_norms_split`` for this rank's tp
+    block; :meth:`global_sq_norm` joins them), and the most bytes of
+    gathered leaves alive at once (``peak_bytes``)."""
 
-    def __init__(self, mesh, dp: Tuple[str, ...]):
-        self.mesh, self.dp = mesh, tuple(dp)
+    def __init__(self, mesh, dp: Tuple[str, ...], tp: Tuple[str, ...] = ()):
+        self.mesh, self.dp, self.tp = mesh, tuple(dp), tuple(tp)
         self.sq_norms: List[torch.Tensor] = []
+        self.sq_norms_split: List[torch.Tensor] = []
         self.live_bytes = self.peak_bytes = 0
+
+    def target(self, spec) -> tuple:
+        """The compute-layout spec of a leaf stored under ``spec``."""
+        out = []
+        for e in spec:
+            axes = tuple(a for a in _used(e) if a in self.tp)
+            out.append(None if not axes else
+                       axes[0] if len(axes) == 1 else axes)
+        return tuple(out)
+
+    def clear(self) -> None:
+        self.sq_norms.clear()
+        self.sq_norms_split.clear()
+
+    def global_sq_norm(self) -> torch.Tensor:
+        """The squared norm of the whole gradient: the replicated leaves
+        once, the split leaves' squares summed over the tp axes (one
+        all-reduce, where any leaf is split)."""
+        total = sum(self.sq_norms)
+        if self.sq_norms_split:
+            total = total + self.mesh.all_reduce(sum(self.sq_norms_split),
+                                                 self.tp)
+        return total
 
     def _hold(self, flat: torch.Tensor) -> None:
         n = flat.numel() * flat.element_size()

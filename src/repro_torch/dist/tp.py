@@ -1,0 +1,222 @@
+"""Tensor-parallel compute over the mesh's "model" axes: the context the
+dense decoders' layers read, and Megatron's four autograd Functions on
+its axes (the port's counterpart of what GSPMD derives for the
+reference from its compute layout, ``tree_specs(params,
+MeshRules(fsdp_axes=()))``).
+
+The placed train step and ``launch.serve``'s steps install a
+:class:`tp_context` (mesh, tp axes) for a config :func:`tp_dense`
+accepts; the layers of ``models/layers.py`` and ``models/attention.py``
+then run on this rank's blocks of the compute layout:
+
+- a column-parallel matmul takes ``copy_to_tp(x)`` (identity forward,
+  all-reduce backward) and keeps this rank's block of the fan-out;
+- a row-parallel matmul takes this rank's block of the fan-in and sums
+  the partial products with ``reduce_from_tp`` (all-reduce forward,
+  identity backward);
+- ``gather_from_tp`` / ``scatter_to_tp`` change a tensor's layout where
+  the reference's constraint points change it (the embedding's model
+  columns, a query split across head boundaries, the decode's head_dim).
+
+Every collective is an all-reduce over the tp axes (gloo's CUDA path
+has no other); a gather writes this rank's block into ``-0.0`` pads, so
+the sum returns every block exactly. With no context active, or a tp
+extent of 1, every function here is the identity, so one process and
+the other families run the code they ran before.
+
+*Groups.* Where a dimension of H heads does not split over all n tp
+ranks, the reference splits it over gcd(H, n) groups of consecutive
+ranks and computes each group's block on all of the group's ranks. The
+``groups`` argument says how many such groups a tensor's layout has:
+``gather_from_tp(x, dim, groups=g)`` returns the group's block,
+``scatter_to_tp(x, dim, groups=g)`` takes it, and ``copy_to_tp(x,
+groups=g)`` feeds a computation that the ranks of a group repeat, so
+its backward sums one rank of each group.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+_STATE = threading.local()
+
+
+class TP:
+    """The active tensor-parallel extent: ``mesh``, its ``axes``, their
+    ``size`` n and this rank's index ``rank`` over them."""
+
+    __slots__ = ("mesh", "axes", "size", "rank")
+
+    def __init__(self, mesh, axes: Tuple[str, ...]):
+        self.mesh, self.axes = mesh, tuple(axes)
+        self.size = mesh.axis_size(self.axes)
+        self.rank = mesh.axis_index(self.axes)
+
+    def block(self, dim: int, parts: Optional[int] = None) -> slice:
+        """This rank's block of a dimension of ``dim`` split into
+        ``parts`` (n by default) blocks over consecutive rank groups."""
+        parts = self.size if parts is None else parts
+        if dim % parts or self.size % parts:
+            raise ValueError(f"{dim} does not split into {parts} blocks "
+                             f"over {self.size} tp ranks")
+        b, r = dim // parts, self.rank // (self.size // parts)
+        return slice(r * b, (r + 1) * b)
+
+    def leads(self, groups: int) -> bool:
+        """Whether this rank is the first of its group of ``n / groups``."""
+        return self.rank % (self.size // groups) == 0
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_reduce(x, self.axes)
+
+    def gather(self, x: torch.Tensor, dim: int,
+               groups: int = 1) -> torch.Tensor:
+        """Every rank's block along ``dim`` -> the ``groups``-way block of
+        this rank's group (1: the whole dimension), through one
+        ``-0.0``-padded all-reduce (no autograd)."""
+        dim = dim % x.dim()
+        n = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = n * self.size
+        buf = torch.full(shape, -0.0, dtype=x.dtype, device=x.device)
+        buf.narrow(dim, self.rank * n, n).copy_(x)
+        full = self.all_reduce(buf)
+        g = self.block(shape[dim], groups)
+        return full.narrow(dim, g.start, g.stop - g.start)
+
+    def keep(self, x: torch.Tensor, dim: int,
+             groups: int = 1) -> torch.Tensor:
+        """This rank's block of ``x``, the ``groups``-way block of its
+        group along ``dim`` (no autograd)."""
+        dim = dim % x.dim()
+        n = x.shape[dim] * groups // self.size
+        off = (self.rank % (self.size // groups)) * n
+        return x.narrow(dim, off, n).contiguous()
+
+
+class tp_context:
+    """Context manager installing tensor-parallel compute over
+    ``tp_axes`` of ``mesh`` (None: none, an explicit off)."""
+
+    def __init__(self, mesh, tp_axes: Tuple[str, ...] = ("model",)):
+        self._val = (None if mesh is None or mesh.axis_size(tuple(tp_axes))
+                     == 1 else TP(mesh, tp_axes))
+
+    @classmethod
+    def of(cls, tp: Optional[TP]) -> "tp_context":
+        """Re-install a captured :class:`TP` (or none), on another thread:
+        a checkpointed layer recomputes on autograd's."""
+        ctx = cls.__new__(cls)
+        ctx._val = tp
+        return ctx
+
+    def __enter__(self):
+        stack = getattr(_STATE, "stack", None)
+        if stack is None:
+            stack = _STATE.stack = []
+        stack.append(self._val)
+        return self._val
+
+    def __exit__(self, *exc):
+        _STATE.stack.pop()
+        return False
+
+
+def current_tp() -> Optional[TP]:
+    stack = getattr(_STATE, "stack", None)
+    return stack[-1] if stack else None
+
+
+def tp_dense(cfg) -> bool:
+    """The family this layer of tensor parallelism covers: every layer
+    GQA attention with a dense MLP, no MoE, no MLA, no SSM or RWKV, no
+    encoder. The one predicate every caller reads; the other families
+    compute whole on every rank."""
+    return (all(k == "attn" for k in cfg.layer_pattern)
+            and cfg.attention != "mla" and cfg.moe is None
+            and not cfg.encoder_decoder)
+
+
+# ---------------------------------------------------------------------------
+# the four Functions
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tp, groups, x):
+        ctx.tp, ctx.groups = tp, groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        if not tp.leads(ctx.groups):
+            g = torch.zeros_like(g)
+        return None, None, tp.all_reduce(g)
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tp, x):
+        return tp.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tp, dim, groups, x):
+        ctx.tp, ctx.dim, ctx.groups = tp, dim, groups
+        return tp.gather(x, dim, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None, ctx.tp.keep(g, ctx.dim, ctx.groups)
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tp, dim, groups, x):
+        ctx.tp, ctx.dim, ctx.groups = tp, dim, groups
+        return tp.keep(x, dim, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None, ctx.tp.gather(g, ctx.dim, ctx.groups)
+
+
+def copy_to_tp(x: torch.Tensor, groups: Optional[int] = None):
+    """Identity forward; the backward all-reduces the gradient over tp,
+    one rank of each of ``groups`` groups contributing (all n by
+    default): the input of a column-parallel matmul, or of a computation
+    the ranks of a group repeat."""
+    tp = current_tp()
+    if tp is None:
+        return x
+    return _Copy.apply(tp, tp.size if groups is None else groups, x)
+
+
+def reduce_from_tp(x: torch.Tensor):
+    """All-reduce forward (a row-parallel output's partial products);
+    identity backward."""
+    tp = current_tp()
+    return x if tp is None else _Reduce.apply(tp, x)
+
+
+def gather_from_tp(x: torch.Tensor, dim: int, groups: int = 1):
+    """This rank's block along ``dim`` -> its group's block (``groups``
+    = 1: the whole dimension) by a ``-0.0``-padded all-reduce; the
+    backward keeps this rank's block."""
+    tp = current_tp()
+    return x if tp is None else _Gather.apply(tp, dim, groups, x)
+
+
+def scatter_to_tp(x: torch.Tensor, dim: int, groups: int = 1):
+    """The group's block along ``dim`` (``groups`` = 1: the whole) ->
+    this rank's block; the backward gathers the blocks back."""
+    tp = current_tp()
+    return x if tp is None else _Scatter.apply(tp, dim, groups, x)

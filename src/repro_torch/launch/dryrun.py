@@ -12,16 +12,21 @@ only: nothing is allocated and no card is needed) over a
 - train, ``mode="masked"``: the placed (FSDP) step,
   ``make_train_step(..., param_specs=, mesh=)``, on this rank's blocks
   of the state (``shard_tree`` under the layout's storage rules) and the
-  global batch it slices itself. Compute is whole on every rank: the
-  model axes replicate it.
+  global batch it slices itself. Each period's blocks are gathered to
+  the compute layout (``dist.sharding.compute_rules``, the reference's
+  ``param_cspecs``): a dense decoder (``dist.tp.tp_dense``) computes
+  tensor-parallel over "model" (``dist.tp``); the other families gather
+  whole leaves and compute whole on every rank.
 - train, the general modes (cge, stale, trimmed, quantized):
   ``make_general_step``, which refuses a model axis above 1 (the
   production meshes have 16), so the record is ``ok: False`` with that
   refusal.
-- prefill and decode: ``launch.serve``'s steps with whole parameters on
-  this rank's dp block of the batch and cache (the dp entries of
-  ``batch_specs`` / ``cache_specs``; the other entries stay whole): the
-  port's compute layout today.
+- prefill and decode: ``launch.serve``'s steps on this rank's dp block
+  of the batch and cache. A dense decoder runs tensor-parallel on the
+  compute layout (``place_params``) and a cache with ``cache_specs``'
+  tp entries (head_dim over "model", ``place_cache``), as the
+  reference's cells place them; the other families take whole
+  parameters and the cache's dp entries only.
 
 MoE dispatch groups keep the reference's size: the reference runs
 ``n_agents`` groups over the global batch, so a rank's block of it runs
@@ -66,6 +71,7 @@ from repro_torch.core.ledger import tree_flatten
 from repro_torch.dist.sharding import (MeshRules, _split_axes, batch_specs,
                                        bytes_per_rank, cache_specs,
                                        shard_tree, tree_specs)
+from repro_torch.dist.tp import tp_dense
 from repro_torch.launch import serve as V
 from repro_torch.launch import train as T
 from repro_torch.launch.hlo_analysis import OpCounter, analyze
@@ -91,6 +97,15 @@ COMPUTE = {
     "prefill": "whole parameters, this rank's dp block of the batch",
     "decode": "whole parameters, this rank's dp block of the batch and "
               "cache",
+}
+COMPUTE_TP = {
+    "train": "placed (FSDP) storage, each period gathered to the compute "
+             "layout, tensor-parallel over model",
+    "prefill": "compute-layout parameters, tensor-parallel over model, "
+               "this rank's dp block of the batch",
+    "decode": "compute-layout parameters, tensor-parallel over model, "
+              "this rank's dp block of the batch and the cache's head_dim "
+              "block",
 }
 
 
@@ -169,9 +184,11 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     lead = batch_specs(rules, {"tokens": batch["tokens"]})["tokens"][0]
     split = _split_axes(lead, mesh)
     n_split = math.prod(sizes[a] for a in split)
+    tensor_parallel = bool(tp_axes) and tp_dense(cfg) and \
+        mesh.axis_size(tp_axes) > 1
     meta.update(dp=list(split),
                 uneven=set(split) != set(_split_axes(rules.dp, mesh)),
-                compute=COMPUTE[kind])
+                compute=(COMPUTE_TP if tensor_parallel else COMPUTE)[kind])
 
     if kind == "train" and mode in GENERAL_MODES:
         # refuses the model axis (training compute is not tensor-parallel)
@@ -193,21 +210,28 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     params = init_model(None, cfg, device="meta", max_pos=max_pos_for(shape))
     groups = block_groups(n_ag, n_split,
                           shape.global_batch * batch["tokens"].shape[1])
+    step_mesh = mesh if tensor_parallel else None
+    if tensor_parallel:
+        params = V.place_params(params, cfg, mesh)
     if kind == "prefill":
         local = shard_tree(batch, batch_specs(rules, batch), mesh)
         step = V.make_prefill_step(cfg, moe_groups=groups, dp=split, tp=tp,
-                                   sizes=sizes)
+                                   sizes=sizes, mesh=step_mesh)
     else:
         local = {"tokens": shard_tree(batch["tokens"],
                                       batch_specs(rules, batch["tokens"]),
                                       mesh),
-                 # the cache's dp entries only: no tp axis
-                 "cache": shard_tree(batch["cache"], cache_specs(
-                     MeshRules(axis_sizes=sizes, tp_axes=(),
-                               dp_axes=rules.dp), batch["cache"]), mesh),
+                 # the cache's dp entries, and its tp entries where the
+                 # step is tensor-parallel
+                 "cache": (V.place_cache(batch["cache"], cfg, mesh,
+                                         dp=rules.dp) if tensor_parallel
+                           else shard_tree(batch["cache"], cache_specs(
+                               MeshRules(axis_sizes=sizes, tp_axes=(),
+                                         dp_axes=rules.dp), batch["cache"]),
+                               mesh)),
                  "pos": _host_scalar(shape.seq_len - 1)}
         step = V.make_decode_step(cfg, moe_groups=groups, dp=split, tp=tp,
-                                  sizes=sizes)
+                                  sizes=sizes, mesh=step_mesh)
     meta["moe_groups"] = groups
     return (Cell(step, (params, local), _tree_bytes((params, local))),
             meta)

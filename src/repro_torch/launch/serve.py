@@ -4,7 +4,11 @@ and greedy generation on the paged serving engine (counterpart of
 
 The steps are what a dry run of ``prefill_32k`` / ``decode_32k`` reads:
 ``apply_model`` under the activation policy (``dist.act_sharding``) when
-``dp`` is given, argmax in int32, no rematerialization. A decode writes
+``dp`` is given, argmax in int32, no rematerialization. Given a
+``mesh``, a dense decoder (``dist.tp.tp_dense``) runs tensor-parallel
+over the mesh's "model" axis, as the reference's compute layout splits
+it: on this rank's blocks of the parameters (:func:`place_params`) and
+of a cache whose head_dim is split over tp (:func:`place_cache`). A decode writes
 the cache in place and returns it, where the reference returns an
 updated copy. ``greedy_generate`` drives ``serve.ServeEngine``: one
 prefill, then ``steps - 1`` decode iterations in supersteps of
@@ -14,13 +18,17 @@ card.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.act_sharding import act_policy
+from repro_torch.dist.sharding import (MeshRules, cache_specs, compute_rules,
+                                       shard_tree, tree_specs)
+from repro_torch.dist.tp import gather_from_tp, tp_context, tp_dense
+from repro_torch.models.layers import vocab_split
 from repro_torch.models.model import apply_model
 
 
@@ -29,37 +37,86 @@ def _ctx(dp, tp, sizes=None):
             else contextlib.nullcontext())
 
 
+def _tp_axes(cfg: ArchConfig, mesh) -> Tuple[str, ...]:
+    """The tp axes a step on ``mesh`` computes ``cfg`` over: the compute
+    rules' where the family has tensor-parallel compute
+    (``dist.tp.tp_dense``) and the mesh gives them more than one rank;
+    none otherwise (whole parameters on every rank)."""
+    if mesh is None or not tp_dense(cfg):
+        return ()
+    return tuple(a for a in compute_rules(mesh.shape).tp_axes
+                 if mesh.shape.get(a, 1) > 1)
+
+
+def place_params(params, cfg: ArchConfig, mesh):
+    """This rank's block of ``params`` in the compute layout the steps of
+    a ``mesh`` run on: ``shard_tree`` under the reference's compute specs
+    (``dist.sharding.compute_rules``) where ``cfg`` computes
+    tensor-parallel over the mesh, ``params`` as they are otherwise."""
+    if not _tp_axes(cfg, mesh):
+        return params
+    return shard_tree(params, tree_specs(params, compute_rules(mesh.shape)),
+                      mesh)
+
+
+def place_cache(cache, cfg: ArchConfig, mesh, dp=()):
+    """This rank's block of a dense ``cache`` under ``cache_specs``: the
+    batch over ``dp`` (the caller's dp axes; none by default), head_dim
+    over tp where ``cfg`` computes tensor-parallel over the mesh."""
+    rules = MeshRules(axis_sizes=dict(mesh.shape), dp_axes=tuple(dp),
+                      tp_axes=_tp_axes(cfg, mesh))
+    return shard_tree(cache, cache_specs(rules, cache,
+                                         n_query_heads=cfg.n_heads), mesh)
+
+
+def _next_token(logits, cfg: ArchConfig):
+    """Greedy next token from the last position's logits, gathered whole
+    over tp where they are this rank's vocabulary block."""
+    last = logits[:, -1]
+    if vocab_split(last, cfg):
+        last = gather_from_tp(last, -1)
+    return torch.argmax(last, dim=-1).to(torch.int32)
+
+
 def make_prefill_step(cfg: ArchConfig, moe_groups: int = 1,
-                      dp=None, tp=None, sizes=None) -> Callable:
-    """``prefill(params, batch) -> (next token (B,) int32, cache)``."""
+                      dp=None, tp=None, sizes=None, mesh=None) -> Callable:
+    """``prefill(params, batch) -> (next token (B,) int32, cache)``. With
+    ``mesh``, a dense decoder runs tensor-parallel over its tp axes on
+    ``place_params``' blocks and returns the cache in ``place_cache``'s
+    layout (every rank of the mesh calls it)."""
+    tp_axes = _tp_axes(cfg, mesh)
+
     def prefill(params, batch):
-        with _ctx(dp, tp, sizes), torch.no_grad():
+        with _ctx(dp, tp, sizes), torch.no_grad(), tp_context(
+                mesh if tp_axes else None, tp_axes):
             logits, _, cache = apply_model(
                 params, batch["tokens"], cfg, mode="prefill",
                 enc_embed=batch.get("enc_embed"), moe_groups=moe_groups,
                 remat_policy="none")
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return next_tok, cache
+            return _next_token(logits, cfg), cache
 
     return prefill
 
 
 def make_decode_step(cfg: ArchConfig, moe_groups: int = 1,
                      temperature: float = 0.0, dp=None, tp=None,
-                     sizes=None) -> Callable:
+                     sizes=None, mesh=None) -> Callable:
     """``decode(params, batch) -> (next token (B,) int32, cache)`` with
     ``batch`` = {"tokens" (B, 1), "cache", "pos"}: greedy, as the
-    reference's (``temperature`` is accepted and unused there too)."""
+    reference's (``temperature`` is accepted and unused there too). With
+    ``mesh``, as :func:`make_prefill_step`: ``place_params``' blocks and
+    ``place_cache``'s cache."""
     del temperature
+    tp_axes = _tp_axes(cfg, mesh)
 
     def decode(params, batch):
-        with _ctx(dp, tp, sizes), torch.no_grad():
+        with _ctx(dp, tp, sizes), torch.no_grad(), tp_context(
+                mesh if tp_axes else None, tp_axes):
             logits, _, cache = apply_model(
                 params, batch["tokens"], cfg, mode="decode",
                 cache=batch["cache"], cache_index=batch["pos"],
                 moe_groups=moe_groups, remat_policy="none")
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return next_tok, cache
+            return _next_token(logits, cfg), cache
 
     return decode
 

@@ -10,9 +10,13 @@ Two paths:
    One process, or, *placed* (``param_specs=``), every rank of a mesh:
    the reference's FSDP storage (each rank holds its block of every
    parameter and moment, ``place_state``), each period's parameters
-   gathered just before it runs, the gradients reduced back to the
-   blocks by the gather's backward. Compute stays replicated over the
-   model axes: every rank gathers its blocks whole.
+   gathered just before it runs to the reference's compute layout
+   (``dist.sharding.compute_rules``), the gradients reduced back to the
+   blocks by the gather's backward. A dense decoder (``dist.tp.tp_dense``)
+   computes tensor-parallel over the step's ``tp`` axes (``dist.tp``):
+   column weights keep this rank's fan-out, row weights its fan-in, the
+   embedding its model columns, the loss its vocabulary block. The other
+   families gather whole leaves and compute whole on every rank.
 
 2. ``general`` (:func:`make_general_step`, every rank of a mesh whose dp
    axes carry one agent per rank): per-agent gradients per dp rank,
@@ -24,8 +28,9 @@ Two paths:
    - ``quantized``  int8 error-feedback compressed aggregation.
    Parameters and optimizer state are replicated: every rank applies the
    same update to the same values. The reference's train-time "model"
-   axis is GSPMD-automatic and leaves the numbers unchanged; the port
-   has no automatic partitioner, so its train meshes carry model = 1.
+   axis is GSPMD-automatic and leaves the numbers unchanged; this path's
+   tensor-parallel form waits for ROADMAP item 11b, so its train meshes
+   carry model = 1.
 
 Gradients come from ``torch.autograd`` on the reference's loss; the
 optimizer and clipping arithmetic are ``repro_torch.optim.optimizers``'.
@@ -50,9 +55,12 @@ from repro_torch.device import resolve as resolve_device
 from repro_torch.dist import collectives as C
 from repro_torch.dist.act_sharding import _norm_axes, act_policy, placement
 from repro_torch.dist.registry import resolve_mode
-from repro_torch.dist.sharding import (MeshRules, Placement, batch_specs,
+from repro_torch.dist.sharding import (MeshRules, Placement, _rebuild,
+                                       _split_axes, _zip_specs, batch_specs,
                                        block_slices, bytes_per_rank,
-                                       shard_tree, tree_specs)
+                                       compute_rules, full_shape, shard_tree,
+                                       tree_specs)
+from repro_torch.dist.tp import tp_context, tp_dense
 from repro_torch.launch.mesh import dp_axis_names, n_agents_of
 from repro_torch.models.model import apply_model, init_model, lm_loss
 from repro_torch.optim.optimizers import (adamw, apply_updates,
@@ -257,8 +265,11 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig, moe_groups: int = 1,
     parameters period by period and returns this rank's blocks of the new
     state. The reference passes its compute layout here and lets GSPMD
     derive storage from the state's shardings; the port has no
-    partitioner, so the gather reads the storage specs, and its compute
-    layout is whole on every rank."""
+    partitioner, so the gather reads the storage specs and brings each
+    block to its block of the compute layout, ``tree_specs(params,
+    compute_rules(...))`` over the ``tp`` axes (checked at the first
+    step): tensor-parallel for a dense decoder, whole for the other
+    families and where ``tp`` is None."""
     resolve_mode(tc.mode)               # fail fast on unknown modes
     opt = make_optimizer(tc)
     if param_specs is not None:
@@ -313,11 +324,13 @@ def _make_placed_step(cfg, tc, moe_groups, opt, dp, tp, param_specs, sizes,
       backward, and MoE's aux (a mean over dispatch groups) scaled by
       this rank's share of the groups; the gradients summed over dp are
       then the global gradient.
-    - The gather's backward holds each dp-reduced gradient leaf whole for
-      a moment before slicing; the global norm for clipping is taken
-      there, the same on every rank with no further collective (on a
-      one-rank mesh, where the blocks are whole, from the blocks as
-      ``make_train_step`` takes it).
+    - The gather's backward holds each dp-reduced gradient leaf in its
+      compute block for a moment before slicing; the global norm for
+      clipping is taken there: the squares of the leaves whole on every
+      rank once, those of the tp-split leaves summed over tp (one scalar
+      all-reduce), the same on every rank (on a one-rank mesh, where the
+      blocks are whole, from the blocks as ``make_train_step`` takes
+      it).
     - The optimizer and ``apply_updates`` are elementwise, so they run on
       the blocks as they are."""
     if mesh is None:
@@ -335,19 +348,44 @@ def _make_placed_step(cfg, tc, moe_groups, opt, dp, tp, param_specs, sizes,
     aux_share = groups / moe_groups
     policy_dp = dp if dp is not None else dp_axes
     rules = MeshRules(axis_sizes=dict(mesh.shape), dp_axes=dp_axes)
-    plc = Placement(mesh, dp_axes)
+    # tensor-parallel compute over the policy's tp axes of the mesh that
+    # the batch does not split
+    tp_axes = (tuple(a for a in _norm_axes(tp) if mesh.shape.get(a, 1) > 1
+                     and a not in dp_axes) if tp_dense(cfg) else ())
+    plc = Placement(mesh, dp_axes, tp_axes)
     whole = mesh.size == 1
     split = {a for a in dp_axes if mesh.shape[a] > 1}
+    checked = []
+
+    def check_layout(params):
+        """The gather's targets are the reference's compute specs, the one
+        source of the layout the layers read (checked at the first step)."""
+        if checked or not tp_axes:
+            return
+        pairs = list(_zip_specs(params, param_specs))
+        full = _rebuild(params, iter(
+            torch.empty(full_shape(sp, l.shape, mesh), device="meta")
+            for l, sp in pairs))
+        want = tree_specs(full, compute_rules(mesh.shape, dp_axes=dp_axes,
+                                              tp_axes=tp_axes))
+        for (_, sp), (_, cs) in zip(pairs, _zip_specs(full, want)):
+            got = plc.target(sp)
+            if ([_split_axes(e, mesh) for e in got]
+                    != [_split_axes(e, mesh) for e in cs]):
+                raise ValueError(f"storage spec {sp} gathers to {got}, not "
+                                 f"the compute spec {cs}")
+        checked.append(True)
 
     def loss_fn(params, batch, denom):
-        with act_policy(policy_dp, tp, sizes):
+        with act_policy(policy_dp, tp, sizes), tp_context(
+                mesh if tp_axes else None, tp_axes):
             logits, aux, _ = apply_model(
                 params, batch["tokens"], cfg, mode="train",
                 enc_embed=batch.get("enc_embed"), moe_groups=groups,
                 remat_policy=tc.remat_policy, param_specs=param_specs)
             return lm_loss(logits, batch["targets"], batch["weights"],
                            aux * aux_share, aux_coef=tc.aux_coef,
-                           denom=denom)
+                           denom=denom, vocab_size=cfg.vocab_size)
 
     def step(state, batch):
         local = {}
@@ -362,7 +400,8 @@ def _make_placed_step(cfg, tc, moe_groups, opt, dp, tp, param_specs, sizes,
         w_all = mesh.all_reduce(local["weights"].to(torch.float32).sum(),
                                 dp_axes)
         denom = torch.clamp(w_all, min=1.0)
-        plc.sq_norms.clear()
+        check_layout(state["params"])
+        plc.clear()
         with placement(plc.gather):
             loss, grads = value_and_grad(
                 lambda p, b: loss_fn(p, b, denom), state["params"], local)
@@ -373,7 +412,7 @@ def _make_placed_step(cfg, tc, moe_groups, opt, dp, tp, param_specs, sizes,
             else:
                 gnorm = torch.sqrt(C.tree_sq_norm(grads))
         else:
-            gnorm = torch.sqrt(sum(plc.sq_norms))
+            gnorm = torch.sqrt(plc.global_sq_norm())
             if tc.clip_norm:
                 grads = clip_to_norm(grads, tc.clip_norm, gnorm)
         s = int(state["step"])
@@ -408,7 +447,9 @@ def make_general_step(cfg: ArchConfig, tc: TrainConfig, mesh,
     if mesh.axis_size(tuple(a for a in mesh.axis_names
                             if a not in dp)) != 1:
         raise ValueError("the general step replicates parameters over the "
-                         f"model axes: want model = 1, got {mesh.shape}")
+                         f"model axes: want model = 1, got {mesh.shape} "
+                         "(tensor-parallel compute here is ROADMAP item "
+                         "11b)")
     rule = resolve_mode(tc.mode)        # the one dispatch point (registry)
     loss_fn = make_loss_fn(cfg, tc, max(moe_groups // n, 1))
     me = C.agent_index(dp, mesh=mesh)

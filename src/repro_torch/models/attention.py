@@ -24,9 +24,16 @@ to its pools and attends through ``tp_paged_decode``; MLA's absorbed
 decode splits over query heads (``_mla_tp_shard``). Both meet again in
 one exact all-reduce before ``wo``, so every rank's output is the
 replicated engine's.
+
+Under tensor-parallel compute (``dist.tp``, the placed train step and
+``launch.serve``'s steps on a mesh) GQA runs on this rank's blocks of
+the reference's compute layout (``_apply_gqa_tp``): the query heads over
+gcd(H, tp) groups of ranks, ``wo``'s fan-in block summed over tp, and a
+dense decode over this rank's head_dim block of the cache.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -34,6 +41,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.act_sharding import constrain
 from repro_torch.dist.sharding import current_serve_tp
+from repro_torch.dist.tp import (copy_to_tp, current_tp, gather_from_tp,
+                                 reduce_from_tp, scatter_to_tp)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_init,
                                        param_dtype, rotate)
@@ -187,6 +196,11 @@ def apply_gqa(p, x, cfg: ArchConfig, *, rope=None, kv_x=None, cache=None,
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     g = cfg.n_heads // cfg.n_kv_heads
+    tp = current_tp()
+    if tp is not None and p["wq"].shape[-1] != cfg.n_heads * hd:
+        return _apply_gqa_tp(p, x, cfg, tp, rope=rope, cache=cache,
+                             cache_index=cache_index, causal=causal,
+                             return_cache=return_cache)
 
     def expand_kv(t, kind="heads4"):
         # KV repeated to the H query heads (the reference's TP layout)
@@ -252,6 +266,128 @@ def apply_gqa(p, x, cfg: ArchConfig, *, rope=None, kv_x=None, cache=None,
         if return_cache:
             new_cache = {"k": k_new, "v": v_new}
     return project_out(out), new_cache
+
+
+def _apply_gqa_tp(p, x, cfg: ArchConfig, tp, *, rope, cache, cache_index,
+                  causal, return_cache):
+    """GQA self-attention on this rank's blocks of the compute layout
+    (``wq`` split over tp on its fan-out, ``wo`` on its fan-in, ``wk`` /
+    ``wv`` and the biases whole), as the reference's compiled steps
+    split it.
+
+    - The query heads split over g = gcd(H, n) groups of consecutive tp
+      ranks; a group's ranks compute its heads alike. Where H % n = 0
+      (g = n) each rank projects its own heads and only the KV heads they
+      read; otherwise ``wq``'s columns cross head boundaries, the query is
+      gathered to the group's heads and K/V are projected whole.
+    - Train and prefill attend over the group's heads; the output's block
+      of ``wo``'s fan-in is this rank's, and the partial products are
+      summed over tp. A prefill returns the cache in ``cache_specs``'
+      layout: every KV head, this rank's block of head_dim.
+    - A dense decode reads that cache: the query gathered whole, scores
+      as partial dots over the head_dim blocks summed over tp, the output
+      gathered over head_dim before ``wo``'s fan-in block is taken.
+    """
+    if cache is not None and cache_index is not None and "k_pages" in cache:
+        raise NotImplementedError("paged decode runs on the serving "
+                                  "engine's own TP (dist.sharding.serve_tp)")
+    b, s, _ = x.shape
+    H, hkv, hd, n = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, tp.size
+    rep = H // hkv
+    groups = math.gcd(H, n)
+    heads = tp.block(H, groups)                 # this group's query heads
+    decode = cache is not None and cache_index is not None
+    own_kv = groups == n and not decode         # project only the KV read
+
+    xc = copy_to_tp(x)
+    q = xc @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + scatter_to_tp(p["bq"], -1)
+    if own_kv:
+        k0, k1 = heads.start // rep, (heads.stop - 1) // rep + 1
+        cols = slice(k0 * hd, k1 * hd)
+        k, v = (xc @ copy_to_tp(p[w])[:, cols] for w in ("wk", "wv"))
+        if cfg.qkv_bias:
+            k = k + copy_to_tp(p["bk"])[cols]
+            v = v + copy_to_tp(p["bv"])[cols]
+        k, v = (t.reshape(b, s, k1 - k0, hd) for t in (k, v))
+    else:
+        k0, k1 = 0, hkv
+        k, v = _proj_kv(p, x, cfg)
+    if rope is not None:
+        k = rotate(k, *rope)
+
+    if decode:
+        q = gather_from_tp(q, -1).reshape(b, s, H, hd)
+        if rope is not None:
+            q = rotate(q, *rope)
+        out = _tp_dense_decode(q, k, v, cache, cache_index, tp, rep)
+        new_cache = cache
+    else:
+        q = gather_from_tp(q, -1, groups).reshape(b, s, H // groups, hd)
+        if rope is not None:
+            q = rotate(q, *rope)
+        new_cache = None
+        if return_cache:
+            new_cache = {"k": _cache_block(tp, k, k0, H, rep, hkv),
+                         "v": _cache_block(tp, v, k0, H, rep, hkv)}
+        if not own_kv:
+            k, v = (copy_to_tp(t, groups) for t in (k, v))
+        idx = (torch.arange(heads.start, heads.stop, device=x.device) // rep
+               - k0)
+        out = attention_math(constrain(q, "heads4"),
+                             constrain(k.index_select(2, idx), "heads4"),
+                             constrain(v.index_select(2, idx), "heads4"),
+                             causal=causal)
+        out = out.reshape(b, s, H // groups * hd)
+        out = scatter_to_tp(out, -1, groups)
+        return reduce_from_tp(out @ p["wo"]), new_cache
+    out = scatter_to_tp(out.reshape(b, s, H * hd), -1)
+    return reduce_from_tp(out @ p["wo"]), new_cache
+
+
+def _cache_block(tp, kv, k0: int, H: int, rep: int, hkv: int):
+    """A prefill's K or V in ``cache_specs``' layout: every KV head, this
+    rank's block of head_dim (whole where tp does not divide it). ``kv``
+    holds heads ``k0:k0 + kv.shape[2]``; where that is not all of them
+    (each rank projected its own), every head comes from the lowest rank
+    that holds it, through one ``-0.0``-padded all-reduce."""
+    hd = kv.shape[-1]
+    if kv.shape[2] != hkv:
+        n, r = tp.size, tp.rank
+        prev = (r * H // n - 1) // rep + 1 if r else 0   # rank r-1's end
+        w0 = max(k0, prev)
+        buf = torch.full(kv.shape[:2] + (hkv, hd), -0.0, dtype=kv.dtype,
+                         device=kv.device)
+        buf[:, :, w0:k0 + kv.shape[2]] = kv[:, :, w0 - k0:].detach()
+        kv = tp.all_reduce(buf)
+    return kv[..., tp.block(hd)] if hd % tp.size == 0 else kv
+
+
+def _tp_dense_decode(q, k_new, v_new, cache, cache_index, tp, rep: int):
+    """One token against a dense cache in ``cache_specs``' layout (head_dim
+    over tp where it divides): the query whole (B, 1, H, hd); returns the
+    output whole (B, 1, H, hd)."""
+    b, s, _, hd = q.shape
+    kc, vc = cache["k"], cache["v"]
+    split = kc.shape[-1] != hd
+    if split:
+        blk = tp.block(hd)
+        q, k_new, v_new = q[..., blk], k_new[..., blk], v_new[..., blk]
+    kv_len = _write_decode(cache_index, b, s, (kc, k_new), (vc, v_new))
+    kr = torch.repeat_interleave(kc, rep, dim=2) if rep > 1 else kc
+    vr = torch.repeat_interleave(vc, rep, dim=2) if rep > 1 else vc
+    q, kr, vr = (constrain(t, "hd_tp") for t in (q, kr, vr))
+    scores = torch.einsum("bshd,bthd->bhst", q, kr).to(torch.float32)
+    if split:
+        scores = reduce_from_tp(scores)
+    scores = scores * hd ** -0.5
+    mask = (torch.arange(kc.shape[1], device=q.device)[None, :]
+            < kv_len[:, None])
+    scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", w.to(q.dtype), vr)
+    return gather_from_tp(out, -1) if split else out
 
 
 def _write_decode(cache_index, b: int, s: int, *pairs):

@@ -16,6 +16,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.act_sharding import constrain
+from repro_torch.dist.tp import (copy_to_tp, current_tp, gather_from_tp,
+                                 reduce_from_tp, scatter_to_tp)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -155,15 +157,27 @@ def init_mlp(gen, cfg: ArchConfig, device, d_ff: Optional[int] = None):
 
 
 def apply_mlp(p, x, cfg: ArchConfig):
-    if cfg.act == "swiglu":
+    """The MLP. Under a tensor-parallel context (``dist.tp``) whose
+    compute layout splits the hidden width (the first matrix's local
+    fan-out short of ``d_ff``): column- then row-parallel, this rank's
+    hidden columns and the partial outputs summed over tp."""
+    swiglu = cfg.act == "swiglu"
+    split = (current_tp() is not None
+             and p["w_gate" if swiglu else "w_in"].shape[-1] != cfg.d_ff)
+    if split:
+        x = copy_to_tp(x)
+    if swiglu:
         g = constrain(x @ p["w_gate"], "ffn")
         u = constrain(x @ p["w_up"], "ffn")
         h = F.silu(g.to(torch.float32)).to(x.dtype) * u
-        return h @ p["w_down"]
-    h = x @ p["w_in"] + p["b_in"]
+        y = h @ p["w_down"]
+        return reduce_from_tp(y) if split else y
+    b_in = scatter_to_tp(p["b_in"], -1) if split else p["b_in"]
+    h = x @ p["w_in"] + b_in
     h = constrain(F.gelu(h.to(torch.float32), approximate="tanh")
                   .to(x.dtype), "ffn")
-    return h @ p["w_out"] + p["b_out"]
+    y = h @ p["w_out"]
+    return (reduce_from_tp(y) if split else y) + p["b_out"]
 
 
 # ---------------------------------------------------------------------------
@@ -183,11 +197,72 @@ def init_embed(gen, cfg: ArchConfig, device):
 
 def embed_tokens(p, tokens, cfg: ArchConfig):
     """Token lookup, cast to the compute dtype (tied weights carry the
-    reference's unit embedding scale, a no-op)."""
-    return p["tok"][tokens].to(torch_dtype(cfg.compute_dtype))
+    reference's unit embedding scale, a no-op). Under a tensor-parallel
+    context whose compute layout splits the embedding's model columns,
+    each rank looks up its columns and they are gathered whole."""
+    tok = p["tok"]
+    x = tok[tokens]
+    if current_tp() is not None and tok.shape[-1] != cfg.d_model:
+        x = gather_from_tp(x, -1)
+    return x.to(torch_dtype(cfg.compute_dtype))
 
 
 def unembed(p, x, cfg: ArchConfig):
-    if cfg.tie_embeddings:
-        return x @ p["tok"].T
-    return x @ p["unembed"]
+    """Logits. Under a tensor-parallel context the logits come back in
+    the reference's ``logits`` layout, this rank's block of the vocabulary
+    (:func:`vocab_split` says whether they are): an untied ``unembed``
+    split over the vocabulary is column-parallel; tied weights split over
+    the model columns go through :class:`_TiedUnembed`."""
+    tp = current_tp()
+    if not cfg.tie_embeddings:
+        w = p["unembed"]
+        if tp is not None and w.shape[-1] != cfg.vocab_size:
+            return copy_to_tp(x) @ w
+        return x @ w
+    tok = p["tok"]
+    if tp is not None and tok.shape[-1] != cfg.d_model:
+        return _TiedUnembed.apply(tp, x, tok, cfg.vocab_size)
+    return x @ tok.T
+
+
+def vocab_split(logits, cfg: ArchConfig) -> bool:
+    """Whether ``logits`` hold this rank's block of the vocabulary."""
+    return current_tp() is not None and logits.shape[-1] != cfg.vocab_size
+
+
+class _TiedUnembed(torch.autograd.Function):
+    """``x @ tok.T`` for tied weights whose model columns are split over
+    tp, into this rank's block of the vocabulary. The forward moves the
+    smaller of two payloads: the tokens' partial logits over this rank's
+    columns, summed over tp (few tokens), or the weight's columns
+    gathered whole, then this rank's vocabulary rows (many tokens). The
+    backward gathers the logit gradient whole over the vocabulary and
+    takes the weight's gradient for this rank's columns; the input
+    gradient comes, with no further collective, from the whole weight
+    where the forward gathered it (the reference's compiled step computes
+    it so, whole on every rank), else from this rank's columns, gathered
+    over tp (tokens times d_model, not the weight)."""
+
+    @staticmethod
+    def forward(ctx, tp, x, tok, vocab):
+        cols, rows = tp.block(x.shape[-1]), tp.block(vocab)
+        n_tok = x.numel() // x.shape[-1]
+        full = None
+        if n_tok * vocab < tok.numel() * tp.size:
+            y = tp.all_reduce(x[..., cols] @ tok.T)[..., rows]
+        else:
+            full = tp.gather(tok, -1)
+            y = x @ full[rows].T
+        ctx.tp, ctx.cols, ctx.rows = tp, cols, rows
+        ctx.save_for_backward(x, tok, full)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        x, tok, full = ctx.saved_tensors
+        gw = tp.gather(g, -1)
+        dx = gw @ full if full is not None else tp.gather(gw @ tok, -1)
+        dtok = (gw.reshape(-1, gw.shape[-1]).T
+                @ x[..., ctx.cols].reshape(-1, tok.shape[-1]))
+        return None, dx, dtok, None

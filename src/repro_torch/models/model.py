@@ -30,6 +30,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve as resolve_device
 from repro_torch.dist.act_sharding import (constrain, constrain_tree,
                                            current_placement, strip_leading)
+from repro_torch.dist.tp import (current_tp, gather_from_tp, reduce_from_tp,
+                                 tp_context)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -331,7 +333,8 @@ def apply_model(params, tokens, cfg: ArchConfig, *, enc_embed=None,
     decode, prefill = mode == "decode", mode == "prefill"
     pattern = cfg.layer_pattern
     blk_specs = [None] * len(pattern)
-    gather = current_placement()   # a recomputation may run on another thread
+    # a recomputation may run on another thread: resolve the contexts here
+    gather, tp = current_placement(), current_tp()
     if param_specs is not None:
         params = dict(params)
         for key in ("embed", "norm_f", "enc_norm_f", "enc_pos", "encoder"):
@@ -360,17 +363,19 @@ def apply_model(params, tokens, cfg: ArchConfig, *, enc_embed=None,
         blk_params = [constrain_tree(bp, bs, gather)
                       for bp, bs in zip(blk_params, blk_specs)]
         ncs = []
-        for pos, kind in enumerate(pattern):
-            x, a, nc = _apply_layer(
-                blk_params[pos], x, kind, cfg, layer_idx=pos,
-                positions=positions, rope=rope, moe_groups=moe_groups,
-                cache=blk_caches[pos] if blk_caches is not None else None,
-                cache_index=cache_index if decode else None,
-                return_cache=prefill, enc_out=enc_out,
-                page_table=page_table if decode else None, impl=impl)
-            if a is not None:
-                aux = aux + a
-            ncs.append(nc)
+        with tp_context.of(tp):
+            for pos, kind in enumerate(pattern):
+                x, a, nc = _apply_layer(
+                    blk_params[pos], x, kind, cfg, layer_idx=pos,
+                    positions=positions, rope=rope, moe_groups=moe_groups,
+                    cache=blk_caches[pos] if blk_caches is not None
+                    else None,
+                    cache_index=cache_index if decode else None,
+                    return_cache=prefill, enc_out=enc_out,
+                    page_table=page_table if decode else None, impl=impl)
+                if a is not None:
+                    aux = aux + a
+                ncs.append(nc)
         return x, aux, ncs
 
     run = period
@@ -407,12 +412,20 @@ def apply_model(params, tokens, cfg: ArchConfig, *, enc_embed=None,
 
 
 def lm_loss(logits, targets, weights, aux=0.0, aux_coef: float = 0.01,
-            denom=None):
+            denom=None, vocab_size: Optional[int] = None):
     """Weighted token cross-entropy; weights carry padding and the
     Algorithm-1 agent mask (masked agents' tokens get weight 0). The
     weighted sum is divided by ``max(sum(weights), 1)``, or by ``denom``
-    where given (a placed step's global weight sum over its ranks)."""
+    where given (a placed step's global weight sum over its ranks).
+
+    Logits narrower than ``vocab_size`` are this rank's block of the
+    vocabulary under a tensor-parallel context (``layers.unembed``): the
+    loss is then vocab-parallel, the max, the sum of exponentials and the
+    gold logit each joined over tp, and the same on every tp rank."""
     lf = logits.to(torch.float32)
+    if vocab_size is not None and logits.shape[-1] != vocab_size:
+        return _vocab_parallel_loss(lf, targets, weights, denom) \
+            + aux_coef * aux
     m = lf.amax(-1, keepdim=True).detach()
     logz = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
     gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
@@ -421,6 +434,26 @@ def lm_loss(logits, targets, weights, aux=0.0, aux_coef: float = 0.01,
         denom = torch.clamp(w.sum(), min=1.0)
     loss = ((logz - gold) * w).sum() / denom
     return loss + aux_coef * aux
+
+
+def _vocab_parallel_loss(lf, targets, weights, denom):
+    """The weighted cross-entropy of :func:`lm_loss` over this rank's
+    vocabulary block ``lf`` (f32): the max from every rank's (gathered,
+    exact), the exponentials' sum and the gold logit summed over tp."""
+    tp = current_tp()
+    v = lf.shape[-1]
+    v0 = tp.block(v * tp.size).start
+    m = gather_from_tp(lf.amax(-1, keepdim=True).detach(), -1).amax(
+        -1, keepdim=True)
+    logz = torch.log(reduce_from_tp(torch.exp(lf - m).sum(-1))) + m[..., 0]
+    t = targets.long() - v0
+    mine = (t >= 0) & (t < v)
+    gold = torch.gather(lf, -1, torch.where(mine, t, 0)[..., None])[..., 0]
+    gold = reduce_from_tp(torch.where(mine, gold, 0.0))
+    w = weights.to(torch.float32)
+    if denom is None:
+        denom = torch.clamp(w.sum(), min=1.0)
+    return ((logz - gold) * w).sum() / denom
 
 
 def classifier_loss(logits, labels, weights):

@@ -13,14 +13,16 @@ replaced at run time by a mesh of ``Auto`` axes (jax 0.9.0's
     group size).
 (b) ``argument_size_in_bytes`` exactly the reference's for qwen2-0.5b
     train_4k in both layouts.
-(c) the baseline cells' FLOPs equal those of the unplaced
-    ``make_train_step`` / ``launch.serve`` step on the same dp block, and
-    each baseline record states its ratio to the reference's FLOPs (the
-    reference splits the layers over "model"; the port computes them
-    whole on every rank).
+(c) the baseline cells run tensor-parallel over "model" (``dist.tp``):
+    each record's FLOPs within [0.90, 1.10] of the reference's, and the
+    one-layer cell's equal to rank 0 of the TP step (placed train step,
+    ``launch.serve``'s steps on ``place_params`` / ``place_cache``) on a
+    recording mesh.
 (d) the placed step's collective bytes equal a count summed here from
-    the storage specs, and on 2 gloo ranks of the CPU the real mesh
-    reports the collectives a recording mesh of the same shape does.
+    the storage specs, the compute specs the baseline gathers to and the
+    TP layer's all-reduces per layer, and on 2 gloo ranks of the CPU the
+    real mesh reports the collectives a recording mesh of the same shape
+    does.
 (f) the CLI writes a record per mesh with the reference's keys, and
     ``reanalyze`` rebuilds ``hlo`` from the saved op table unchanged.
 
@@ -44,10 +46,12 @@ import torch
 from repro_torch.configs.base import get_shape
 from repro_torch.configs.registry import get_config, list_configs
 from repro_torch.dist.sharding import (ALIGN, MeshRules, _zip_specs,
-                                       tree_specs)
+                                       compute_rules, shard_tree, tree_specs)
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.hlo_analysis import OpCounter, analyze
-from repro_torch.launch.serve import make_decode_step, make_prefill_step
+from repro_torch.launch.mesh import RecordingMesh
+from repro_torch.launch.serve import (make_decode_step, make_prefill_step,
+                                      place_cache, place_params)
 from repro_torch.launch.specs import max_pos_for
 from repro_torch.launch.train import (TrainConfig, abstract_state,
                                       make_train_step)
@@ -133,37 +137,53 @@ def _meta(shape, dtype=torch.int32):
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 def test_baseline_equals_unplaced_step_and_states_its_ratio(
         records, reference, shape, tmp_path):
+    """The baseline cell is the tensor-parallel step: one rank's FLOPs
+    within 10% of the reference's, and the one-layer cell's equal to rank
+    0 of the TP step built here on a recording mesh of the same shape."""
     key = f"{QWEN}|{shape}|baseline"
     rec = records[key]
     assert rec["flops_ratio"] == \
         rec["hlo"]["flops"] / reference[key]["hlo"]["flops"]
-    assert rec["flops_ratio"] > 2      # the layers whole on every rank
+    assert 0.90 <= rec["flops_ratio"] <= 1.10
     assert rec["dp"] == ["data"] and not rec["uneven"]
+    assert "tensor-parallel" in rec["compute"]
 
-    # one layer: the placed cell against the unplaced step on its dp block
+    # one layer: the cell against rank 0 of the TP step on its dp block
     cfg = dataclasses.replace(get_config(QWEN), n_layers=1)
     one = D.run_cell(QWEN, shape, False, out_dir=str(tmp_path),
                      cfg_patch={"n_layers": 1})
     s = get_shape(shape)
     rows = s.global_batch // SIZES["data"]
-    params = init_model(None, cfg, device=META, max_pos=max_pos_for(s))
+    mesh = RecordingMesh((16, 16), ("data", "model"))
     if shape == "train_4k":
         tc = TrainConfig()
         state = abstract_state(cfg, tc, max_pos=max_pos_for(s))
         state["step"] = torch.tensor(0, dtype=torch.int32)
-        batch = {"tokens": _meta((rows, s.seq_len)),
-                 "targets": _meta((rows, s.seq_len)),
-                 "weights": _meta((rows, s.seq_len), torch.float32)}
-        flops = _period_flops(make_train_step(cfg, tc, moe_groups=1),
-                              state, batch)
-    elif shape == "prefill_32k":
-        flops = _period_flops(make_prefill_step(cfg), params,
-                              {"tokens": _meta((rows, s.seq_len))})
+        specs = tree_specs(state, MeshRules(axis_sizes=SIZES))
+        n = s.global_batch
+        batch = {"tokens": _meta((n, s.seq_len)),
+                 "targets": _meta((n, s.seq_len)),
+                 "weights": _meta((n, s.seq_len), torch.float32)}
+        step = make_train_step(cfg, tc, moe_groups=SIZES["data"],
+                               tp="model", param_specs=specs["params"],
+                               mesh=mesh)
+        assert step.placement.tp == ("model",)
+        flops = _period_flops(step, shard_tree(state, specs, mesh), batch)
     else:
-        flops = _period_flops(make_decode_step(cfg), params, {
-            "tokens": _meta((rows, 1)),
-            "cache": init_cache(cfg, rows, s.seq_len, device=META),
-            "pos": s.seq_len - 1})
+        params = place_params(init_model(None, cfg, device=META,
+                                         max_pos=max_pos_for(s)), cfg, mesh)
+        assert params["embed"]["tok"].shape[-1] == cfg.d_model // 16
+        if shape == "prefill_32k":
+            flops = _period_flops(make_prefill_step(cfg, mesh=mesh), params,
+                                  {"tokens": _meta((rows, s.seq_len))})
+        else:
+            cache = place_cache(init_cache(cfg, rows, s.seq_len,
+                                           device=META), cfg, mesh)
+            assert cache[0]["mixer"]["k"].shape[-1] == \
+                cfg.resolved_head_dim // 16
+            flops = _period_flops(make_decode_step(cfg, mesh=mesh), params, {
+                "tokens": _meta((rows, 1)), "cache": cache,
+                "pos": s.seq_len - 1})
     assert one["hlo"]["flops"] == flops
 
 
@@ -173,17 +193,52 @@ def _splits(spec) -> bool:
     return any(SIZES[a] > 1 for a in axes)
 
 
-def _gather_call(pairs, gathers):
+def _block(leaf, spec):
+    n = leaf.numel()
+    for e in spec:
+        for a in ((e,) if isinstance(e, str) else (e or ())):
+            n //= SIZES[a]
+    return n
+
+
+def _gather_call(pairs, gathers, cspecs=None):
     """(payload bytes, all-reduces) of one gather call and its backward
-    over (leaf, storage spec) ``pairs``: the split leaves whole in one
+    over (leaf, storage spec) ``pairs``, gathered to ``cspecs`` (the
+    compute specs; None: whole): the leaves whose layout changes in one
     byte buffer per gather (each leaf's offset aligned), and every leaf's
-    gradient whole in f32."""
-    leaves = [leaf for leaf, _ in pairs]
-    split = [leaf for leaf, sp in pairs if _splits(sp)]
-    buf = sum(-(-leaf.numel() * leaf.element_size() // ALIGN) * ALIGN
-              for leaf in split)
-    grads = 4 * sum(leaf.numel() for leaf in leaves)
-    return gathers * buf + grads, (gathers if split else 0) + 1
+    gradient, in its compute block, in f32."""
+    cspecs = cspecs or [()] * len(pairs)
+    moved = [(leaf, cs) for (leaf, sp), cs in zip(pairs, cspecs)
+             if _splits(sp) and tuple(sp) != tuple(cs)]
+    buf = sum(-(-_block(leaf, cs) * leaf.element_size() // ALIGN) * ALIGN
+              for leaf, cs in moved)
+    grads = 4 * sum(_block(leaf, cs) for (leaf, _), cs in zip(pairs, cspecs))
+    return gathers * buf + grads, (gathers if moved else 0) + 1
+
+
+def _tp_collectives(cfg, tokens):
+    """(payload bytes, all-reduces) over "model" of the TP train step of
+    qwen2-0.5b (tied, QKV bias; H = 14 over model = 16: the query gathered
+    to gcd(14, 16) = 2 head groups, K/V whole) with remat, bf16
+    activations. Per layer: the query's gather and ``wo``'s reduce in the
+    forward and again in the recomputation, the MLP's reduce once (the
+    recomputation stops at the last activation the backward needs); in
+    the backward the MLP's and the attention's ``copy_to_tp``, the
+    attention output's gather, K's and V's group copies and ``bq``'s
+    gather. Once: the embedding's gather, the tied unembedding's weight
+    gather and logit-gradient gather, the loss's max (gathered, f32), sum
+    of exponentials and gold logit, the norm's split sum."""
+    n, d, v = 16, cfg.d_model, cfg.vocab_size
+    qd = cfg.n_heads * cfg.resolved_head_dim
+    kvd = cfg.n_kv_heads * cfg.resolved_head_dim
+    per_layer = [tokens * qd * 2] * 2 + [tokens * d * 2] * 2 \
+        + [tokens * d * 2] + [tokens * d * 2, tokens * qd * 2,
+                              tokens * d * 2, tokens * kvd * 2,
+                              tokens * kvd * 2, qd * 2]
+    once = [tokens * d * 2, v * d * 2, tokens * v * 2, tokens * n * 4,
+            tokens * 4, tokens * 4, 4]
+    return (sum(per_layer) * cfg.n_layers + sum(once),
+            len(per_layer) * cfg.n_layers + len(once))
 
 
 @pytest.mark.parametrize("layout", ["baseline", "dp_all"])
@@ -196,17 +251,34 @@ def test_collective_bytes_equal_the_spec_count(records, layout):
     params = abstract_state(cfg, tc, max_pos=max_pos_for(
         get_shape("train_4k")))["params"]
     specs = tree_specs(params, rules)
+    # the gather's targets: the compute specs in the baseline (TP over
+    # model), whole leaves in dp_all
+    cspecs = (tree_specs(params, compute_rules(SIZES))
+              if layout == "baseline" else None)
+
+    def targets(key):
+        return ([cs for _, cs in _zip_specs(params[key], cspecs[key])]
+                if cspecs else None)
+
     payload, count = 2 * 4, 2            # the weight sum and the loss
     for key in ("embed", "norm_f"):      # gathered once, outside remat
-        p, c = _gather_call(list(_zip_specs(params[key], specs[key])), 1)
+        p, c = _gather_call(list(_zip_specs(params[key], specs[key])), 1,
+                            targets(key))
         payload, count = payload + p, count + c
     gathers = 2 if tc.remat_policy != "none" else 1   # forward, recompute
-    for blk, sp in zip(params["blocks"], specs["blocks"]):
+    for pos, (blk, sp) in enumerate(zip(params["blocks"], specs["blocks"])):
         pairs = list(_zip_specs(blk, sp))
+        cs = ([c[1:] for _, c in _zip_specs(blk, cspecs["blocks"][pos])]
+              if cspecs else None)
         for i in range(cfg.n_periods):       # each period's layer slice
             p, c = _gather_call([(leaf[i], spec[1:]) for leaf, spec in pairs],
-                                gathers)
+                                gathers, cs)
             payload, count = payload + p, count + c
+    if layout == "baseline":
+        s = get_shape("train_4k")
+        p, c = _tp_collectives(cfg, s.global_batch // SIZES["data"]
+                               * s.seq_len)
+        payload, count = payload + p, count + c
     coll = records[f"{QWEN}|train_4k|{layout}"]["collectives"]
     assert coll["all-reduce"] == 2 * payload
     assert coll["count"] == count

@@ -39,8 +39,8 @@ for path in [{str(ROOT / "chip_smoke.py")!r},
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "repro"))]
 assert not loaded, loaded
-assert {{"repro_torch.launch.dryrun",
-         "repro_torch.launch.hlo_analysis"}} <= set(names), names
+assert {{"repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis",
+         "repro_torch.dist.tp"}} <= set(names), names
 print(len(names))
 """
 
