@@ -114,8 +114,8 @@ Phases, each fatal on failure:
    jamba-v0.1-52b (one period: 8 layers, 7 Mamba, 1 GQA, 4 MoE),
    deepseek-v2-236b (2 layers: MLA latent pages, 160 experts top-6, 2
    shared), arctic-480b (1 layer: 128 experts and the dense residual),
-   rwkv6-3b (all 32 layers) and qwen2-vl-2b (all 28, M-RoPE); the cuts in
-   depth are printed as ``reduced``. Each must finish every request with
+   rwkv6-3b (8 of its 32 layers) and qwen2-vl-2b (7 of its 28, M-RoPE);
+   the cuts in depth are printed as ``reduced``. Each must finish every request with
    its budget and bring back every page, give the streams of a
    superstep_k = 1 run, and launch the decode kernel exactly once per
    GQA layer and decode step (zero for rwkv6 and deepseek-v2), its count
@@ -277,7 +277,24 @@ Phases, each fatal on failure:
    wherever its top-2 margin exceeds ``LOGIT_TOL``; ms per decode step
    beside one rank's. No kernel lies on this path (the reference's
    train, prefill and dense decode call no Pallas kernel).
-19. A JSON line with every kernel's launches (summed over the phases
+19. The general step (``make_general_step``) tensor-parallel over
+   "model" on 4 gloo ranks sharing the card (data 2 x model 2, one agent
+   a dp rank): qwen2-0.5b at full width, bf16 parameters, AdamW, on
+   ``place_general_state``'s share of the state, each mode 2 steps. cge
+   (f = 1) with both agents received (with one masked, n = 2 leaves it
+   m - f = 0 to keep); stale (tau = 1: step 1 reads agent 1's row from
+   step 0), trimmed (f = 0: at n = 2, f = 1 leaves m - 2f <= 0 and the
+   rule returns 0) and quantized with agent t % 2 masked at step t. Per
+   mode: seconds per step, the last step's FLOPs and collectives on each
+   rank equal op by op to a ``RecordingMesh``'s count of its agent on
+   the meta device (all-reduces and wire bytes a rank), each rank's
+   bytes of state beside the meta report, and the parameters identical
+   per tp block over dp and per whole leaf over all ranks; the f32 twin
+   (reduced qwen2-0.5b, 2 layers, SGD with momentum) within 1e-4 of a
+   one-process oracle built here from ``core.gradagg`` on the per-agent
+   gradients. No kernel lies on this path (the reference's general step
+   calls no Pallas kernel).
+20. A JSON line with every kernel's launches (summed over the phases
    that drive a path: 4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16, all
    ranks of 15), error and times, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -314,7 +331,7 @@ from repro_torch.core import gradagg  # noqa: E402
 from repro_torch.core.async_engine import (AsyncEngine,  # noqa: E402
                                            EngineConfig, default_latency)
 from repro_torch.core.ledger import (  # noqa: E402
-    make_sharded_aggregate_apply, tree_flatten, tree_map)
+    layout_of, make_sharded_aggregate_apply, tree_flatten, tree_map)
 from repro_torch.core.server import AsyncDGDServer  # noqa: E402
 from repro_torch.data.partition import (mask_to_weights,  # noqa: E402
                                         partition)
@@ -338,9 +355,10 @@ from repro_torch.launch.serve import (greedy_generate,  # noqa: E402
                                       make_decode_step, make_prefill_step,
                                       place_cache, place_params)
 from repro_torch.launch.train import (TrainConfig,  # noqa: E402
-                                      abstract_state, init_state,
-                                      lr_at, make_general_step,
-                                      make_optimizer, make_train_step,
+                                      abstract_state, general_specs,
+                                      init_state, lr_at, make_general_step,
+                                      make_loss_fn, make_optimizer,
+                                      make_train_step, place_general_state,
                                       place_state, state_bytes_per_rank,
                                       value_and_grad)
 from repro_torch.models import attention as mattn  # noqa: E402
@@ -1887,9 +1905,10 @@ def drive_e2e(params):
 
 # (arch, layers run): one whole period of jamba's pattern, deepseek-v2
 # and arctic cut in depth to fit 80 GB with their serving state, rwkv6-3b
-# and qwen2-vl-2b whole
+# and qwen2-vl-2b cut to a quarter of their depth to keep the script
+# within its time limit (a layer of each runs the same code as the rest)
 FAMILY_RUNS = (("jamba-v0.1-52b", 8), ("deepseek-v2-236b", 2),
-               ("arctic-480b", 1), ("rwkv6-3b", 32), ("qwen2-vl-2b", 28))
+               ("arctic-480b", 1), ("rwkv6-3b", 8), ("qwen2-vl-2b", 7))
 FAMILY_CCFG = PagedCacheConfig(num_slots=4, page_size=16,
                                max_pages_per_seq=17, num_pages=4 * 17 + 1)
 TWIN_ARCHS = ("arctic-480b", "deepseek-v2-236b", "jamba-v0.1-52b",
@@ -4455,6 +4474,290 @@ def drive_tp_compute(device="cuda"):
     log(f"  phase 18 in {time.perf_counter() - t_all:.1f} s")
 
 
+# 19: the general step over data 2 x model 2
+GEN_DATA, GEN_MODEL = 2, 2
+GEN_STEPS, GEN_TWIN_LAYERS = 2, 2
+GEN_WHY = {"cge": "f = 1, both agents received (one masked at n = 2 "
+                  "leaves m - f = 0 to keep)",
+           "stale": "tau = 1, agent t % 2 masked at step t",
+           "trimmed": "f = 0, agent t % 2 masked at step t (f = 1 at n = "
+                      "2 leaves m - 2f <= 0: the rule returns 0)",
+           "quantized": "agent t % 2 masked at step t"}
+
+
+def gen_tc(mode: str, twin: bool) -> TrainConfig:
+    return TrainConfig(mode=mode, lr=3e-2 if twin else TRAIN_LR,
+                       f=0 if mode == "trimmed" else 1, tau=1,
+                       remat_policy="none",
+                       optimizer="sgdm" if twin else "adamw")
+
+
+def gen_masks(mode: str):
+    out = []
+    for t in range(GEN_STEPS):
+        m = np.ones(GEN_DATA, np.float32)
+        if mode != "cge":
+            m[t % GEN_DATA] = 0.0
+        out.append(m)
+    return out
+
+
+def gen_batches(vocab: int):
+    data = lm_batches(markov_tokens(50_000, vocab=vocab, seed=0),
+                      TRAIN_BATCH, TRAIN_SEQ, seed=1)
+    return [next(data) for _ in range(GEN_STEPS)]
+
+
+def gen_twin_cfg():
+    return dataclasses.replace(get_config(SERVE_ARCH).reduced(),
+                               n_layers=GEN_TWIN_LAYERS)
+
+
+def gen_state(cfg, tc, mesh, gen, device):
+    return place_general_state(init_state(
+        gen, cfg, tc, max_pos=TRAIN_SEQ + 1, n_agents=GEN_DATA,
+        device=device, mesh=mesh), mesh, cfg)
+
+
+def state_bytes(state) -> int:
+    return sum(l.numel() * l.element_size() for k in ("params", "opt",
+                                                      "ledger", "err")
+               if k in state for l in tree_flatten(state[k])[0])
+
+
+def agreed_over(mesh, tree, axes) -> bool:
+    """Whether ``tree``'s bits are the same on every rank of ``axes``."""
+    lo = torch.tensor([param_checksum(tree)], dtype=torch.int64,
+                      device=mesh.device)
+    hi = lo.clone()
+    g = mesh.group(axes)
+    torch.distributed.all_reduce(lo, op=torch.distributed.ReduceOp.MIN,
+                                 group=g)
+    torch.distributed.all_reduce(hi, op=torch.distributed.ReduceOp.MAX,
+                                 group=g)
+    return int(lo) == int(hi)
+
+
+def gen_meta_count(mode: str, rank: int):
+    """The last step of 19's mode on ``rank`` of a recording mesh data 2 x
+    model 2, on the meta device: (op table, bytes of the placed state)."""
+    cfg = get_config(SERVE_ARCH)
+    tc = gen_tc(mode, twin=False)
+    mesh = RecordingMesh((GEN_DATA, GEN_MODEL), ("data", "model"), rank=rank)
+    state = gen_state(cfg, tc, mesh, None, "meta")
+    state["step"] = torch.tensor(GEN_STEPS - 1, dtype=torch.int32)
+    step = make_general_step(cfg, tc, mesh)
+    _, cnt = counted(step, state, lm_batch_meta(TRAIN_BATCH, TRAIN_SEQ),
+                     gen_masks(mode)[-1])
+    return cnt.table(), state_bytes(state)
+
+
+def gen_rank_run(mesh, mode, twin):
+    """One mode of 19 on this rank: (losses, seconds per step, the last
+    step's op table, bytes placed, identical per tp block over dp, whole
+    leaves identical over all ranks, the gathered parameters (twin))."""
+    dev = mesh.device
+    cfg = gen_twin_cfg() if twin else get_config(SERVE_ARCH)
+    tc = gen_tc(mode, twin)
+    gen = (torch.Generator() if twin
+           else torch.Generator(device=dev)).manual_seed(0)
+    before = torch.cuda.memory_allocated(dev)
+    state = gen_state(cfg, tc, mesh, gen, "cpu" if twin else dev)
+    if twin:
+        state = {k: mmodel.tree_to(v, dev) if k != "step" else v
+                 for k, v in state.items()}
+    gc.collect()
+    placed = torch.cuda.memory_allocated(dev) - before
+    step = make_general_step(cfg, tc, mesh)
+    losses, secs, table = [], [], None
+    for t, ((x, y), m) in enumerate(zip(gen_batches(cfg.vocab_size),
+                                        gen_masks(mode))):
+        last = t == GEN_STEPS - 1
+        sync(dev)
+        t0 = time.perf_counter()
+        with OpCounter() if last and not twin else \
+                contextlib.nullcontext() as cnt:
+            state, met = step(state, lm_batch(
+                x, y, np.ones((TRAIN_BATCH, TRAIN_SEQ), np.float32), dev), m)
+            losses.append(float(met["loss"]))
+        secs.append(time.perf_counter() - t0)
+        if last and not twin:
+            table = cnt.table()
+    whole = init_model(None, cfg, device="meta", max_pos=TRAIN_SEQ + 1)
+    blocks = tree_flatten(state["params"])[0]
+    split = [b for b, w in zip(blocks, tree_flatten(whole)[0])
+             if b.shape != w.shape]
+    kept = [b for b, w in zip(blocks, tree_flatten(whole)[0])
+            if b.shape == w.shape]
+    out = dict(losses=losses, secs=secs, table=table, placed=placed,
+               tp=step.tp_axes, split=len(split),
+               same_blocks=agreed_over(mesh, split, "data"),
+               same_whole=agreed_over(mesh, kept, ("data", "model")))
+    if twin:
+        out["params"] = [l.cpu().numpy() for l in tree_flatten(gather_tree(
+            state["params"], general_specs(cfg, whole, mesh), mesh))[0]]
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def gen_card_rank(rank, world, device="cuda"):
+    """A rank of 19 on the card (gloo, data 2 x model 2)."""
+    card_flags()
+    mesh = make_test_mesh(data=GEN_DATA, model=GEN_MODEL, device=device)
+    out = {}
+    for mode in GENERAL_MODES:
+        t0 = time.perf_counter()
+        out[mode] = gen_rank_run(mesh, mode, twin=False)
+        out[mode]["mode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["twin"] = {mode: gen_rank_run(mesh, mode, twin=True)
+                   for mode in GENERAL_MODES}
+    out["twin_s"] = time.perf_counter() - t0
+    return out
+
+
+def gen_oracle(mode: str, device="cuda"):
+    """19's f32 twin in one process: each agent's gradient by the port's
+    loss, the rule of ``core.gradagg`` on the stacked flat gradients,
+    then the step's clipping, optimizer and update. Returns the
+    parameter leaves."""
+    cfg = gen_twin_cfg()
+    tc = gen_tc(mode, twin=True)
+    opt = make_optimizer(tc)
+    state = init_state(torch.Generator().manual_seed(0), cfg, tc,
+                       max_pos=TRAIN_SEQ + 1, device="cpu")
+    params = mmodel.tree_to(state["params"], device)
+    ost = mmodel.tree_to(state["opt"], device)
+    loss_fn = make_loss_fn(cfg, tc, 1)
+    n, per = GEN_DATA, TRAIN_BATCH // GEN_DATA
+    ledger = ts = err = None
+    for t, ((x, y), m) in enumerate(zip(gen_batches(cfg.vocab_size),
+                                        gen_masks(mode))):
+        batch = lm_batch(x, y, np.ones((TRAIN_BATCH, TRAIN_SEQ), np.float32),
+                         device)
+        grads, layout = [], None
+        for a in range(n):
+            _, g = value_and_grad(loss_fn, params, {
+                k: v[a * per:(a + 1) * per] for k, v in batch.items()})
+            layout = layout_of(g)
+            grads.append(layout.flatten(g))
+        g = torch.stack(grads)
+        rx = torch.from_numpy(m > 0).to(device)
+        if mode == "cge":
+            keep = gradagg.cge_mask(g, rx, tc.f)
+            agg_flat, denom = gradagg.agg_sum(g, keep), keep.sum()
+        elif mode == "trimmed":
+            agg_flat = gradagg.agg_trimmed_mean(g, rx, tc.f)
+            denom = torch.ones((), device=device)
+        elif mode == "stale":
+            if ledger is None:
+                ledger = torch.zeros_like(g)
+                ts = torch.full((n,), -1, device=device)
+            ts = torch.where(rx, t, ts)
+            ledger = torch.where(rx[:, None], g, ledger)
+            usable = (t - ts) <= tc.tau
+            agg_flat, denom = gradagg.agg_sum(ledger, usable), usable.sum()
+        else:
+            if err is None:
+                err = torch.zeros_like(g)
+            xq = g + err
+            deq, res = gradagg.quantize_int8(xq)
+            agg_flat, denom = gradagg.agg_sum(deq, rx), rx.sum()
+            err = torch.where(rx[:, None], res, xq)
+        denom = torch.clamp(denom.to(torch.float32), min=1.0)
+        agg = layout.unflatten(agg_flat / denom, dtype=torch.float32)
+        agg, _ = clip_by_global_norm(agg, tc.clip_norm)
+        agg = tree_map(lambda a, p: a.to(p.dtype), agg, params)
+        updates, ost = opt.update(agg, ost, params, t)
+        params = apply_updates(params, updates, lr_at(tc, t))
+    return [l.cpu().numpy() for l in tree_flatten(params)[0]]
+
+
+def drive_general_tp(device="cuda"):
+    """19: the general step tensor-parallel over model on 4 gloo ranks."""
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    oracle = {mode: gen_oracle(mode, device) for mode in GENERAL_MODES}
+    t_oracle = time.perf_counter() - t0
+
+    def meta_counts():
+        t0 = time.perf_counter()
+        out = {(mode, r): gen_meta_count(mode, r) for mode in GENERAL_MODES
+               for r in (0, GEN_MODEL)}            # an agent each
+        return out, time.perf_counter() - t0
+
+    ex = ThreadPoolExecutor(1)
+    counting = ex.submit(meta_counts)
+    t0 = time.perf_counter()
+    res = run_ranks(gen_card_rank, GEN_DATA * GEN_MODEL, backend="gloo",
+                    device=device, timeout=SPMD_TIMEOUT, args=(device,),
+                    threads=CORES // (GEN_DATA * GEN_MODEL))
+    ranks_s = time.perf_counter() - t0
+    dry, t_meta = counting.result()
+    ex.shutdown()
+    r0 = res[0]
+    log(f"  {SERVE_ARCH} at full width, bf16, AdamW, the general step on "
+        f"data {GEN_DATA} x model {GEN_MODEL} (4 gloo ranks sharing the "
+        f"card, {ranks_s:.1f} s with start-up: rank 0's modes " + ", ".join(
+            f"{m} {r0[m]['mode_s']:.1f} s" for m in GENERAL_MODES)
+        + f", twin {r0['twin_s']:.1f} s; before the ranks, the twin's "
+        f"one-process oracle {t_oracle:.1f} s; beside them, the meta counts "
+        f"{t_meta:.1f} s), tp axes {r0['cge']['tp']}, "
+        f"{r0['cge']['split']} leaves split over model")
+    bad = []
+    for mode in GENERAL_MODES:
+        a = analyze(dry[mode, 0][0])
+        log(f"    {mode} ({GEN_WHY[mode]}): s per step (rank 0) "
+            + ", ".join(f"{t:.2f}" for t in r0[mode]["secs"])
+            + f"; losses {r0[mode]['losses']}; all-reduces a rank "
+            f"{a['collective_count']:.0f} ({a['collectives']['all-reduce']:.6e}"
+            f" wire bytes), FLOPs {a['flops']:.6e}; state bytes a rank " +
+            ", ".join(f"{o[mode]['placed']:,}" for o in res)
+            + f" (meta report {dry[mode, 0][1]:,}); identical per tp block "
+            f"over dp: {all(o[mode]['same_blocks'] for o in res)}, whole "
+            f"leaves over all ranks: {all(o[mode]['same_whole'] for o in res)}")
+        for r, o in enumerate(res):
+            want, want_bytes = dry[mode, (r // GEN_MODEL) * GEN_MODEL]
+            require_same_ops(f"19 {mode} rank {r}", want, o[mode]["table"],
+                             keys=("flops",))
+            if o[mode]["table"]["collectives"] != want["collectives"]:
+                bad.append(f"{mode} rank {r}: collectives "
+                           f"{o[mode]['table']['collectives']}, recorded "
+                           f"{want['collectives']}")
+            if abs(o[mode]["placed"] - want_bytes) > \
+                    PLACED_BYTES_REL * want_bytes:
+                bad.append(f"{mode} rank {r}: {o[mode]['placed']} B placed, "
+                           f"the report says {want_bytes}")
+            if not (o[mode]["same_blocks"] and o[mode]["same_whole"]
+                    and o[mode]["tp"] == ("model",)
+                    and np.isfinite(o[mode]["losses"]).all()):
+                bad.append(f"{mode} rank {r}: blocks {o[mode]['same_blocks']}"
+                           f", whole {o[mode]['same_whole']}, tp "
+                           f"{o[mode]['tp']}, losses {o[mode]['losses']}")
+    errs = {}
+    for mode in GENERAL_MODES:
+        for r, o in enumerate(res):
+            tw = o["twin"][mode]
+            if not (tw["same_blocks"] and tw["same_whole"]):
+                bad.append(f"twin {mode} rank {r}: not identical")
+            for got, want in zip(tw["params"], oracle[mode]):
+                torch.testing.assert_close(torch.from_numpy(got),
+                                           torch.from_numpy(want),
+                                           **TWIN_TOL)
+            errs[mode] = max(errs.get(mode, 0.0), max(
+                float(np.max(np.abs(a - b)))
+                for a, b in zip(tw["params"], oracle[mode])))
+    log(f"    f32 twin ({GEN_TWIN_LAYERS} layers of reduced {SERVE_ARCH}, "
+        f"SGD-momentum, {GEN_STEPS} steps) against the one-process "
+        f"core.gradagg oracle: max |param diff| " + ", ".join(
+            f"{m} {e:.3e}" for m, e in errs.items())
+        + f" (tolerance {TWIN_TOL['atol']:.0e})")
+    if bad:
+        raise AssertionError("19: " + "; ".join(bad))
+    log(f"  phase 19 in {time.perf_counter() - t_all:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4589,7 +4892,11 @@ def main() -> int:
         "launch.serve's steps on data 2 x model 2")
     drive_tp_compute()
 
-    log("== 19. result")
+    log("== 19. the general step tensor-parallel over model: cge, stale, "
+        "trimmed, quantized on data 2 x model 2")
+    drive_general_tp()
+
+    log("== 20. result")
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

@@ -22,6 +22,18 @@ all-reduces one scalar per agent and reuses
 ``gradagg.cge_mask_from_norms``, so the keep-set math exists once. The
 trimmed mean needs every agent's value per coordinate, so it rebuilds
 the stack, a column block at a time to bound its memory.
+
+*Tensor-parallel blocks.* On the general step of a dense decoder over a
+mesh whose "model" axis is above 1, a rank's gradient tree holds its tp
+blocks of the split leaves and the others whole (``dist.tp``). The sums
+and the trimmed mean are coordinate-wise, so they run on the blocks as
+they are, over dp. The two rules that read the whole gradient take
+``tp=`` (a ``dist.tp.TP``) and ``groups=`` (per leaf, the blocks it is
+split into; 1: whole; None: every leaf whole): CGE's per-agent norm and the quantizer's
+per-agent scale then come from ``dist.tp.tp_sq_norm`` and
+``tp_abs_max``, the same on every tp rank, so every rank derives the
+same keep-set and scale. With no ``tp``, or a tp extent of 1, each is
+the one-block code bit for bit.
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ import torch
 
 from repro_torch.core import gradagg
 from repro_torch.core.ledger import layout_of, tree_flatten, tree_unflatten
+from repro_torch.dist.tp import tp_abs_max, tp_sq_norm
 
 Tree = Any
 
@@ -104,13 +117,16 @@ def masked_psum(tree: Tree, w, axes, *, mesh) -> Tree:
     return _psum_tree(tree, w, axes, mesh=mesh)
 
 
-def cge_psum(tree: Tree, received, f: int, axes, *, mesh):
+def cge_psum(tree: Tree, received, f: int, axes, *, mesh, tp=None,
+             groups=None):
     """SPMD twin of ``agg_cge`` (paper eq. (18)), in two phases:
     (1) all-reduce one norm and one received flag per agent,
     (2) every rank derives the identical keep-set from the norm order,
         and the masked all-reduce sums the kept gradients.
-    Returns (aggregate, keep (n,) bool, the same on every rank)."""
-    my_norm = torch.sqrt(tree_sq_norm(tree))
+    The norm is the whole gradient's (``tp``, ``groups``: the tree's tp
+    blocks, as the module says). Returns (aggregate, keep (n,) bool, the
+    same on every rank)."""
+    my_norm = torch.sqrt(tp_sq_norm(tree_flatten(tree)[0], groups, tp))
     norms = _per_agent(my_norm, axes, mesh=mesh)
     rx = _per_agent(torch.as_tensor(received, dtype=torch.float32,
                                     device=my_norm.device), axes,
@@ -182,18 +198,21 @@ def ledger_all_rows(x_loc: torch.Tensor, axes, n: int, *,
     return psum_all(full, axes, mesh=mesh)
 
 
-def quantized_psum(tree: Tree, w, err: Tree, axes, *, mesh):
+def quantized_psum(tree: Tree, w, err: Tree, axes, *, mesh, tp=None,
+                   groups=None):
     """SPMD twin of ``agg_quantized`` with error feedback: add the carried
     residual, quantize the whole local gradient to int8 against one
     per-agent scale (wire format: 1 byte/param + one f32 scale),
     all-reduce the dequantized masked contributions, keep the new
     residual locally. A masked-out agent (w == 0) folds the whole unsent
     gradient-plus-residual into its residual, so nothing is dropped.
+    ``err`` is in the tree's layout; the scale is the whole gradient's
+    (``tp``, ``groups``: the tree's tp blocks, as the module says).
     Returns (aggregate, new_err)."""
     leaves, spec = tree_flatten(tree)
     x = [g.to(torch.float32) + e.to(torch.float32)
          for g, e in zip(leaves, tree_flatten(err)[0])]
-    amax = torch.max(torch.stack([torch.max(torch.abs(l)) for l in x]))
+    amax = tp_abs_max(x, groups, tp)
     scale = torch.clamp(amax / 127.0, min=1e-30)
     deq = [torch.clamp(torch.round(l / scale), -127.0, 127.0) * scale
            for l in x]

@@ -40,6 +40,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.dist.tp import TP, join_sq_norms
+
 Tree = Any
 
 # leaves replicated regardless of shape (norm scales, biases, timestamps)
@@ -566,12 +568,12 @@ class Placement:
     def global_sq_norm(self) -> torch.Tensor:
         """The squared norm of the whole gradient: the replicated leaves
         once, the split leaves' squares summed over the tp axes (one
-        all-reduce, where any leaf is split)."""
-        total = sum(self.sq_norms)
-        if self.sq_norms_split:
-            total = total + self.mesh.all_reduce(sum(self.sq_norms_split),
-                                                 self.tp)
-        return total
+        all-reduce, where any leaf is split; ``dist.tp.join_sq_norms``)."""
+        n = self.mesh.axis_size(self.tp)
+        return join_sq_norms(
+            self.sq_norms + self.sq_norms_split,
+            [1] * len(self.sq_norms) + [n] * len(self.sq_norms_split),
+            TP(self.mesh, self.tp) if self.tp else None)
 
     def _hold(self, flat: torch.Tensor) -> None:
         n = flat.numel() * flat.element_size()

@@ -32,25 +32,43 @@ ranks and computes each group's block on all of the group's ranks. The
 ``scatter_to_tp(x, dim, groups=g)`` takes it, and ``copy_to_tp(x,
 groups=g)`` feeds a computation that the ranks of a group repeat, so
 its backward sums one rank of each group.
+
+*Norms over blocks.* :func:`tp_sq_norm` and :func:`tp_abs_max` give the
+squared L2 norm and the max |x| of a whole tree from this rank's blocks
+of its leaves, the same bits on every rank of the tp extent; the placed
+step's global norm (``dist.sharding.Placement``) and the general step's
+collectives (``dist.collectives``) read them.
 """
 from __future__ import annotations
 
 import threading
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 _STATE = threading.local()
 
 
+PROGRAMS = ("masked", "general")
+
+
 class TP:
     """The active tensor-parallel extent: ``mesh``, its ``axes``, their
-    ``size`` n and this rank's index ``rank`` over them."""
+    ``size`` n and this rank's index ``rank`` over them, and the
+    reference ``program`` the layers follow where its two compiled train
+    steps split a computation differently: ``"masked"`` (the placed step,
+    and serving) or ``"general"`` (the general step). The general step's
+    program projects only the KV heads a rank's query heads read also
+    where the heads split over fewer groups than ranks, and takes the
+    tied unembedding's input gradient from this rank's model columns."""
 
-    __slots__ = ("mesh", "axes", "size", "rank")
+    __slots__ = ("mesh", "axes", "size", "rank", "program")
 
-    def __init__(self, mesh, axes: Tuple[str, ...]):
-        self.mesh, self.axes = mesh, tuple(axes)
+    def __init__(self, mesh, axes: Tuple[str, ...], program: str = "masked"):
+        if program not in PROGRAMS:
+            raise ValueError(f"program must be one of {PROGRAMS}, got "
+                             f"{program!r}")
+        self.mesh, self.axes, self.program = mesh, tuple(axes), program
         self.size = mesh.axis_size(self.axes)
         self.rank = mesh.axis_index(self.axes)
 
@@ -96,13 +114,67 @@ class TP:
         return x.narrow(dim, off, n).contiguous()
 
 
+def _sq(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(torch.square(x.to(torch.float32)))
+
+
+def join_sq_norms(sqs: Sequence[torch.Tensor],
+                  groups: Optional[Sequence[int]],
+                  tp: Optional[TP]) -> torch.Tensor:
+    """The squared norm of a whole tree from ``sqs``, the squared norms of
+    this rank's blocks of its leaves, each leaf split into ``groups[i]``
+    blocks over consecutive rank groups of the tp extent (1: whole on
+    every rank, n: a block a rank; None: every leaf whole). Whole leaves
+    count once, locally; the split ones are summed over tp in one
+    all-reduce, to which only the first rank of each group adds its
+    group's block. With no ``tp``, or a tp extent of 1, the plain sum in
+    order."""
+    if tp is None or tp.size == 1 or groups is None:
+        return sum(sqs)
+    whole = [s for s, g in zip(sqs, groups) if g == 1]
+    split = [s for s, g in zip(sqs, groups) if g > 1 and tp.leads(g)]
+    total = sum(whole)
+    if any(g > 1 for g in groups):
+        part = sum(split) if split else torch.zeros(
+            (), dtype=torch.float32, device=sqs[0].device)
+        total = total + tp.all_reduce(part)
+    return total
+
+
+def tp_sq_norm(leaves: Sequence[torch.Tensor],
+               groups: Optional[Sequence[int]],
+               tp: Optional[TP]) -> torch.Tensor:
+    """The squared L2 norm (f32 accumulation) of the whole tree of which
+    ``leaves`` are this rank's blocks (``groups`` as in
+    :func:`join_sq_norms`)."""
+    return join_sq_norms([_sq(l) for l in leaves], groups, tp)
+
+
+def tp_abs_max(leaves: Sequence[torch.Tensor],
+               groups: Optional[Sequence[int]],
+               tp: Optional[TP]) -> torch.Tensor:
+    """max |x| over the whole tree of which ``leaves`` are this rank's
+    blocks: the local maximum, then, where a leaf is split, every rank's
+    joined through a ``-0.0``-padded sum all-reduce of a tp-length vector
+    (the sum is exact and ``Mesh.all_reduce`` has no max) and its
+    maximum. A block repeated over a group's ranks changes no maximum."""
+    local = torch.max(torch.stack([torch.max(torch.abs(l)) for l in leaves]))
+    if tp is None or tp.size == 1 or groups is None or all(
+            g == 1 for g in groups):
+        return local
+    buf = torch.full((tp.size,), -0.0, dtype=local.dtype, device=local.device)
+    buf[tp.rank] = local
+    return torch.max(tp.all_reduce(buf))
+
+
 class tp_context:
     """Context manager installing tensor-parallel compute over
     ``tp_axes`` of ``mesh`` (None: none, an explicit off)."""
 
-    def __init__(self, mesh, tp_axes: Tuple[str, ...] = ("model",)):
+    def __init__(self, mesh, tp_axes: Tuple[str, ...] = ("model",),
+                 program: str = "masked"):
         self._val = (None if mesh is None or mesh.axis_size(tuple(tp_axes))
-                     == 1 else TP(mesh, tp_axes))
+                     == 1 else TP(mesh, tp_axes, program))
 
     @classmethod
     def of(cls, tp: Optional[TP]) -> "tp_context":
@@ -167,6 +239,17 @@ class _Reduce(torch.autograd.Function):
         return None, g
 
 
+class _Leads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tp, groups, x):
+        ctx.keep = tp.leads(groups)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, g if ctx.keep else torch.zeros_like(g)
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tp, dim, groups, x):
@@ -220,3 +303,13 @@ def scatter_to_tp(x: torch.Tensor, dim: int, groups: int = 1):
     this rank's block; the backward gathers the blocks back."""
     tp = current_tp()
     return x if tp is None else _Scatter.apply(tp, dim, groups, x)
+
+
+def lead_only(x: torch.Tensor, groups: int):
+    """Identity forward; the backward keeps the gradient on the first rank
+    of each of ``groups`` groups and zeroes it on the others (no
+    collective): a value the ranks of a group compute alike, whose
+    gradient a later ``copy_to_tp`` sums over every rank."""
+    tp = current_tp()
+    return x if tp is None or groups == tp.size else _Leads.apply(tp, groups,
+                                                                  x)

@@ -18,9 +18,12 @@ only: nothing is allocated and no card is needed) over a
   tensor-parallel over "model" (``dist.tp``); the other families gather
   whole leaves and compute whole on every rank.
 - train, the general modes (cge, stale, trimmed, quantized):
-  ``make_general_step``, which refuses a model axis above 1 (the
-  production meshes have 16), so the record is ``ok: False`` with that
-  refusal.
+  ``make_general_step`` on ``place_general_state``'s share of the state,
+  the reference's general layout: parameters and moments in the compute
+  layout (a dense decoder's TP blocks over "model", replicated over dp;
+  whole for the other families), this agent's ledger and error rows
+  whole, the global batch it slices itself and a host ``fresh_mask`` of
+  ones (the reference's ``(n_agents,)`` f32 argument).
 - prefill and decode: ``launch.serve``'s steps on this rank's dp block
   of the batch and cache. A dense decoder runs tensor-parallel on the
   compute layout (``place_params``) and a cache with ``cache_specs``'
@@ -43,8 +46,10 @@ splits over.
         [--reference DIR]
 
 ``--reference DIR`` reads the reference's records of the same cells
-(``scripts/reference_dryrun.py --out DIR``, the same ``--tag``), and
-each record states its FLOPs against them (``flops_ratio``).
+(``scripts/reference_dryrun.py --out DIR``, the same ``--tag`` and
+``--mode``), and each record states its FLOPs against them
+(``flops_ratio``). ``--mode cge`` (stale, trimmed, quantized) builds the
+train cells on the general step, and the record's tag names the mode.
 
 Records land in ``results/dryrun/<arch>__<shape>__<mesh>[__tag].json``
 under the repository root, each beside its per-op table
@@ -63,6 +68,7 @@ import traceback
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import SHAPES, get_shape
@@ -106,6 +112,13 @@ COMPUTE_TP = {
     "decode": "compute-layout parameters, tensor-parallel over model, "
               "this rank's dp block of the batch and the cache's head_dim "
               "block",
+}
+
+COMPUTE_GENERAL = {
+    False: "general step: whole parameters on every rank, one agent per "
+           "dp rank",
+    True: "general step: compute-layout parameters, tensor-parallel over "
+          "model, one agent per dp rank",
 }
 
 
@@ -191,9 +204,17 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
                 compute=(COMPUTE_TP if tensor_parallel else COMPUTE)[kind])
 
     if kind == "train" and mode in GENERAL_MODES:
-        # refuses the model axis (training compute is not tensor-parallel)
-        T.make_general_step(cfg, tc, mesh, moe_groups=n_ag)
-        raise AssertionError(f"make_general_step took the mesh {sizes}")
+        meta["compute"] = COMPUTE_GENERAL[tensor_parallel]
+        state = T.init_state(None, cfg, tc, max_pos=max_pos_for(shape),
+                             n_agents=n_ag, device="meta", mesh=mesh)
+        state["step"] = _host_scalar()
+        local = T.place_general_state(state, mesh, cfg)
+        fresh = np.ones(n_ag, np.float32)
+        step = T.make_general_step(cfg, tc, mesh, moe_groups=n_ag)
+        arg_bytes = (_tree_bytes(local) + fresh.nbytes
+                     + bytes_per_rank(batch, batch_specs(rules, batch),
+                                      sizes))
+        return Cell(step, (local, batch, fresh), arg_bytes), meta
     if kind == "train":
         state = T.abstract_state(cfg, tc, max_pos=max_pos_for(shape))
         state["step"] = _host_scalar()
@@ -308,13 +329,25 @@ def _reference_record(ref_dir, arch, shape, mesh, tag):
     return rec if rec.get("ok") else None
 
 
+def record_tag(tag: Optional[str], period: bool, mode: str) -> str:
+    """A record's tag: ``tag`` (``period`` for one period of depth where
+    none is given), and a general mode's name after it, as
+    ``scripts/reference_dryrun.py`` names the reference's records."""
+    base = tag if tag is not None else ("period" if period else "")
+    return "_".join(t for t in (base, "" if mode == "masked" else mode)
+                    if t)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
     ap.add_argument("--shape")
     ap.add_argument("--mesh", default="single",
                     choices=["single", "multi", "both"])
-    ap.add_argument("--mode", default="masked")
+    ap.add_argument("--mode", default="masked",
+                    choices=("masked",) + GENERAL_MODES,
+                    help="the train cells' step; a general mode's records "
+                         "carry it in their tag")
     ap.add_argument("--layout", default="baseline", choices=sorted(LAYOUTS))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--tag", default=None)
@@ -330,8 +363,7 @@ def main(argv=None):
 
     cells = live_cells() if args.all else [(args.arch, args.shape)]
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
-    tag = args.tag if args.tag is not None else (
-        "period" if args.period else "")
+    tag = record_tag(args.tag, args.period, args.mode)
     for arch, shape in cells:
         patch = ({"n_layers": get_config(arch).period} if args.period
                  else None)

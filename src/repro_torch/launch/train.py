@@ -19,18 +19,22 @@ Two paths:
    families gather whole leaves and compute whole on every rank.
 
 2. ``general`` (:func:`make_general_step`, every rank of a mesh whose dp
-   axes carry one agent per rank): per-agent gradients per dp rank,
-   enabling
+   axes carry one agent per dp coordinate): per-agent gradients per dp
+   rank, enabling
    - ``cge``        the two-phase CGE filter (one norm per agent
                     all-reduced, then a masked all-reduce),
    - ``stale``      rule (15) with the agent's ledger row on its rank,
    - ``trimmed``    the coordinate-wise trimmed mean,
    - ``quantized``  int8 error-feedback compressed aggregation.
-   Parameters and optimizer state are replicated: every rank applies the
-   same update to the same values. The reference's train-time "model"
-   axis is GSPMD-automatic and leaves the numbers unchanged; this path's
-   tensor-parallel form waits for ROADMAP item 11b, so its train meshes
-   carry model = 1.
+   Parameters and optimizer state are replicated over dp: every dp rank
+   applies the same update to the same values. On a mesh whose other
+   ("model") axes hold more than one rank, a dense decoder computes
+   tensor-parallel over them on the reference's compute layout
+   (``place_general_state``: each rank its tp blocks of the parameters
+   and moments, its agent's ledger and error rows whole); the other
+   families compute whole on every rank. The reference's "model" axis is
+   GSPMD-automatic and leaves the numbers unchanged, and so does this
+   one's.
 
 Gradients come from ``torch.autograd`` on the reference's loss; the
 optimizer and clipping arithmetic are ``repro_torch.optim.optimizers``'.
@@ -49,18 +53,18 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.ledger import (layout_of, ledger_zeros, tree_flatten,
-                                     tree_map, tree_unflatten)
+from repro_torch.core.ledger import (layout_of, ledger_dim, ledger_zeros,
+                                     tree_flatten, tree_map, tree_unflatten)
 from repro_torch.device import resolve as resolve_device
 from repro_torch.dist import collectives as C
 from repro_torch.dist.act_sharding import _norm_axes, act_policy, placement
 from repro_torch.dist.registry import resolve_mode
 from repro_torch.dist.sharding import (MeshRules, Placement, _rebuild,
-                                       _split_axes, _zip_specs, batch_specs,
-                                       block_slices, bytes_per_rank,
-                                       compute_rules, full_shape, shard_tree,
-                                       tree_specs)
-from repro_torch.dist.tp import tp_context, tp_dense
+                                       _spec_axes, _split_axes, _zip_specs,
+                                       batch_specs, block_slices,
+                                       bytes_per_rank, compute_rules,
+                                       full_shape, shard_tree, tree_specs)
+from repro_torch.dist.tp import TP, tp_context, tp_dense, tp_sq_norm
 from repro_torch.launch.mesh import dp_axis_names, n_agents_of
 from repro_torch.models.model import apply_model, init_model, lm_loss
 from repro_torch.optim.optimizers import (adamw, apply_updates,
@@ -191,6 +195,44 @@ def place_state(state: Dict[str, Tree], mesh) -> Tuple[Dict[str, Tree],
     spec. ``dist.sharding.gather_tree`` is the way back."""
     specs = tree_specs(state, state_rules(mesh.shape))
     return shard_tree(state, specs, mesh), specs
+
+
+def general_tp_axes(cfg: ArchConfig, mesh) -> Tuple[str, ...]:
+    """The axes the general step of ``cfg`` computes tensor-parallel over
+    on ``mesh``: its axes other than dp that hold more than one rank, for
+    a dense decoder (``dist.tp.tp_dense``); none for the other families,
+    which compute whole on every rank."""
+    if not tp_dense(cfg):
+        return ()
+    dp = dp_axis_names(mesh)
+    return tuple(a for a in mesh.axis_names
+                 if a not in dp and mesh.shape[a] > 1)
+
+
+def general_specs(cfg: ArchConfig, tree: Tree, mesh) -> Tree:
+    """The general step's layout of a parameter-shaped ``tree`` (whole
+    leaves): the reference's compute layout, ``tree_specs(tree,
+    compute_rules(...))`` over :func:`general_tp_axes` (TP blocks,
+    replicated over dp); every leaf whole where there are none."""
+    return tree_specs(tree, compute_rules(
+        mesh.shape, dp_axes=dp_axis_names(mesh),
+        tp_axes=general_tp_axes(cfg, mesh)))
+
+
+def place_general_state(state: Dict[str, Tree], mesh,
+                        cfg: ArchConfig) -> Dict[str, Tree]:
+    """This rank's share of a general step's state (``init_state(...,
+    mesh=mesh)``: its agent's ledger and error rows) as the reference's
+    dry run lays it out: parameters and optimizer moments in the compute
+    layout (:func:`general_specs`: tensor-parallel blocks over "model"
+    for a dense decoder, whole for the other families), ``ledger`` and
+    ``err`` this agent's rows whole on every model rank, ``step`` as it
+    is. With model = 1 the state comes back as it is."""
+    out = dict(state)
+    for key in ("params", "opt"):
+        out[key] = shard_tree(state[key],
+                              general_specs(cfg, state[key], mesh), mesh)
+    return out
 
 
 def state_bytes_per_rank(cfg: ArchConfig, tc: TrainConfig,
@@ -430,6 +472,65 @@ def _make_placed_step(cfg, tc, moe_groups, opt, dp, tp, param_specs, sizes,
 # general path (every rank of a mesh, one agent per dp rank)
 
 
+class _Blocks:
+    """This rank's tensor-parallel blocks of a parameter-shaped tree on the
+    general step (:func:`general_specs`), read from the first tree it is
+    given: per leaf its spec, the whole shape and the blocks it is split
+    into over tp (``groups``, 1: whole on every rank)."""
+
+    def __init__(self, cfg: ArchConfig, mesh, tp_axes: Tuple[str, ...]):
+        self.cfg, self.mesh = cfg, mesh
+        self.tp = TP(mesh, tp_axes)
+        self.specs = None
+
+    def check(self, params: Tree) -> None:
+        if self.specs is not None:
+            return
+        mesh = self.mesh
+        # the rules read names and shapes; learned positions (whose length
+        # max_pos sets) are whole in every layout
+        whole = init_model(None, self.cfg, device="meta", max_pos=8)
+        specs = [sp for _, sp in _zip_specs(
+            whole, general_specs(self.cfg, whole, mesh))]
+        local, self.tree = tree_flatten(params)
+        self.full = [full_shape(sp, l.shape, mesh)
+                     for l, sp in zip(local, specs)]
+        self.groups = [mesh.axis_size(_spec_axes(sp, mesh)) for sp in specs]
+        for l, w, full, g in zip(local, tree_flatten(whole)[0], self.full,
+                                 self.groups):
+            if g > 1 and tuple(full) != tuple(w.shape):
+                raise ValueError(
+                    f"a parameter block of shape {tuple(l.shape)} is not "
+                    f"this rank's compute block of {tuple(w.shape)}: place "
+                    "the state with place_general_state")
+        self.slices = [block_slices(sp, full, mesh)
+                       for sp, full in zip(specs, self.full)]
+        self.dtypes = [l.dtype for l in local]
+        self.whole = layout_of(tree_unflatten(self.tree, [
+            torch.empty(f, dtype=d, device="meta")
+            for f, d in zip(self.full, self.dtypes)]))
+        self.specs = specs
+
+    def of_whole(self, leaves):
+        """This rank's blocks of whole ``leaves`` (views)."""
+        return [l[sl] for l, sl in zip(leaves, self.slices)]
+
+    def join(self, leaves) -> torch.Tensor:
+        """The whole tree's flat ``(P,)`` f32 vector (the ledger's layout)
+        from this rank's blocks ``leaves``, in one ``-0.0``-padded
+        all-reduce over tp, bit for bit: each block is written by the
+        first rank of the ranks that hold it."""
+        lay = self.whole
+        buf = torch.full((ledger_dim(lay),), -0.0,
+                         dtype=torch.float32, device=leaves[0].device)
+        for l, sl, full, g, off, sz in zip(leaves, self.slices, self.full,
+                                           self.groups, lay.offsets,
+                                           lay.sizes):
+            if self.tp.leads(g):
+                buf[off:off + sz].view(full)[sl] = l.to(torch.float32)
+        return self.tp.all_reduce(buf)
+
+
 def make_general_step(cfg: ArchConfig, tc: TrainConfig, mesh,
                       moe_groups: int = 1) -> Callable:
     """Per-agent gradient paths: cge / stale / trimmed / quantized.
@@ -440,18 +541,48 @@ def make_general_step(cfg: ArchConfig, tc: TrainConfig, mesh,
     as ``data.partition.agent_of_example`` lays it out), and its state
     holds its agent's ledger and error rows (``init_state(...,
     mesh=mesh)``). The loss and metrics are the same on every rank.
+
+    Where :func:`general_tp_axes` names axes (a dense decoder on a mesh
+    whose "model" axes hold more than one rank), the state is
+    ``place_general_state``'s and the step is tensor-parallel over them,
+    as the reference's GSPMD runs its general step on TP-sharded
+    parameters:
+
+    - the loss runs under ``tp_context`` (no activation policy, as the
+      reference's general loss has none), vocabulary-parallel, over the
+      agent's own weight sum;
+    - the rule's collective runs over dp on this rank's blocks; CGE's
+      norm and the quantizer's scale are the whole gradient's
+      (``dist.tp.tp_sq_norm`` / ``tp_abs_max``);
+    - stale: the masked sum runs on the blocks of ``contrib``, and a
+      fresh agent's whole ledger row is its blocks joined over tp (one
+      ``-0.0``-padded all-reduce, bit for bit); quantized: the new
+      residual row is joined the same way;
+    - the clipping norm is the whole aggregate's, and the optimizer runs
+      elementwise on the blocks.
+
+    Otherwise the step computes whole, as at model = 1.
     """
     opt = make_optimizer(tc)
     dp = dp_axis_names(mesh)
     n = n_agents_of(mesh)
-    if mesh.axis_size(tuple(a for a in mesh.axis_names
-                            if a not in dp)) != 1:
-        raise ValueError("the general step replicates parameters over the "
-                         f"model axes: want model = 1, got {mesh.shape} "
-                         "(tensor-parallel compute here is ROADMAP item "
-                         "11b)")
     rule = resolve_mode(tc.mode)        # the one dispatch point (registry)
-    loss_fn = make_loss_fn(cfg, tc, max(moe_groups // n, 1))
+    agent_groups = max(moe_groups // n, 1)
+    tp_axes = general_tp_axes(cfg, mesh)
+    blocks = _Blocks(cfg, mesh, tp_axes) if tp_axes else None
+    if blocks is None:
+        loss_fn = make_loss_fn(cfg, tc, agent_groups)
+    else:
+        def loss_fn(params, batch):
+            with tp_context(mesh, tp_axes, program="general"):
+                logits, aux, _ = apply_model(
+                    params, batch["tokens"], cfg, mode="train",
+                    enc_embed=batch.get("enc_embed"),
+                    moe_groups=agent_groups,
+                    remat_policy=tc.remat_policy)
+                return lm_loss(logits, batch["targets"], batch["weights"],
+                               aux, aux_coef=tc.aux_coef,
+                               vocab_size=cfg.vocab_size)
     me = C.agent_index(dp, mesh=mesh)
 
     def psum(x):
@@ -467,12 +598,16 @@ def make_general_step(cfg: ArchConfig, tc: TrainConfig, mesh,
             local[key] = x
         mask_self = torch.as_tensor(
             np.asarray(fresh_mask, np.float32)[me], device=dev)
+        tp = groups = None
+        if blocks is not None:
+            blocks.check(state["params"])
+            tp, groups = blocks.tp, blocks.groups
         loss, grads = value_and_grad(loss_fn, state["params"], local)
         loss = loss.to(dev)
 
         if tc.mode == "cge":
             agg, keep = rule.collective(grads, mask_self > 0, tc.f, dp,
-                                        mesh=mesh)
+                                        mesh=mesh, tp=tp, groups=groups)
             denom = torch.sum(keep.to(torch.float32))
         elif tc.mode == "trimmed":
             agg = rule.collective(grads, mask_self > 0, tc.f, dp, mesh=mesh)
@@ -482,20 +617,37 @@ def make_general_step(cfg: ArchConfig, tc: TrainConfig, mesh,
             layout = layout_of(grads)
             step_t = torch.as_tensor(int(state["step"]), dtype=torch.int32,
                                      device=dev)
-            fresh = bool(mask_self > 0)
+            fresh = bool(np.asarray(fresh_mask, np.float32)[me] > 0)
             new_ts = step_t if fresh else state["ledger"]["ts"][0]
             usable = ((step_t - new_ts) <= tc.tau).to(torch.float32)
-            contrib = (layout.flatten(grads) if fresh
-                       else state["ledger"]["g"][0])
+            row = state["ledger"]["g"][0]
+            if blocks is None:
+                contrib = layout.flatten(grads) if fresh else row
+                new_row = contrib
+            elif fresh:
+                contrib = layout.flatten(grads)
+                new_row = blocks.join(tree_flatten(grads)[0])
+            else:
+                contrib = layout.flatten(tree_unflatten(
+                    blocks.tree, blocks.of_whole(tree_flatten(
+                        blocks.whole.unflatten(row, torch.float32))[0])))
+                new_row = row
             agg = layout.unflatten(rule.collective(contrib, usable, dp,
                                                    mesh=mesh),
                                    dtype=torch.float32)
             denom = psum(usable)
-            new_ledger = {"g": contrib[None], "ts": new_ts.reshape(1)}
+            new_ledger = {"g": new_row[None], "ts": new_ts.reshape(1)}
         elif tc.mode == "quantized":
             err_self = tree_map(lambda e: e[0], state["err"])
+            if blocks is not None:
+                err_self = tree_unflatten(blocks.tree, blocks.of_whole(
+                    tree_flatten(err_self)[0]))
             agg, new_err = rule.collective(grads, mask_self, err_self, dp,
-                                           mesh=mesh)
+                                           mesh=mesh, tp=tp, groups=groups)
+            if blocks is not None:
+                new_err = blocks.whole.unflatten(
+                    blocks.join(tree_flatten(new_err)[0]),
+                    dtype=torch.float32)
             denom = psum(mask_self)
         else:
             raise ValueError(tc.mode)
@@ -504,10 +656,9 @@ def make_general_step(cfg: ArchConfig, tc: TrainConfig, mesh,
         denom = torch.clamp(denom, min=1.0)
         agg = tree_map(lambda g: g / denom, agg)
         loss = loss / denom
+        gnorm = torch.sqrt(tp_sq_norm(tree_flatten(agg)[0], groups, tp))
         if tc.clip_norm:
-            agg, gnorm = clip_by_global_norm(agg, tc.clip_norm)
-        else:
-            gnorm = torch.sqrt(C.tree_sq_norm(agg))
+            agg = clip_to_norm(agg, tc.clip_norm, gnorm)
         agg = tree_map(lambda a, p: a.to(p.dtype), agg, state["params"])
         s = int(state["step"])
         updates, new_opt = opt.update(agg, state["opt"], state["params"], s)
@@ -524,4 +675,5 @@ def make_general_step(cfg: ArchConfig, tc: TrainConfig, mesh,
             new_state["err"] = state["err"]
         return new_state, {"loss": loss, "grad_norm": gnorm}
 
+    step.tp_axes = tp_axes
     return step

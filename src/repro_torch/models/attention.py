@@ -42,7 +42,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.act_sharding import constrain
 from repro_torch.dist.sharding import current_serve_tp
 from repro_torch.dist.tp import (copy_to_tp, current_tp, gather_from_tp,
-                                 reduce_from_tp, scatter_to_tp)
+                                 lead_only, reduce_from_tp, scatter_to_tp)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_init,
                                        param_dtype, rotate)
@@ -279,7 +279,9 @@ def _apply_gqa_tp(p, x, cfg: ArchConfig, tp, *, rope, cache, cache_index,
       ranks; a group's ranks compute its heads alike. Where H % n = 0
       (g = n) each rank projects its own heads and only the KV heads they
       read; otherwise ``wq``'s columns cross head boundaries, the query is
-      gathered to the group's heads and K/V are projected whole.
+      gathered to the group's heads and K/V are projected whole, or,
+      under the general step's program (``dist.tp.TP``), only the KV
+      heads the group reads, their gradient kept on one rank a group.
     - Train and prefill attend over the group's heads; the output's block
       of ``wo``'s fan-in is this rank's, and the partial products are
       summed over tp. A prefill returns the cache in ``cache_specs``'
@@ -297,7 +299,8 @@ def _apply_gqa_tp(p, x, cfg: ArchConfig, tp, *, rope, cache, cache_index,
     groups = math.gcd(H, n)
     heads = tp.block(H, groups)                 # this group's query heads
     decode = cache is not None and cache_index is not None
-    own_kv = groups == n and not decode         # project only the KV read
+    # project only the KV heads read
+    own_kv = (groups == n or tp.program == "general") and not decode
 
     xc = copy_to_tp(x)
     q = xc @ p["wq"]
@@ -310,7 +313,8 @@ def _apply_gqa_tp(p, x, cfg: ArchConfig, tp, *, rope, cache, cache_index,
         if cfg.qkv_bias:
             k = k + copy_to_tp(p["bk"])[cols]
             v = v + copy_to_tp(p["bv"])[cols]
-        k, v = (t.reshape(b, s, k1 - k0, hd) for t in (k, v))
+        k, v = (lead_only(t, groups).reshape(b, s, k1 - k0, hd)
+                for t in (k, v))
     else:
         k0, k1 = 0, hkv
         k, v = _proj_kv(p, x, cfg)

@@ -239,9 +239,11 @@ class _TiedUnembed(torch.autograd.Function):
     backward gathers the logit gradient whole over the vocabulary and
     takes the weight's gradient for this rank's columns; the input
     gradient comes, with no further collective, from the whole weight
-    where the forward gathered it (the reference's compiled step computes
-    it so, whole on every rank), else from this rank's columns, gathered
-    over tp (tokens times d_model, not the weight)."""
+    where the forward gathered it (the reference's compiled masked step
+    computes it so, whole on every rank), else, and always under the
+    general step's program (``dist.tp.TP``, as the reference's general
+    step computes it), from this rank's columns, gathered over tp (tokens
+    times d_model, not the weight)."""
 
     @staticmethod
     def forward(ctx, tp, x, tok, vocab):
@@ -254,6 +256,8 @@ class _TiedUnembed(torch.autograd.Function):
             full = tp.gather(tok, -1)
             y = x @ full[rows].T
         ctx.tp, ctx.cols, ctx.rows = tp, cols, rows
+        if tp.program == "general":
+            full = None
         ctx.save_for_backward(x, tok, full)
         return y
 

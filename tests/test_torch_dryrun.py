@@ -18,6 +18,11 @@ replaced at run time by a mesh of ``Auto`` axes (jax 0.9.0's
     one-layer cell's equal to rank 0 of the TP step (placed train step,
     ``launch.serve``'s steps on ``place_params`` / ``place_cache``) on a
     recording mesh.
+(e) the general train step's cells (cge, stale, trimmed, quantized) of
+    qwen2-0.5b train_4k on one pod, tensor-parallel over "model": each
+    record's argument bytes exactly the reference's general cell's (the
+    agent's ledger and residual rows whole on every model rank) and its
+    FLOPs within [0.90, 1.10] of it.
 (d) the placed step's collective bytes equal a count summed here from
     the storage specs, the compute specs the baseline gathers to and the
     TP layer's all-reduces per layer, and on 2 gloo ranks of the CPU the
@@ -88,6 +93,17 @@ def reference(tmp_path_factory):
                               ".json").read_text())
             assert rec["ok"], rec.get("error")
             recs["|".join((arch, shape, layout))] = rec
+    run = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "reference_dryrun.py"),
+         "--out", str(out), "--mode", ",".join(D.GENERAL_MODES),
+         f"{QWEN}:train_4k"],
+        capture_output=True, text=True, timeout=600, env=env)
+    assert run.returncode == 0, run.stderr[-3000:]
+    for mode in D.GENERAL_MODES:
+        rec = json.loads((out / f"{QWEN}__train_4k__single__{mode}.json")
+                         .read_text())
+        assert rec["ok"] and rec["mode"] == mode, rec.get("error")
+        recs[f"{QWEN}|train_4k|{mode}"] = rec
     return recs
 
 
@@ -122,6 +138,27 @@ def test_train_argument_bytes_exactly_the_references(records, reference,
     key = f"{QWEN}|train_4k|{layout}"
     assert records[key]["memory"]["argument_size_in_bytes"] == \
         reference[key]["memory"]["argument_size_in_bytes"]
+
+
+# the reference's general cells' argument bytes a rank (jax 0.9.0 CPU,
+# 512 forced devices): parameters and moments in TP blocks, replicated
+# over dp, plus the stale ledger row (4 x 494,032,768 B) and its 4-byte
+# timestamp, or the quantized residual row
+GENERAL_ARG_BYTES = {"cge": 361_837_380, "stale": 2_337_968_456,
+                     "trimmed": 361_837_380, "quantized": 2_337_968_452}
+
+
+@pytest.mark.parametrize("mode", D.GENERAL_MODES)
+def test_general_cell_against_the_reference(reference, mode, tmp_path):
+    ref = reference[f"{QWEN}|train_4k|{mode}"]
+    rec = D.run_cell(QWEN, "train_4k", False, mode=mode,
+                     out_dir=str(tmp_path), tag=mode, reference=ref)
+    assert rec["ok"], rec.get("traceback")
+    assert "tensor-parallel" in rec["compute"]
+    assert rec["memory"]["argument_size_in_bytes"] == \
+        ref["memory"]["argument_size_in_bytes"] == GENERAL_ARG_BYTES[mode]
+    assert rec["flops_ratio"] == rec["hlo"]["flops"] / ref["hlo"]["flops"]
+    assert 0.90 <= rec["flops_ratio"] <= 1.10
 
 
 def _period_flops(step, *args):

@@ -1,9 +1,10 @@
 """Every live cell of ``repro_torch.launch.dryrun`` builds and traces on
 the meta device: the 32 (arch x shape) cells of ``live_cells()`` on the
 single-pod mesh at one period of depth (full width), a cell of each
-layout on the multi-pod mesh, and the general train modes, which refuse
-the production meshes' model axis of 16 (their training compute is not
-tensor-parallel) and are recorded ``ok: False`` with that refusal.
+layout on the multi-pod mesh, and the general train modes on the
+production meshes' model axis of 16: tensor-parallel for a dense
+decoder (each mode on one pod, cge on two), whole on every rank for the
+other families.
 
 The numbers are held against the reference in ``test_torch_dryrun.py``;
 here every record must carry them: finite FLOPs above zero, HBM bytes,
@@ -15,8 +16,12 @@ import math
 
 import pytest
 
+from repro_torch.configs.base import get_shape
 from repro_torch.configs.registry import get_config
+from repro_torch.core.ledger import tree_flatten
 from repro_torch.launch import dryrun as D
+from repro_torch.launch import train as T
+from repro_torch.launch.specs import max_pos_for
 
 
 def _check(rec):
@@ -59,9 +64,36 @@ def test_multi_pod_cell_builds(layout, tmp_path):
 
 
 @pytest.mark.parametrize("mode", D.GENERAL_MODES)
-def test_general_modes_refuse_the_model_axis(mode, tmp_path):
+def test_general_modes_build_at_one_period(mode, tmp_path):
     rec = D.run_cell("qwen2-0.5b", "train_4k", False, mode=mode,
                      out_dir=str(tmp_path), cfg_patch={"n_layers": 1})
-    assert not rec["ok"]
-    assert "want model = 1" in rec["error"]
+    _check(rec)
+    assert rec["mode"] == mode and rec["n_agents"] == 16
+    assert "tensor-parallel" in rec["compute"]
     assert (tmp_path / "qwen2-0.5b__train_4k__single.json").exists()
+
+
+def test_general_multi_pod_cell_builds(tmp_path):
+    rec = D.run_cell("qwen2-0.5b", "train_4k", True, mode="cge",
+                     out_dir=str(tmp_path), cfg_patch={"n_layers": 1})
+    _check(rec)
+    assert rec["chips"] == 512 and rec["n_agents"] == 32
+    assert rec["dp"] == ["pod", "data"] and not rec["uneven"]
+    assert "tensor-parallel" in rec["compute"]
+
+
+def test_general_non_dense_cell_computes_whole(tmp_path):
+    """arctic (MoE) at one period: recorded ``ok``, every parameter and
+    moment whole in the rank's arguments."""
+    cfg = get_config("arctic-480b")
+    patch = {"n_layers": cfg.period}
+    rec = D.run_cell("arctic-480b", "train_4k", False, mode="cge",
+                     out_dir=str(tmp_path), cfg_patch=patch)
+    _check(rec)
+    assert "whole parameters" in rec["compute"]
+    state = T.abstract_state(D._apply_cfg_patch(cfg, patch),
+                             T.TrainConfig(mode="cge"),
+                             max_pos=max_pos_for(get_shape("train_4k")))
+    whole = sum(l.numel() * l.element_size() for k in ("params", "opt")
+                for l in tree_flatten(state[k])[0])
+    assert rec["memory"]["argument_size_in_bytes"] > whole

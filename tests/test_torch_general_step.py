@@ -7,8 +7,12 @@ against an aggregate built here from live ``repro``: per-agent
 rule on the stacked gradients, JAX's clipping, optimizer and
 ``apply_updates``; loss, grad norm and parameters within 1e-5, and the
 parameters the same on every rank, bit for bit. SGD with momentum, as in
-``test_torch_train.py``."""
+``test_torch_train.py``. At model = 1 each mode is also bit for bit what
+it was before the step computed tensor-parallel over "model" (sha256
+digests ``BEFORE_TP``); the step at model > 1 is
+``test_torch_general_tp.py``."""
 import dataclasses
+import hashlib
 
 import numpy as np
 import pytest
@@ -171,9 +175,31 @@ def test_general_step_params_identical_across_ranks(spawned, mode):
             np.testing.assert_array_equal(a, b)
 
 
-def test_general_step_refuses_a_model_axis():
-    from repro_torch.launch import train as T
-    from repro_torch.launch.mesh import Mesh
-    mesh = Mesh((1, 2), ("data", "model"), device="cpu", groups=False)
-    with pytest.raises(ValueError, match="model = 1"):
-        T.make_general_step(_cfg(), T.TrainConfig(mode="cge"), mesh)
+# sha256 of (metrics, parameters) of each mode's 3 steps on data 4 x
+# model 1, as the step computed them before it computed tensor-parallel
+# over "model" (the same runs on the parent tree of that change, torch
+# 2.13 CPU, gloo)
+BEFORE_TP = {
+    "cge": "59936795c4113994a3f812f372da7942182f36f6"
+           "0cb8c8a284f7074fb4091c01",
+    "stale": "1cb38ce29fc46dc143af154fa5e736ae0da2e882"
+             "b818236340591a3219b351b0",
+    "trimmed": "10bbe9f52ac65b67554a2e3f93713a686c1d4282"
+               "82f591c3df0108339fcce9a5",
+    "quantized": "c980ff7c65cb879345aa420934fe18643725b45c70bb9aa261fb100e23"
+                 "cb5cfb",
+}
+
+
+def _digest(run):
+    h = hashlib.sha256(repr(run["metrics"]).encode())
+    for p in run["params"]:
+        h.update(np.ascontiguousarray(p).tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_general_step_at_model_one_is_bit_for_bit_unchanged(spawned, mode):
+    *_, res = spawned
+    for o in res:
+        assert _digest(o[mode]) == BEFORE_TP[mode]
