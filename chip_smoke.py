@@ -59,8 +59,9 @@ Phases, each fatal on failure:
    then a few quantized iterations: device us per iteration of the int8
    quantization's PyTorch operations beside ``dequant_accum``'s.
 6. The serving path: ``ServeEngine`` at the full width of qwen2-0.5b
-   (24 layers, d=896, 14 query heads over 2 KV heads, vocab 151,936,
-   bf16, weights from seed 0) serves 24 requests (prompts of 64-512
+   (``SERVE_LAYERS`` = 12 of its 24 layers, d=896, 14 query heads over 2
+   KV heads, vocab 151,936, bf16, weights from seed 0; the model of
+   phases 6-14) serves 24 requests (prompts of 64-512
    tokens, 16-64 new tokens each) on 8 slots of a paged cache with
    superstep_k=8. The decode kernel's launch count is zeroed just before
    and read just after. Every request must finish with exactly its
@@ -77,8 +78,8 @@ Phases, each fatal on failure:
    zeroed just before and read just after: flash attention on layer 0's
    q, k, v of qwen2-0.5b (phase 6's weights) over a 4096-token prompt,
    against its plain form and the model's chunked attention; the CGE
-   squared norms and masked scaling over the whole qwen2-0.5b parameter
-   tree bucketed as bf16 (241,227 rows of 2048), against the plain forms
+   squared norms and masked scaling over phase 6's whole parameter tree
+   bucketed as bf16 (rows of 2048), against the plain forms
    and an f64 sum of squares; and the CGE keep-set of one cge iteration
    of the §5 LeNet agents from bucketed norms, against the plain form's
    on the same buckets and the f32 ledger's.
@@ -207,8 +208,9 @@ Phases, each fatal on failure:
 16. The placed (FSDP) masked step, the launch serving steps and the
    example twins.
    16a: 4 gloo ranks sharing the card (mesh data = 4) place 15a's state
-   (qwen2-0.5b at full width, bf16 parameters, f32 AdamW moments, drawn
-   from one generator) by ``launch.train.place_state`` and take 3 steps
+   cut to ``SPMD_LAYERS`` (4) of its 24 layers (qwen2-0.5b at full
+   width, bf16 parameters, f32 AdamW moments, drawn from one generator)
+   by ``launch.train.place_state`` and take 3 steps
    of ``make_train_step(..., param_specs=)`` with remat, one agent a
    rank and 2 of the 4 masked a step: each rank's bytes of parameters
    and moments (memory_allocated's growth over the placement) equal the
@@ -259,7 +261,8 @@ Phases, each fatal on failure:
    on the meta device and on the card: the FLOPs equal.
 18. Tensor-parallel compute over "model" for the dense decoders
    (``dist.tp``), on 4 gloo ranks sharing the card (mesh data 2 x model
-   2). 18a: 16a's placed masked step (qwen2-0.5b at full width, bf16
+   2). 18a: 16a's placed masked step (qwen2-0.5b at full width and 16a's
+   4 layers, bf16
    parameters, f32 AdamW, 4 agents with 2 masked a step; no remat), 3
    steps: seconds per step, each rank's bytes of parameters and moments
    within 1% of the meta-device report, the gathered parameters
@@ -279,7 +282,8 @@ Phases, each fatal on failure:
    train, prefill and dense decode call no Pallas kernel).
 19. The general step (``make_general_step``) tensor-parallel over
    "model" on 4 gloo ranks sharing the card (data 2 x model 2, one agent
-   a dp rank): qwen2-0.5b at full width, bf16 parameters, AdamW, on
+   a dp rank): qwen2-0.5b at full width and 16a's 4 layers, bf16
+   parameters, AdamW, on
    ``place_general_state``'s share of the state, each mode 2 steps. cge
    (f = 1) with both agents received (with one masked, n = 2 leaves it
    m - f = 0 to keep); stale (tau = 1: step 1 reads agent 1's row from
@@ -294,7 +298,32 @@ Phases, each fatal on failure:
    one-process oracle built here from ``core.gradagg`` on the per-agent
    gradients. No kernel lies on this path (the reference's general step
    calls no Pallas kernel).
-20. A JSON line with every kernel's launches (summed over the phases
+20. arctic-480b tensor- and expert-parallel over "model"
+   (``models/moe.py`` under ``dist.tp``), on 4 gloo ranks sharing the
+   card. 20a: phase 11's cut (1 of 35 layers) at every published width
+   and all 128 experts, bf16 from seed 0, on data 1 x model 4: each rank
+   draws its blocks by ``launch.serve.init_params`` (one rank at a
+   time), holds 32 experts, exactly a quarter of the expert bytes, and
+   runs ``make_prefill_step`` and ``make_decode_step`` on 16c's 4
+   prompts of 64 tokens, 32 new: a decode step's FLOPs and collectives
+   on the card equal op by op to a ``RecordingMesh``'s count on the
+   meta device (its all-reduces printed), every rank streams the same
+   tokens, one rank's greedy argmax along them (whole parameters, the
+   same steps) wherever its top-2 margin exceeds ``LOGIT_TOL``; ms per
+   decode step beside one rank's. 20b: data 2 x model 2 at the
+   published widths, 1 layer: 2 placed masked steps (8 experts, 4 a
+   rank, AdamW, 16a's agents and masks) and 2 general steps a mode (2
+   experts, one a rank, SGD with momentum; 19's masks): seconds per
+   step, the last step's FLOPs and collectives equal op by op to a
+   ``RecordingMesh``'s count (all-reduces and wire bytes a rank), state
+   bytes a rank within 1% of the meta report, the most bytes allocated,
+   parameters identical on every rank (placed) and per tp block over dp
+   (general); the f32 twins (reduced arctic, 4 experts, 2 layers, SGD
+   with momentum, remat) within 1e-4 of the one-process
+   ``make_train_step`` and of a ``core.gradagg`` oracle. No kernel lies
+   on this path (the reference's experts are three ``einsum``s outside
+   any Pallas kernel).
+21. A JSON line with every kernel's launches (summed over the phases
    that drive a path: 4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16, all
    ranks of 15), error and times, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -339,7 +368,8 @@ from repro_torch.data.synthetic import (lm_batches,  # noqa: E402
                                         markov_tokens, mnist_like)
 from repro_torch.dist import collectives  # noqa: E402
 from repro_torch.dist.act_sharding import act_policy  # noqa: E402
-from repro_torch.dist.sharding import gather_tree  # noqa: E402
+from repro_torch.dist.sharding import (gather_tree,  # noqa: E402
+                                       shard_tree, tree_specs)
 from repro_torch.kernels import _build, agg, ops  # noqa: E402
 from repro_torch.kernels import cge_norms as cgen  # noqa: E402
 from repro_torch.kernels import decode_attention as dattn  # noqa: E402
@@ -352,15 +382,16 @@ from repro_torch.launch.loop import StragglerOracle, TrainLoop  # noqa: E402
 from repro_torch.launch.mesh import (RecordingMesh,  # noqa: E402
                                      make_test_mesh, run_ranks)
 from repro_torch.launch.serve import (greedy_generate,  # noqa: E402
-                                      make_decode_step, make_prefill_step,
-                                      place_cache, place_params)
+                                      init_params, make_decode_step,
+                                      make_prefill_step, place_cache,
+                                      place_params)
 from repro_torch.launch.train import (TrainConfig,  # noqa: E402
                                       abstract_state, general_specs,
                                       init_state, lr_at, make_general_step,
                                       make_loss_fn, make_optimizer,
                                       make_train_step, place_general_state,
                                       place_state, state_bytes_per_rank,
-                                      value_and_grad)
+                                      state_rules, value_and_grad)
 from repro_torch.models import attention as mattn  # noqa: E402
 from repro_torch.models import layers as mlayers  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
@@ -1269,6 +1300,16 @@ def where_quantized_time_goes(data, iters: int = 3):
 
 
 SERVE_ARCH = "qwen2-0.5b"
+# the model of phases 6-14 (one parameter set, phase 6's): qwen2-0.5b at
+# full width, cut in depth; the host issues each layer's operations, so
+# their times (phase 14's timescale among them) follow the depth
+SERVE_LAYERS = 12
+
+
+def serve_cfg():
+    """qwen2-0.5b at full width, ``SERVE_LAYERS`` of its 24 layers."""
+    return dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
+
 # the decode's two CUDA kernels (split partials, combine) share this prefix
 DECODE_KERNEL = "paged_decode_"
 SERVE_CCFG = PagedCacheConfig(num_slots=8, page_size=16, max_pages_per_seq=48,
@@ -1341,7 +1382,7 @@ def run_engine(params, cfg, reqs, k, ccfg=SERVE_CCFG):
 
 
 def drive_serving():
-    cfg = get_config(SERVE_ARCH)
+    cfg = serve_cfg()
     t0 = time.perf_counter()
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
@@ -1462,7 +1503,7 @@ def where_serving_time_goes(params, steps: int = 3):
     """Profile a few full supersteps (8 slots, K=8): host ms per step,
     device busy time and idle share, and device activities per decode
     step."""
-    cfg = get_config(SERVE_ARCH)
+    cfg = serve_cfg()
     eng = ServeEngine(params, cfg, SERVE_CCFG, superstep_k=8)
     rng = np.random.default_rng(2)
     for _ in range(8):
@@ -1565,9 +1606,10 @@ def flash_on_activations(params, cfg):
 
 
 @torch.no_grad()
-def norms_over_tree(params):
+def norms_over_tree(params, cfg):
     rows, n = ops.tree_bucket(params)
-    if rows.shape != TREE_ROWS or n != 494_032_768:
+    width = TREE_ROWS[1]
+    if n != cfg.param_count() or rows.shape != (-(-n // width), width):
         raise AssertionError(f"tree_bucket gave {tuple(rows.shape)}, {n}")
     norms = ops.block_sq_norms(rows)
     e = check("ops.block_sq_norms on the qwen2-0.5b tree", norms,
@@ -1637,12 +1679,12 @@ def keepset_on_lenet(data):
 
 
 def drive_kernels_api(params, data):
-    cfg = get_config(SERVE_ARCH)
+    cfg = serve_cfg()
     fattn.reset_launches()
     cgen.reset_launches()
     t0 = time.perf_counter()
     flash_on_activations(params, cfg)
-    norms_over_tree(params)
+    norms_over_tree(params, cfg)
     keepset_on_lenet(data)
     torch.cuda.synchronize()
     counts = {**fattn.LAUNCHES, **cgen.LAUNCHES}
@@ -1838,7 +1880,7 @@ def drive_e2e(params):
     phase 6's weights: ``e2e_steady`` cut to 8, then ``crash_cascade`` to 16
     requests, on the same warm fleet. The decode kernel's count is
     zeroed just before each run and read just after."""
-    cfg = get_config(SERVE_ARCH)
+    cfg = serve_cfg()
     fleet = EngineFleet(E2E_REPLICAS, params=params, cfg=cfg, device="cuda")
     ecfg = fleet.ecfg
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3523,6 +3565,7 @@ def drive_tp_decode(device="cuda"):
 # 3 steps. PLACED_UPDATE_REL is about three times that: an unchanged
 # state reads 1 and a sign-flipped update 2
 PLACED_STEPS, PLACED_AGENTS, PLACED_MASKED = 3, 4, 2
+SPMD_LAYERS = 4                     # of qwen2-0.5b's 24 (spmd_cfg)
 PLACED_UPDATE_REL = 0.2
 PLACED_METRIC_TOL = dict(rtol=1e-6, atol=0.0)   # loss and grad norm sums
 # the meta-device report against memory_allocated's growth over the
@@ -3534,6 +3577,13 @@ PLACED_BYTES_REL = 0.01
 EXAMPLE_DIST_TOL = dict(rtol=1e-3, atol=1e-6)
 # 16c: greedy_generate at full width
 GREEDY_PROMPTS, GREEDY_PROMPT_LEN, GREEDY_NEW, GREEDY_PAGE = 4, 64, 32, 16
+
+
+def spmd_cfg():
+    """qwen2-0.5b at full width cut to ``SPMD_LAYERS`` layers: the model
+    of 16a, 17b, 18 and 19 (gloo's host copies of the wire bytes, which
+    grow with depth, set those phases' times)."""
+    return dataclasses.replace(get_config(SERVE_ARCH), n_layers=SPMD_LAYERS)
 
 
 def placed_tc(remat: str) -> TrainConfig:
@@ -3602,7 +3652,7 @@ def placed_reference(tmp, device="cuda"):
     mirror of the placed step's arithmetic. The initial parameters and
     each reference's after every step are saved under ``tmp``. Returns
     {name: (losses, grad norms, seconds per step)}."""
-    cfg = get_config(SERVE_ARCH)
+    cfg = spmd_cfg()
     tc = placed_tc("none")
     makers = {"one": lambda: make_train_step(cfg, tc,
                                              moe_groups=PLACED_AGENTS),
@@ -3666,7 +3716,7 @@ def placed_full_width(mesh, ref_dir):
     gathered parameters checked across ranks and (rank 0) against the
     one-process step's."""
     dev = mesh.device
-    cfg = get_config(SERVE_ARCH)
+    cfg = spmd_cfg()
     tc = placed_tc("full")
     full = init_state(torch.Generator(device=dev).manual_seed(0), cfg, tc,
                       max_pos=TRAIN_SEQ + 1, device=dev)
@@ -3763,9 +3813,9 @@ def drive_placed(device="cuda"):
                         args=(tmp, device), threads=CORES // SPMD_RANKS)
         card_s = time.perf_counter() - t0
     r0 = res[0]
-    log(f"  16a: {SERVE_ARCH} at full width on {SPMD_RANKS} gloo ranks "
-        f"sharing the card (data = {SPMD_RANKS}), {card_s:.1f} s with "
-        f"start-up and 16b")
+    log(f"  16a: {SERVE_ARCH} at full width, {SPMD_LAYERS} layers, on "
+        f"{SPMD_RANKS} gloo ranks sharing the card (data = {SPMD_RANKS}), "
+        f"{card_s:.1f} s with start-up and 16b")
     for r, o in enumerate(res):
         log(f"    rank {r}: parameters and moments {o['placed']:,} B after "
             f"placement (memory_allocated), meta-device report "
@@ -4099,7 +4149,7 @@ def dry_placed_collectives(placed_collectives):
     """17b: 16a's placed step (data = 4, remat) on a recording mesh of
     the same shape on the meta device: its collectives against those each
     of 16a's gloo ranks counted through its real mesh."""
-    cfg = get_config(SERVE_ARCH)
+    cfg = spmd_cfg()
     tc = placed_tc("full")
     mesh = RecordingMesh((SPMD_RANKS, 1), ("data", "model"))
     state, specs = place_state(abstract_state(cfg, tc,
@@ -4179,10 +4229,54 @@ def tpc_twin():
                             remat_policy="full")
 
 
+def twin_placed(mesh, cfg, tc, path) -> bool:
+    """An f32 twin's placed steps on this rank (from seed 1, over 16a's
+    batches); rank 0 saves the gathered parameters to ``path``. Returns
+    whether they are the same on every rank."""
+    dev = mesh.device
+    state = init_state(torch.Generator(device=dev).manual_seed(1), cfg, tc,
+                       max_pos=TRAIN_SEQ + 1, device=dev)
+    state, specs = place_state(state, mesh)
+    step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS, dp="data",
+                           tp="model", param_specs=specs["params"],
+                           sizes=mesh.shape, mesh=mesh)
+    for x, y, w in placed_batches(cfg.vocab_size):
+        state, m = step(state, lm_batch(x, y, w, dev))
+    params = gather_tree(state["params"], specs["params"], mesh)
+    same = agreed(mesh, params)
+    if mesh.rank == 0:                # the parent holds it to its reference
+        torch.save(mmodel.tree_to(params, "cpu"), path)
+    del state, step, params
+    torch.cuda.empty_cache()
+    return same
+
+
+def twin_one_process(cfg, tc, device="cuda"):
+    """The same twin's steps in one process (``make_train_step``): its
+    parameters."""
+    state = init_state(torch.Generator(device=device).manual_seed(1), cfg,
+                       tc, max_pos=TRAIN_SEQ + 1, device=device)
+    step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS)
+    for x, y, w in placed_batches(cfg.vocab_size):
+        state, _ = step(state, lm_batch(x, y, w, device))
+    return state["params"]
+
+
+def twin_gap(path, ref, device="cuda") -> float:
+    """max |param diff| of the placed twin saved at ``path`` against the
+    one-process ``ref``, each leaf held within ``TWIN_TOL``."""
+    twin = torch.load(path)
+    pairs = [(a.to(device), b) for a, b in zip(tree_flatten(twin)[0],
+                                               tree_flatten(ref)[0])]
+    for a, b in pairs:
+        torch.testing.assert_close(a, b, **TWIN_TOL)
+    return max(float((a - b).abs().max()) for a, b in pairs)
+
+
 def tpc_meta_count(model: int):
     """18a's placed step (16a's configuration, no remat) on rank 0 of a
     recording mesh data 2 x ``model``, on the meta device."""
-    cfg = get_config(SERVE_ARCH)
+    cfg = spmd_cfg()
     tc = placed_tc("none")
     mesh = RecordingMesh((TPC_DATA, model), ("data", "model"))
     state, specs = place_state(abstract_state(cfg, tc,
@@ -4212,7 +4306,7 @@ def tpc_serve(mesh, prompts):
     and ``make_decode_step`` on ``place_params``' blocks; (tokens, ms per
     decode step)."""
     dev = mesh.device
-    cfg = get_config(SERVE_ARCH)
+    cfg = spmd_cfg()
     params = place_params(init_model(torch.Generator(device=dev)
                                      .manual_seed(0), cfg, device=dev),
                           cfg, mesh)
@@ -4242,7 +4336,7 @@ def tpc_card_rank(rank, world, ref_dir, prompts, device="cuda"):
     card_flags()
     mesh = make_test_mesh(data=TPC_DATA, model=TPC_MODEL, device=device)
     dev = mesh.device
-    cfg = get_config(SERVE_ARCH)
+    cfg = spmd_cfg()
     tc = placed_tc("none")
     full = init_state(torch.Generator(device=dev).manual_seed(0), cfg, tc,
                       max_pos=TRAIN_SEQ + 1, device=dev)
@@ -4278,22 +4372,8 @@ def tpc_card_rank(rank, world, ref_dir, prompts, device="cuda"):
     out["steps_s"] = time.perf_counter() - t_rank
 
     t0 = time.perf_counter()
-    cfg32, tc32 = tpc_twin()
-    state = init_state(torch.Generator(device=dev).manual_seed(1), cfg32,
-                       tc32, max_pos=TRAIN_SEQ + 1, device=dev)
-    state, specs = place_state(state, mesh)
-    step = make_train_step(cfg32, tc32, moe_groups=PLACED_AGENTS, dp="data",
-                           tp="model", param_specs=specs["params"],
-                           sizes=mesh.shape, mesh=mesh)
-    for x, y, w in placed_batches(cfg32.vocab_size):
-        state, m = step(state, lm_batch(x, y, w, dev))
-    params = gather_tree(state["params"], specs["params"], mesh)
-    out["twin_same"] = agreed(mesh, params)
-    if mesh.rank == 0:                # the parent holds it to its reference
-        torch.save(mmodel.tree_to(params, "cpu"),
-                   os.path.join(ref_dir, "tpc_twin_tp.pt"))
-    del state, step, params
-    torch.cuda.empty_cache()
+    out["twin_same"] = twin_placed(mesh, *tpc_twin(),
+                                   os.path.join(ref_dir, "tpc_twin_tp.pt"))
     out["twin_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -4303,10 +4383,11 @@ def tpc_card_rank(rank, world, ref_dir, prompts, device="cuda"):
 
 
 @torch.no_grad()
-def tpc_one_rank(prompts, device="cuda"):
-    """18b's one-rank reference: the same prefill and greedy decode steps
-    with whole parameters; (tokens, ms per decode step, parameters)."""
-    cfg = get_config(SERVE_ARCH)
+def tpc_one_rank(prompts, device="cuda", cfg=None):
+    """18b's one-rank reference (20a's with ``cfg``): the same prefill and
+    greedy decode steps with whole parameters; (tokens, ms per decode
+    step, parameters)."""
+    cfg = cfg or spmd_cfg()
     params = init_model(torch.Generator(device=device).manual_seed(0), cfg,
                         device=device)
     batch = torch.from_numpy(prompts).to(device)
@@ -4328,10 +4409,10 @@ def tpc_one_rank(prompts, device="cuda"):
 
 
 @torch.no_grad()
-def tpc_teacher_forced(params, prompts, streams, device="cuda"):
+def tpc_teacher_forced(params, prompts, streams, device="cuda", cfg=None):
     """One rank's logits along ``streams`` (the prefill's last position,
     then each decode fed the stream's previous token): (B, T, V) f32."""
-    cfg = get_config(SERVE_ARCH)
+    cfg = cfg or spmd_cfg()
     batch = torch.from_numpy(prompts).to(device)
     logits, _, pre = apply_model(params, batch, cfg, mode="prefill")
     out = [logits[:, -1].float()]
@@ -4348,24 +4429,17 @@ def tpc_teacher_forced(params, prompts, streams, device="cuda"):
 
 def drive_tp_compute(device="cuda"):
     """18a-18b: the placed masked step and launch.serve's steps of
-    qwen2-0.5b at full width, tensor-parallel over model = 2 on 4 gloo
-    ranks sharing the card (data 2 x model 2)."""
+    qwen2-0.5b at full width (``SPMD_LAYERS`` layers), tensor-parallel
+    over model = 2 on 4 gloo ranks sharing the card (data 2 x model 2)."""
     t_all = time.perf_counter()
-    cfg = get_config(SERVE_ARCH)
+    cfg = spmd_cfg()
     prompts = np.random.default_rng(0).integers(       # 16c's prompts
         0, cfg.vocab_size, (GREEDY_PROMPTS, GREEDY_PROMPT_LEN)).astype(
             np.int32)
     one_tok, one_ms, params = tpc_one_rank(prompts, device)
     t_one = time.perf_counter() - t_all
     t0 = time.perf_counter()
-    cfg32, tc32 = tpc_twin()
-    state = init_state(torch.Generator(device=device).manual_seed(1), cfg32,
-                       tc32, max_pos=TRAIN_SEQ + 1, device=device)
-    step = make_train_step(cfg32, tc32, moe_groups=PLACED_AGENTS)
-    for x, y, w in placed_batches(cfg32.vocab_size):
-        state, _ = step(state, lm_batch(x, y, w, device))
-    ref = state["params"]
-    del state, step
+    ref = twin_one_process(*tpc_twin(), device)
     t_twin = time.perf_counter() - t0
 
     def meta_counts():
@@ -4385,16 +4459,12 @@ def drive_tp_compute(device="cuda"):
         ranks_s = time.perf_counter() - t0
         dry, dry1, t_meta = counting.result()
         ex.shutdown()
-        twin = torch.load(os.path.join(tmp, "tpc_twin_tp.pt"))
-    pairs = [(a.to(device), b) for a, b in zip(tree_flatten(twin)[0],
-                                               tree_flatten(ref)[0])]
-    twin_err = max(float((a - b).abs().max()) for a, b in pairs)
-    for a, b in pairs:
-        torch.testing.assert_close(a, b, **TWIN_TOL)
-    del twin, ref, pairs
+        twin_err = twin_gap(os.path.join(tmp, "tpc_twin_tp.pt"), ref, device)
+    del ref
     r0 = res[0]
     a, a1 = analyze(dry), analyze(dry1)
-    log(f"  18a: {SERVE_ARCH} at full width, bf16, the placed masked step "
+    log(f"  18a: {SERVE_ARCH} at full width, {SPMD_LAYERS} layers, bf16, "
+        f"the placed masked step "
         f"on data {TPC_DATA} x model {TPC_MODEL} (4 gloo ranks sharing the "
         f"card, {ranks_s:.1f} s with start-up: rank 0's state and steps "
         f"{r0['steps_s']:.1f} s, twin {r0['twin_s']:.1f} s, 18b "
@@ -4538,11 +4608,12 @@ def agreed_over(mesh, tree, axes) -> bool:
     return int(lo) == int(hi)
 
 
-def gen_meta_count(mode: str, rank: int):
-    """The last step of 19's mode on ``rank`` of a recording mesh data 2 x
-    model 2, on the meta device: (op table, bytes of the placed state)."""
-    cfg = get_config(SERVE_ARCH)
-    tc = gen_tc(mode, twin=False)
+def gen_meta_count(mode: str, rank: int, cfg=None, tc=None):
+    """The last step of 19's mode (20b's with ``cfg`` and ``tc``) on
+    ``rank`` of a recording mesh data 2 x model 2, on the meta device:
+    (op table, bytes of the placed state)."""
+    cfg = cfg or spmd_cfg()
+    tc = tc or gen_tc(mode, twin=False)
     mesh = RecordingMesh((GEN_DATA, GEN_MODEL), ("data", "model"), rank=rank)
     state = gen_state(cfg, tc, mesh, None, "meta")
     state["step"] = torch.tensor(GEN_STEPS - 1, dtype=torch.int32)
@@ -4552,13 +4623,15 @@ def gen_meta_count(mode: str, rank: int):
     return cnt.table(), state_bytes(state)
 
 
-def gen_rank_run(mesh, mode, twin):
-    """One mode of 19 on this rank: (losses, seconds per step, the last
-    step's op table, bytes placed, identical per tp block over dp, whole
-    leaves identical over all ranks, the gathered parameters (twin))."""
+def gen_rank_run(mesh, mode, twin, cfg=None, tc=None):
+    """One mode of 19 (20b's with ``cfg`` and ``tc``) on this rank:
+    (losses, seconds per step, the last step's op table, bytes placed,
+    identical per tp block over dp, whole leaves identical over all
+    ranks, the most bytes allocated, the gathered parameters (twin))."""
     dev = mesh.device
-    cfg = gen_twin_cfg() if twin else get_config(SERVE_ARCH)
-    tc = gen_tc(mode, twin)
+    cfg = cfg or (gen_twin_cfg() if twin else spmd_cfg())
+    tc = tc or gen_tc(mode, twin)
+    torch.cuda.reset_peak_memory_stats(dev)
     gen = (torch.Generator() if twin
            else torch.Generator(device=dev)).manual_seed(0)
     before = torch.cuda.memory_allocated(dev)
@@ -4567,6 +4640,7 @@ def gen_rank_run(mesh, mode, twin):
         state = {k: mmodel.tree_to(v, dev) if k != "step" else v
                  for k, v in state.items()}
     gc.collect()
+    torch.cuda.empty_cache()          # the whole state's blocks, cached
     placed = torch.cuda.memory_allocated(dev) - before
     step = make_general_step(cfg, tc, mesh)
     losses, secs, table = [], [], None
@@ -4590,6 +4664,7 @@ def gen_rank_run(mesh, mode, twin):
     kept = [b for b, w in zip(blocks, tree_flatten(whole)[0])
             if b.shape == w.shape]
     out = dict(losses=losses, secs=secs, table=table, placed=placed,
+               peak=torch.cuda.max_memory_allocated(dev),
                tp=step.tp_axes, split=len(split),
                same_blocks=agreed_over(mesh, split, "data"),
                same_whole=agreed_over(mesh, kept, ("data", "model")))
@@ -4617,13 +4692,13 @@ def gen_card_rank(rank, world, device="cuda"):
     return out
 
 
-def gen_oracle(mode: str, device="cuda"):
-    """19's f32 twin in one process: each agent's gradient by the port's
-    loss, the rule of ``core.gradagg`` on the stacked flat gradients,
-    then the step's clipping, optimizer and update. Returns the
-    parameter leaves."""
-    cfg = gen_twin_cfg()
-    tc = gen_tc(mode, twin=True)
+def gen_oracle(mode: str, device="cuda", cfg=None, tc=None):
+    """19's f32 twin (20b's with ``cfg`` and ``tc``) in one process: each
+    agent's gradient by the port's loss, the rule of ``core.gradagg`` on
+    the stacked flat gradients, then the step's clipping, optimizer and
+    update. Returns the parameter leaves."""
+    cfg = cfg or gen_twin_cfg()
+    tc = tc or gen_tc(mode, twin=True)
     opt = make_optimizer(tc)
     state = init_state(torch.Generator().manual_seed(0), cfg, tc,
                        max_pos=TRAIN_SEQ + 1, device="cpu")
@@ -4697,7 +4772,8 @@ def drive_general_tp(device="cuda"):
     dry, t_meta = counting.result()
     ex.shutdown()
     r0 = res[0]
-    log(f"  {SERVE_ARCH} at full width, bf16, AdamW, the general step on "
+    log(f"  {SERVE_ARCH} at full width, {SPMD_LAYERS} layers, bf16, AdamW, "
+        f"the general step on "
         f"data {GEN_DATA} x model {GEN_MODEL} (4 gloo ranks sharing the "
         f"card, {ranks_s:.1f} s with start-up: rank 0's modes " + ", ".join(
             f"{m} {r0[m]['mode_s']:.1f} s" for m in GENERAL_MODES)
@@ -4756,6 +4832,462 @@ def drive_general_tp(device="cuda"):
     if bad:
         raise AssertionError("19: " + "; ".join(bad))
     log(f"  phase 19 in {time.perf_counter() - t_all:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 20. arctic-480b tensor- and expert-parallel over "model"
+
+
+# 20a: phase 11's cut (1 of 35 layers) at every published width, all 128
+# experts, served on data 1 x model 4 (32 experts a rank) through
+# launch.serve's steps, 16c's prompts. 20b: data 2 x model 2 at the
+# published widths, 1 layer, the expert count cut to what 4 ranks sharing
+# the card hold: the placed step's AdamW state and its gathers' f32
+# gradient blocks at 8 experts (4 a rank); the general step's stale and
+# quantized modes hold the agent's whole f32 row three times over while
+# it is joined over tp (3 x 4 B x 0.89e9 parameters at 2 experts, one a
+# rank), so its modes run 2 experts with SGD and momentum. The f32 twins
+# on reduced arctic (4 experts, 2 layers, remat).
+MOE_ARCH = "arctic-480b"
+ARC_LAYERS, ARC_SERVE_MODEL = 1, 4
+ARC_DATA, ARC_MODEL, ARC_STEPS = 2, 2, 2
+ARC_PLACED_EXPERTS, ARC_GEN_EXPERTS, ARC_TWIN_LAYERS = 8, 2, 2
+
+
+def arc_cfg(experts=None):
+    """arctic-480b cut to ``ARC_LAYERS`` (and ``experts`` experts)."""
+    cfg = get_config(MOE_ARCH)
+    moe = (cfg.moe if experts is None
+           else dataclasses.replace(cfg.moe, num_experts=experts))
+    return dataclasses.replace(cfg, n_layers=ARC_LAYERS, moe=moe)
+
+
+def arc_twin_cfg():
+    return dataclasses.replace(get_config(MOE_ARCH).reduced(),
+                               n_layers=ARC_TWIN_LAYERS)
+
+
+def arc_gen_tc(mode: str, twin: bool) -> TrainConfig:
+    return dataclasses.replace(gen_tc(mode, twin), optimizer="sgdm",
+                               remat_policy="full" if twin else "none")
+
+
+def barrier(mesh) -> None:
+    mesh.all_reduce(torch.zeros(1, device=mesh.device), mesh.axis_names)
+
+
+def expert_bytes(params) -> int:
+    ffn = params["blocks"][0]["ffn"]
+    return sum(ffn[k].numel() * ffn[k].element_size()
+               for k in ("w_gate", "w_up", "w_down"))
+
+
+def arc_decode_batch(tok, cache, i):
+    return {"tokens": tok[:, None], "cache": cache,
+            "pos": GREEDY_PROMPT_LEN + i}
+
+
+def arc_meta_decode():
+    """20a's decode step on rank 0 of a recording mesh data 1 x model 4,
+    on the meta device: its op table."""
+    cfg = arc_cfg()
+    mesh = RecordingMesh((1, ARC_SERVE_MODEL), ("data", "model"))
+    params = place_params(init_model(None, cfg, device=META), cfg, mesh)
+    cache = place_cache(mmodel.init_cache(
+        cfg, GREEDY_PROMPTS, GREEDY_PROMPT_LEN + GREEDY_NEW, device=META),
+        cfg, mesh)
+    tok = torch.zeros((GREEDY_PROMPTS,), dtype=torch.int32, device=META)
+    _, cnt = counted(make_decode_step(cfg, mesh=mesh), params,
+                     arc_decode_batch(tok, cache, 0))
+    return cnt.table()
+
+
+@torch.no_grad()
+def arc_serve_rank(rank, world, prompts, device="cuda"):
+    """20a on one rank (gloo, data 1 x model 4): this rank's blocks drawn
+    by ``init_params`` (one rank at a time: a whole f32 expert stack is
+    17.8 GB), the prompts' prefill, the first decode step counted, the
+    other 30 timed."""
+    card_flags()
+    mesh = make_test_mesh(data=1, model=ARC_SERVE_MODEL, device=device)
+    dev = mesh.device
+    cfg = arc_cfg()
+    t0 = time.perf_counter()
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            before = torch.cuda.memory_allocated(dev)
+            params = init_params(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, mesh, device=dev)
+            held = torch.cuda.memory_allocated(dev) - before
+            torch.cuda.empty_cache()
+        barrier(mesh)
+    make_s = time.perf_counter() - t0
+    prefill = make_prefill_step(cfg, mesh=mesh)
+    decode = make_decode_step(cfg, mesh=mesh)
+    t0 = time.perf_counter()
+    tok, pre = prefill(params, {"tokens": torch.from_numpy(prompts).to(dev)})
+    cache = tpc_grow(cfg, pre, len(prompts), GREEDY_PROMPT_LEN + GREEDY_NEW,
+                     mesh)
+    del pre
+    out = [tok]
+    (tok, _), cnt = counted(decode, params, arc_decode_batch(tok, cache, 0))
+    out.append(tok)
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(1, GREEDY_NEW - 1):
+        tok, _ = decode(params, arc_decode_batch(tok, cache, i))
+        out.append(tok)
+    sync(dev)
+    ms = (time.perf_counter() - t0) / (GREEDY_NEW - 2) * 1e3
+    # for scale: one all-reduce of a decode step's (B, d) over model here
+    x = torch.zeros((len(prompts), cfg.d_model), dtype=torch.bfloat16,
+                    device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        mesh.all_reduce(x, ("model",))
+    sync(dev)
+    ar_ms = (time.perf_counter() - t0) / 20 * 1e3
+    res = dict(tokens=torch.stack(out, 1).cpu().numpy(), decode_ms=ms,
+               allreduce_ms=ar_ms,
+               table=cnt.table(), held=held, make_s=make_s,
+               prefill_s=prefill_s, expert_bytes=expert_bytes(params),
+               experts=params["blocks"][0]["ffn"]["w_gate"].shape[1])
+    del params, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def drive_arctic_serve(device="cuda"):
+    """20a from the parent: the ranks, then the one-rank run (whole
+    parameters) and its teacher-forced argmax along the ranks' streams."""
+    t_all = time.perf_counter()
+    cfg = arc_cfg()
+    prompts = np.random.default_rng(0).integers(       # 16c's prompts
+        0, cfg.vocab_size, (GREEDY_PROMPTS, GREEDY_PROMPT_LEN)).astype(
+            np.int32)
+    ex = ThreadPoolExecutor(1)
+    counting = ex.submit(arc_meta_decode)
+    t0 = time.perf_counter()
+    res = run_ranks(arc_serve_rank, ARC_SERVE_MODEL, backend="gloo",
+                    device=device, timeout=SPMD_TIMEOUT,
+                    args=(prompts, device),
+                    threads=CORES // ARC_SERVE_MODEL)
+    ranks_s = time.perf_counter() - t0
+    dry = counting.result()
+    ex.shutdown()
+    t0 = time.perf_counter()
+    one_tok, one_ms, params = tpc_one_rank(prompts, device, cfg)
+    whole = expert_bytes(params)
+    streams = res[0]["tokens"]
+    lg = tpc_teacher_forced(params, prompts, streams, device, cfg)
+    del params
+    gc.collect()                      # 28 GB: nothing may keep it for 20b
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    top2 = lg.topk(2, dim=-1).values
+    clear = ((top2[..., 0] - top2[..., 1]) > LOGIT_TOL).cpu().numpy()
+    agree = lg.argmax(-1).cpu().numpy() == streams
+    finite = bool(torch.isfinite(lg).all())
+    del lg, top2
+    a = analyze(dry)
+    r0 = res[0]
+    log(f"  20a: {MOE_ARCH} at full width ({cfg.n_layers} layer, "
+        f"{cfg.moe.num_experts} experts, bf16 from seed 0), launch.serve's "
+        f"prefill and decode steps on data 1 x model {ARC_SERVE_MODEL} (4 "
+        f"gloo ranks sharing the card, {ranks_s:.1f} s with start-up: "
+        f"rank 0 drew its blocks in {r0['make_s']:.1f} s (one rank at a "
+        f"time), prefill and the counted step {r0['prefill_s']:.1f} s; then "
+        f"one rank with whole parameters {one_s:.1f} s)")
+    for r, o in enumerate(res):
+        log(f"    rank {r}: {o['experts']} experts, expert bytes "
+            f"{o['expert_bytes']:,} of {whole:,} "
+            f"({o['expert_bytes'] / whole:.4f}), parameters held "
+            f"{o['held']:,} B; {o['decode_ms']:.2f} ms per decode step, "
+            f"{o['allreduce_ms']:.2f} ms per all-reduce of a step's "
+            f"({GREEDY_PROMPTS}, {cfg.d_model}) bf16 alone")
+    log(f"    a decode step's rank FLOPs: card {analyze(r0['table'])['flops']:.6e}"
+        f", recording mesh (meta) {a['flops']:.6e}; all-reduces a decode "
+        f"step {a['collective_count']:.0f} "
+        f"({a['collectives']['all-reduce']:.6e} wire bytes); "
+        f"{np.mean([o['decode_ms'] for o in res]):.2f} ms per decode step "
+        f"against one rank's {one_ms:.2f}")
+    log(f"    streams equal to one rank's greedy tokens: "
+        f"{np.array_equal(streams, one_tok)} "
+        f"({int((streams == one_tok).sum())} of {streams.size} positions); "
+        f"the one-rank argmax along the streams at {int(agree.sum())} of "
+        f"{agree.size} positions, {int((~clear).sum())} within the "
+        f"{LOGIT_TOL} margin; logits finite: {finite}")
+    for r, o in enumerate(res):
+        require_same_ops(f"20a rank {r}", dry, o["table"], keys=("flops",))
+        if o["table"]["collectives"] != dry["collectives"]:
+            raise AssertionError(f"20a rank {r}: collectives "
+                                 f"{o['table']['collectives']}, recorded "
+                                 f"{dry['collectives']}")
+        if not np.array_equal(o["tokens"], streams):
+            raise AssertionError(f"20a rank {r}: tokens differ from rank 0's")
+        if (o["experts"] != cfg.moe.num_experts // ARC_SERVE_MODEL
+                or o["expert_bytes"] * ARC_SERVE_MODEL != whole):
+            raise AssertionError(f"20a rank {r}: {o['experts']} experts, "
+                                 f"{o['expert_bytes']} of {whole} B")
+    if not (finite and streams.shape == (GREEDY_PROMPTS, GREEDY_NEW)
+            and agree[clear].all()):
+        raise AssertionError("20a: a stream leaves one rank's greedy argmax "
+                             "at a clear margin, or the logits are not "
+                             "finite")
+    log(f"  20a in {time.perf_counter() - t_all:.1f} s")
+
+
+def arc_placed_state(cfg, tc, mesh):
+    """20b's placed state on this rank: the whole parameters from seed 0,
+    cut to this rank's storage blocks, and the optimizer state of the
+    blocks (zeros: the blocks of the whole moments, never made)."""
+    dev = mesh.device
+    specs = tree_specs(abstract_state(cfg, tc, max_pos=TRAIN_SEQ + 1),
+                       state_rules(mesh.shape))
+    whole = init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                       device=dev, max_pos=TRAIN_SEQ + 1)
+    params = shard_tree(whole, specs["params"], mesh)
+    del whole
+    return ({"params": params, "opt": make_optimizer(tc).init(params),
+             "step": torch.zeros((), dtype=torch.int32)}, specs)
+
+
+def arc_placed_meta():
+    """20b's placed step on rank 0 of a recording mesh data 2 x model 2,
+    on the meta device: its op table."""
+    cfg, tc = arc_cfg(ARC_PLACED_EXPERTS), placed_tc("none")
+    mesh = RecordingMesh((ARC_DATA, ARC_MODEL), ("data", "model"))
+    state, specs = place_state(abstract_state(cfg, tc,
+                                              max_pos=TRAIN_SEQ + 1), mesh)
+    step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS, dp="data",
+                           tp="model", param_specs=specs["params"],
+                           sizes=mesh.shape, mesh=mesh)
+    _, cnt = counted(step, state, lm_batch_meta(TRAIN_BATCH, TRAIN_SEQ))
+    return cnt.table()
+
+
+def arc_placed_run(mesh):
+    """20b's placed masked steps on this rank (16a's batches and masks,
+    AdamW, no remat): bytes placed, seconds per step, the last step's op
+    table, the gathered parameters identical on every rank."""
+    dev = mesh.device
+    cfg, tc = arc_cfg(ARC_PLACED_EXPERTS), placed_tc("none")
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    state, specs = arc_placed_state(cfg, tc, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    placed = torch.cuda.memory_allocated(dev) - before
+    step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS, dp="data",
+                           tp="model", param_specs=specs["params"],
+                           sizes=mesh.shape, mesh=mesh)
+    losses, secs, table = [], [], None
+    for i, (x, y, w) in enumerate(placed_batches(cfg.vocab_size)[:ARC_STEPS]):
+        last = i == ARC_STEPS - 1
+        sync(dev)
+        t0 = time.perf_counter()
+        with OpCounter() if last else contextlib.nullcontext() as cnt:
+            state, m = step(state, lm_batch(x, y, w, dev))
+            losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        if last:
+            table = cnt.table()
+    out = dict(placed=placed, losses=losses, secs=secs, table=table,
+               tp=step.placement.tp, peak=torch.cuda.max_memory_allocated(dev),
+               report=state_bytes_per_rank(cfg, tc, mesh.shape,
+                                           max_pos=TRAIN_SEQ + 1)["total"],
+               experts=state["params"]["blocks"][0]["ffn"]["w_gate"].shape[1])
+    del step
+    out["same"] = agreed(mesh, gather_tree(state["params"], specs["params"],
+                                           mesh))
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def arc_placed_twin_tc() -> TrainConfig:
+    return TrainConfig(mode="masked", optimizer="sgdm", lr=3e-2,
+                       remat_policy="full")
+
+
+def arc_train_rank(rank, world, ref_dir, device="cuda"):
+    """A rank of 20b on the card (gloo, data 2 x model 2)."""
+    card_flags()
+    mesh = make_test_mesh(data=ARC_DATA, model=ARC_MODEL, device=device)
+    t0 = time.perf_counter()
+    out = {"placed": arc_placed_run(mesh)}
+    out["placed_s"] = time.perf_counter() - t0
+    gcfg = arc_cfg(ARC_GEN_EXPERTS)
+    for mode in GENERAL_MODES:
+        t0 = time.perf_counter()
+        out[mode] = gen_rank_run(mesh, mode, False, cfg=gcfg,
+                                 tc=arc_gen_tc(mode, False))
+        out[mode]["mode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["placed_twin_same"] = twin_placed(
+        mesh, arc_twin_cfg(), arc_placed_twin_tc(),
+        os.path.join(ref_dir, "arc_twin_tp.pt"))
+    out["twin"] = {mode: gen_rank_run(mesh, mode, True, cfg=arc_twin_cfg(),
+                                      tc=arc_gen_tc(mode, True))
+                   for mode in GENERAL_MODES}
+    out["twin_s"] = time.perf_counter() - t0
+    return out
+
+
+def drive_arctic_train(device="cuda"):
+    """20b from the parent: the twins' one-process references, the meta
+    counts beside the ranks, then every check."""
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    ref = twin_one_process(arc_twin_cfg(), arc_placed_twin_tc(), device)
+    oracle = {mode: gen_oracle(mode, device, cfg=arc_twin_cfg(),
+                               tc=arc_gen_tc(mode, True))
+              for mode in GENERAL_MODES}
+    t_ref = time.perf_counter() - t0
+    gcfg = arc_cfg(ARC_GEN_EXPERTS)
+
+    def meta_counts():
+        t0 = time.perf_counter()
+        out = {"placed": arc_placed_meta()}
+        out.update({(mode, r): gen_meta_count(mode, r, cfg=gcfg,
+                                              tc=arc_gen_tc(mode, False))
+                    for mode in GENERAL_MODES for r in (0, ARC_MODEL)})
+        return out, time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.empty_cache()        # the ranks need the card
+    held = (torch.cuda.memory_allocated(device),
+            torch.cuda.memory_reserved(device))
+    free, total = torch.cuda.mem_get_info(device)
+    log(f"  20b: before the ranks this process holds {held[0]:,} B "
+        f"({held[1]:,} reserved); the card has {free:,} of {total:,} B "
+        f"free")
+    ex = ThreadPoolExecutor(1)
+    counting = ex.submit(meta_counts)
+    # the ranks' allocators map freed blocks back to the card: four
+    # processes share it, and a rank's cached but unused blocks (3.5 GB
+    # of 16 in a first run) are memory the others cannot have
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        try:
+            res = run_ranks(arc_train_rank, ARC_DATA * ARC_MODEL,
+                            backend="gloo", device=device,
+                            timeout=SPMD_TIMEOUT, args=(tmp, device),
+                            threads=CORES // (ARC_DATA * ARC_MODEL))
+        finally:
+            if alloc is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        ranks_s = time.perf_counter() - t0
+        dry, t_meta = counting.result()
+        ex.shutdown()
+        twin_err = twin_gap(os.path.join(tmp, "arc_twin_tp.pt"), ref, device)
+    del ref
+    r0 = res[0]
+    log(f"  20b: {MOE_ARCH} at its published widths, {ARC_LAYERS} layer, bf16, "
+        f"on data {ARC_DATA} x model {ARC_MODEL} (4 gloo ranks sharing the "
+        f"card, {ranks_s:.1f} s with start-up: rank 0's placed steps "
+        f"{r0['placed_s']:.1f} s, general modes " + ", ".join(
+            f"{m} {r0[m]['mode_s']:.1f} s" for m in GENERAL_MODES)
+        + f", twins {r0['twin_s']:.1f} s; before the ranks, the twins' "
+        f"one-process references {t_ref:.1f} s; beside them, the meta "
+        f"counts {t_meta:.1f} s)")
+    bad = []
+    p, a = r0["placed"], analyze(dry["placed"])
+    log(f"    placed masked step, {ARC_PLACED_EXPERTS} experts ({p['experts']}"
+        f" a rank), AdamW, 4 agents with 2 masked a step: s per step (rank "
+        f"0) " + ", ".join(f"{t:.2f}" for t in p["secs"]) + f"; losses "
+        f"{p['losses']}; all-reduces a rank {a['collective_count']:.0f} "
+        f"({a['collectives']['all-reduce']:.6e} wire bytes), FLOPs "
+        f"{a['flops']:.6e}; state bytes a rank " + ", ".join(
+            f"{o['placed']['placed']:,}" for o in res)
+        + f" (meta report {p['report']:,}); most bytes allocated " + ", ".join(
+            f"{o['placed']['peak']:,}" for o in res) + "; gathered "
+        f"parameters identical on every rank: "
+        f"{all(o['placed']['same'] for o in res)}; tp axes {p['tp']}")
+    for r, o in enumerate(res):
+        q = o["placed"]
+        require_same_ops(f"20b placed rank {r}", dry["placed"], q["table"],
+                         keys=("flops",))
+        if q["table"]["collectives"] != dry["placed"]["collectives"]:
+            bad.append(f"placed rank {r}: collectives differ from the "
+                       "recording mesh's")
+        if abs(q["placed"] - q["report"]) > PLACED_BYTES_REL * q["report"]:
+            bad.append(f"placed rank {r}: {q['placed']} B placed, the report "
+                       f"says {q['report']}")
+        if not (q["same"] and q["tp"] == ("model",)
+                and np.isfinite(q["losses"]).all()):
+            bad.append(f"placed rank {r}: same {q['same']}, tp {q['tp']}, "
+                       f"losses {q['losses']}")
+    for mode in GENERAL_MODES:
+        a = analyze(dry[mode, 0][0])
+        log(f"    general {mode} ({GEN_WHY[mode]}), {ARC_GEN_EXPERTS} experts"
+            f", SGD-momentum: s per step (rank 0) " + ", ".join(
+                f"{t:.2f}" for t in r0[mode]["secs"])
+            + f"; losses {r0[mode]['losses']}; all-reduces a rank "
+            f"{a['collective_count']:.0f} ({a['collectives']['all-reduce']:.6e}"
+            f" wire bytes), FLOPs {a['flops']:.6e}; state bytes a rank " +
+            ", ".join(f"{o[mode]['placed']:,}" for o in res)
+            + f" (meta report {dry[mode, 0][1]:,}); most bytes allocated "
+            + ", ".join(f"{o[mode]['peak']:,}" for o in res)
+            + f"; identical per tp block over dp: "
+            f"{all(o[mode]['same_blocks'] for o in res)}, whole leaves over "
+            f"all ranks: {all(o[mode]['same_whole'] for o in res)}")
+        for r, o in enumerate(res):
+            want, want_bytes = dry[mode, (r // ARC_MODEL) * ARC_MODEL]
+            require_same_ops(f"20b {mode} rank {r}", want, o[mode]["table"],
+                             keys=("flops",))
+            if o[mode]["table"]["collectives"] != want["collectives"]:
+                bad.append(f"{mode} rank {r}: collectives differ from the "
+                           "recording mesh's")
+            if abs(o[mode]["placed"] - want_bytes) > \
+                    PLACED_BYTES_REL * want_bytes:
+                bad.append(f"{mode} rank {r}: {o[mode]['placed']} B placed, "
+                           f"the report says {want_bytes}")
+            if not (o[mode]["same_blocks"] and o[mode]["same_whole"]
+                    and o[mode]["tp"] == ("model",)
+                    and np.isfinite(o[mode]["losses"]).all()):
+                bad.append(f"{mode} rank {r}: blocks {o[mode]['same_blocks']}"
+                           f", whole {o[mode]['same_whole']}, tp "
+                           f"{o[mode]['tp']}, losses {o[mode]['losses']}")
+    errs = {}
+    for mode in GENERAL_MODES:
+        for r, o in enumerate(res):
+            tw = o["twin"][mode]
+            if not (tw["same_blocks"] and tw["same_whole"]):
+                bad.append(f"twin {mode} rank {r}: not identical")
+            for got, want in zip(tw["params"], oracle[mode]):
+                torch.testing.assert_close(torch.from_numpy(got),
+                                           torch.from_numpy(want),
+                                           **TWIN_TOL)
+            errs[mode] = max(errs.get(mode, 0.0), max(
+                float(np.max(np.abs(x - y)))
+                for x, y in zip(tw["params"], oracle[mode])))
+    log(f"    f32 twins (reduced {MOE_ARCH}, {ARC_TWIN_LAYERS} layers, 4 "
+        f"experts, SGD-momentum, remat): the placed step against the "
+        f"one-process make_train_step {twin_err:.3e}, identical on every "
+        f"rank: {all(o['placed_twin_same'] for o in res)}; the general step "
+        f"against the one-process core.gradagg oracle " + ", ".join(
+            f"{m} {e:.3e}" for m, e in errs.items())
+        + f" (tolerance {TWIN_TOL['atol']:.0e})")
+    if not all(o["placed_twin_same"] for o in res):
+        bad.append("placed twin: not identical on every rank")
+    if bad:
+        raise AssertionError("20b: " + "; ".join(bad))
+    log(f"  20b in {time.perf_counter() - t_all:.1f} s")
+
+
+def drive_arctic(device="cuda"):
+    """20a-20b."""
+    t0 = time.perf_counter()
+    drive_arctic_serve(device)
+    drive_arctic_train(device)
+    log(f"  phase 20 in {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -4840,7 +5372,7 @@ def main() -> int:
 
     log(f"== 12. the prefix cache: {SERVE_ARCH} at full width, bf16")
     t0 = time.perf_counter()
-    c12, _, _ = drive_prefix(params, get_config(SERVE_ARCH))
+    c12, _, _ = drive_prefix(params, serve_cfg())
     log(f"  phase 12 in {time.perf_counter() - t0:.1f} s")
 
     log(f"== 13. fleet control and checkpoint rejoin: {E2E_REPLICAS} "
@@ -4896,7 +5428,12 @@ def main() -> int:
         "trimmed, quantized on data 2 x model 2")
     drive_general_tp()
 
-    log("== 20. result")
+    log("== 20. arctic-480b tensor- and expert-parallel over model: "
+        "launch.serve's steps on data 1 x model 4, the placed and the "
+        "general step on data 2 x model 2")
+    drive_arctic()
+
+    log("== 21. result")
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

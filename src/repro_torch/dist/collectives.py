@@ -23,7 +23,7 @@ all-reduces one scalar per agent and reuses
 trimmed mean needs every agent's value per coordinate, so it rebuilds
 the stack, a column block at a time to bound its memory.
 
-*Tensor-parallel blocks.* On the general step of a dense decoder over a
+*Tensor-parallel blocks.* On the general step of a GQA decoder over a
 mesh whose "model" axis is above 1, a rank's gradient tree holds its tp
 blocks of the split leaves and the others whole (``dist.tp``). The sums
 and the trimmed mean are coordinate-wise, so they run on the blocks as

@@ -1,13 +1,14 @@
 """Tensor-parallel compute over the mesh's "model" axes: the context the
-dense decoders' layers read, and Megatron's four autograd Functions on
-its axes (the port's counterpart of what GSPMD derives for the
-reference from its compute layout, ``tree_specs(params,
+layers of the GQA decoders (dense and MoE) read, and Megatron's four
+autograd Functions on its axes (the port's counterpart of what GSPMD
+derives for the reference from its compute layout, ``tree_specs(params,
 MeshRules(fsdp_axes=()))``).
 
-The placed train step and ``launch.serve``'s steps install a
-:class:`tp_context` (mesh, tp axes) for a config :func:`tp_dense`
-accepts; the layers of ``models/layers.py`` and ``models/attention.py``
-then run on this rank's blocks of the compute layout:
+The placed train step, the general step and ``launch.serve``'s steps
+install a :class:`tp_context` (mesh, tp axes) for a config
+:func:`tp_compute` accepts; the layers of ``models/layers.py``,
+``models/attention.py`` and ``models/moe.py`` then run on this rank's
+blocks of the compute layout:
 
 - a column-parallel matmul takes ``copy_to_tp(x)`` (identity forward,
   all-reduce backward) and keeps this rank's block of the fan-out;
@@ -16,7 +17,10 @@ then run on this rank's blocks of the compute layout:
   identity backward);
 - ``gather_from_tp`` / ``scatter_to_tp`` change a tensor's layout where
   the reference's constraint points change it (the embedding's model
-  columns, a query split across head boundaries, the decode's head_dim).
+  columns, a query split across head boundaries, the decode's head_dim,
+  the router's logits over the experts);
+- an MoE block computes this rank's experts on the routing every rank
+  computes alike, and sums the ranks' partial combines over tp.
 
 Every collective is an all-reduce over the tp axes (gloo's CUDA path
 has no other); a gather writes this rank's block into ``-0.0`` pads, so
@@ -86,7 +90,10 @@ class TP:
         """Whether this rank is the first of its group of ``n / groups``."""
         return self.rank % (self.size // groups) == 0
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor,
+                   inplace: bool = False) -> torch.Tensor:
+        if inplace:                     # the sum in x itself (Mesh)
+            return self.mesh.all_reduce(x, self.axes, inplace=True)
         return self.mesh.all_reduce(x, self.axes)
 
     def gather(self, x: torch.Tensor, dim: int,
@@ -201,14 +208,15 @@ def current_tp() -> Optional[TP]:
     return stack[-1] if stack else None
 
 
-def tp_dense(cfg) -> bool:
-    """The family this layer of tensor parallelism covers: every layer
-    GQA attention with a dense MLP, no MoE, no MLA, no SSM or RWKV, no
+def tp_compute(cfg) -> bool:
+    """The families this layer of tensor parallelism covers: every layer
+    GQA attention with a dense MLP or an MoE block (its experts over the
+    expert-parallel axes, ``dist.sharding.MeshRules.ep_axes``, which the
+    compute layouts set equal to the tp axes), no MLA, no SSM or RWKV, no
     encoder. The one predicate every caller reads; the other families
     compute whole on every rank."""
     return (all(k == "attn" for k in cfg.layer_pattern)
-            and cfg.attention != "mla" and cfg.moe is None
-            and not cfg.encoder_decoder)
+            and cfg.attention != "mla" and not cfg.encoder_decoder)
 
 
 # ---------------------------------------------------------------------------

@@ -14,18 +14,20 @@ only: nothing is allocated and no card is needed) over a
   of the state (``shard_tree`` under the layout's storage rules) and the
   global batch it slices itself. Each period's blocks are gathered to
   the compute layout (``dist.sharding.compute_rules``, the reference's
-  ``param_cspecs``): a dense decoder (``dist.tp.tp_dense``) computes
-  tensor-parallel over "model" (``dist.tp``); the other families gather
-  whole leaves and compute whole on every rank.
+  ``param_cspecs``): a GQA decoder, dense or MoE
+  (``dist.tp.tp_compute``), computes tensor-parallel over "model"
+  (``dist.tp``; an MoE block's experts over the ep axes, the layouts'
+  tp axes); the other families gather whole leaves and compute whole on
+  every rank.
 - train, the general modes (cge, stale, trimmed, quantized):
   ``make_general_step`` on ``place_general_state``'s share of the state,
   the reference's general layout: parameters and moments in the compute
-  layout (a dense decoder's TP blocks over "model", replicated over dp;
+  layout (a GQA decoder's TP blocks over "model", replicated over dp;
   whole for the other families), this agent's ledger and error rows
   whole, the global batch it slices itself and a host ``fresh_mask`` of
   ones (the reference's ``(n_agents,)`` f32 argument).
 - prefill and decode: ``launch.serve``'s steps on this rank's dp block
-  of the batch and cache. A dense decoder runs tensor-parallel on the
+  of the batch and cache. A GQA decoder runs tensor-parallel on the
   compute layout (``place_params``) and a cache with ``cache_specs``'
   tp entries (head_dim over "model", ``place_cache``), as the
   reference's cells place them; the other families take whole
@@ -77,7 +79,7 @@ from repro_torch.core.ledger import tree_flatten
 from repro_torch.dist.sharding import (MeshRules, _split_axes, batch_specs,
                                        bytes_per_rank, cache_specs,
                                        shard_tree, tree_specs)
-from repro_torch.dist.tp import tp_dense
+from repro_torch.dist.tp import tp_compute
 from repro_torch.launch import serve as V
 from repro_torch.launch import train as T
 from repro_torch.launch.hlo_analysis import OpCounter, analyze
@@ -197,7 +199,7 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     lead = batch_specs(rules, {"tokens": batch["tokens"]})["tokens"][0]
     split = _split_axes(lead, mesh)
     n_split = math.prod(sizes[a] for a in split)
-    tensor_parallel = bool(tp_axes) and tp_dense(cfg) and \
+    tensor_parallel = bool(tp_axes) and tp_compute(cfg) and \
         mesh.axis_size(tp_axes) > 1
     meta.update(dp=list(split),
                 uneven=set(split) != set(_split_axes(rules.dp, mesh)),

@@ -165,11 +165,14 @@ class Mesh:
                                "process groups")
         raise KeyError(f"no process group for axes {sub}")
 
-    def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor, axes,
+                   inplace: bool = False) -> torch.Tensor:
         """Sum of ``x`` over the ranks of ``axes``, as a new tensor (``x``
-        itself is left alone). Every rank of the group must call it."""
+        itself is left alone), or with ``inplace`` in ``x`` itself (a
+        contiguous buffer the caller no longer needs: no second copy of
+        it), which is returned. Every rank of the group must call it."""
         g = self.group(axes)
-        y = x.clone(memory_format=torch.contiguous_format)
+        y = _target(x, inplace)
         _report("all-reduce", self, axes, y)
         if g is not None:
             dist.all_reduce(y, op=dist.ReduceOp.SUM, group=g)
@@ -191,10 +194,20 @@ class RecordingMesh(Mesh):
             raise ValueError(f"rank {rank} is not in a mesh of {self.size}")
         self.rank = rank
 
-    def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
-        y = x.clone(memory_format=torch.contiguous_format)
+    def all_reduce(self, x: torch.Tensor, axes,
+                   inplace: bool = False) -> torch.Tensor:
+        y = _target(x, inplace)
         _report("all-reduce", self, axes, y)
         return y
+
+
+def _target(x: torch.Tensor, inplace: bool) -> torch.Tensor:
+    """The tensor an all-reduce of ``x`` sums into."""
+    if not inplace:
+        return x.clone(memory_format=torch.contiguous_format)
+    if not x.is_contiguous():
+        raise ValueError("an in-place all-reduce needs a contiguous buffer")
+    return x
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None,

@@ -5,15 +5,16 @@ and greedy generation on the paged serving engine (counterpart of
 The steps are what a dry run of ``prefill_32k`` / ``decode_32k`` reads:
 ``apply_model`` under the activation policy (``dist.act_sharding``) when
 ``dp`` is given, argmax in int32, no rematerialization. Given a
-``mesh``, a dense decoder (``dist.tp.tp_dense``) runs tensor-parallel
-over the mesh's "model" axis, as the reference's compute layout splits
-it: on this rank's blocks of the parameters (:func:`place_params`) and
-of a cache whose head_dim is split over tp (:func:`place_cache`). A decode writes
-the cache in place and returns it, where the reference returns an
-updated copy. ``greedy_generate`` drives ``serve.ServeEngine``: one
-prefill, then ``steps - 1`` decode iterations in supersteps of
-``superstep_k``, the GQA decode through ``paged_flash_decode`` on the
-card.
+``mesh``, a GQA decoder, dense or MoE (``dist.tp.tp_compute``), runs
+tensor-parallel over the mesh's "model" axis, as the reference's compute
+layout splits it: on this rank's blocks of the parameters
+(:func:`place_params`, or :func:`init_params` drawing them block by
+block), an MoE block's experts included, and of a cache whose head_dim
+is split over tp (:func:`place_cache`). A decode writes the cache in
+place and returns it, where the reference returns an updated copy.
+``greedy_generate`` drives ``serve.ServeEngine``: one prefill, then
+``steps - 1`` decode iterations in supersteps of ``superstep_k``, the
+GQA decode through ``paged_flash_decode`` on the card.
 """
 from __future__ import annotations
 
@@ -25,11 +26,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.act_sharding import act_policy
-from repro_torch.dist.sharding import (MeshRules, cache_specs, compute_rules,
+from repro_torch.dist.sharding import (MeshRules, _rebuild, _zip_specs,
+                                       block_shape, block_slices,
+                                       cache_specs, compute_rules,
                                        shard_tree, tree_specs)
-from repro_torch.dist.tp import gather_from_tp, tp_context, tp_dense
+from repro_torch.dist.tp import gather_from_tp, tp_context, tp_compute
 from repro_torch.models.layers import vocab_split
-from repro_torch.models.model import apply_model
+from repro_torch.models.model import apply_model, init_model
 
 
 def _ctx(dp, tp, sizes=None):
@@ -40,9 +43,9 @@ def _ctx(dp, tp, sizes=None):
 def _tp_axes(cfg: ArchConfig, mesh) -> Tuple[str, ...]:
     """The tp axes a step on ``mesh`` computes ``cfg`` over: the compute
     rules' where the family has tensor-parallel compute
-    (``dist.tp.tp_dense``) and the mesh gives them more than one rank;
+    (``dist.tp.tp_compute``) and the mesh gives them more than one rank;
     none otherwise (whole parameters on every rank)."""
-    if mesh is None or not tp_dense(cfg):
+    if mesh is None or not tp_compute(cfg):
         return ()
     return tuple(a for a in compute_rules(mesh.shape).tp_axes
                  if mesh.shape.get(a, 1) > 1)
@@ -57,6 +60,39 @@ def place_params(params, cfg: ArchConfig, mesh):
         return params
     return shard_tree(params, tree_specs(params, compute_rules(mesh.shape)),
                       mesh)
+
+
+def init_params(generator, cfg: ArchConfig, mesh, device="cuda",
+                max_pos: int = 32768):
+    """``place_params(init_model(generator, cfg, ...), cfg, mesh)``, the
+    same numbers, without the whole model on ``device``: each MoE expert
+    stack keeps this rank's experts as it is drawn (the whole draw freed
+    before the next), then every other leaf is cut to its block. The
+    whole parameters where ``cfg`` does not compute tensor-parallel over
+    the mesh."""
+    if not _tp_axes(cfg, mesh):
+        return init_model(generator, cfg, device=device, max_pos=max_pos)
+    rules = compute_rules(mesh.shape)
+    whole = init_model(None, cfg, device="meta", max_pos=max_pos)
+    specs = tree_specs(whole, rules)
+    experts = None
+    if cfg.moe is not None:
+        e = cfg.moe.num_experts
+        experts = block_slices((rules.fit(rules.ep_axes, e),), (e,), mesh)[0]
+    params = init_model(generator, cfg, device=device, max_pos=max_pos,
+                        experts=experts)
+    out = []
+    for (leaf, sp), (w, _) in zip(_zip_specs(params, specs),
+                                  _zip_specs(whole, specs)):
+        if leaf.shape == w.shape:
+            leaf = leaf[block_slices(sp, w.shape, mesh)].clone(
+                memory_format=torch.contiguous_format)
+        elif leaf.shape != block_shape(sp, w.shape, mesh):
+            raise ValueError(f"a leaf of {tuple(leaf.shape)} is neither "
+                             f"whole nor this rank's block of "
+                             f"{tuple(w.shape)}")
+        out.append(leaf)
+    return _rebuild(params, iter(out))
 
 
 def place_cache(cache, cfg: ArchConfig, mesh, dp=()):
@@ -81,7 +117,7 @@ def _next_token(logits, cfg: ArchConfig):
 def make_prefill_step(cfg: ArchConfig, moe_groups: int = 1,
                       dp=None, tp=None, sizes=None, mesh=None) -> Callable:
     """``prefill(params, batch) -> (next token (B,) int32, cache)``. With
-    ``mesh``, a dense decoder runs tensor-parallel over its tp axes on
+    ``mesh``, a GQA decoder runs tensor-parallel over its tp axes on
     ``place_params``' blocks and returns the cache in ``place_cache``'s
     layout (every rank of the mesh calls it)."""
     tp_axes = _tp_axes(cfg, mesh)

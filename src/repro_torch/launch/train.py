@@ -12,10 +12,11 @@ Two paths:
    parameter and moment, ``place_state``), each period's parameters
    gathered just before it runs to the reference's compute layout
    (``dist.sharding.compute_rules``), the gradients reduced back to the
-   blocks by the gather's backward. A dense decoder (``dist.tp.tp_dense``)
-   computes tensor-parallel over the step's ``tp`` axes (``dist.tp``):
-   column weights keep this rank's fan-out, row weights its fan-in, the
-   embedding its model columns, the loss its vocabulary block. The other
+   blocks by the gather's backward. A GQA decoder, dense or MoE
+   (``dist.tp.tp_compute``), computes tensor-parallel over the step's
+   ``tp`` axes (``dist.tp``): column weights keep this rank's fan-out,
+   row weights its fan-in, the embedding its model columns, an MoE block
+   this rank's experts, the loss its vocabulary block. The other
    families gather whole leaves and compute whole on every rank.
 
 2. ``general`` (:func:`make_general_step`, every rank of a mesh whose dp
@@ -28,7 +29,7 @@ Two paths:
    - ``quantized``  int8 error-feedback compressed aggregation.
    Parameters and optimizer state are replicated over dp: every dp rank
    applies the same update to the same values. On a mesh whose other
-   ("model") axes hold more than one rank, a dense decoder computes
+   ("model") axes hold more than one rank, a GQA decoder computes
    tensor-parallel over them on the reference's compute layout
    (``place_general_state``: each rank its tp blocks of the parameters
    and moments, its agent's ledger and error rows whole); the other
@@ -64,7 +65,7 @@ from repro_torch.dist.sharding import (MeshRules, Placement, _rebuild,
                                        batch_specs, block_slices,
                                        bytes_per_rank, compute_rules,
                                        full_shape, shard_tree, tree_specs)
-from repro_torch.dist.tp import TP, tp_context, tp_dense, tp_sq_norm
+from repro_torch.dist.tp import TP, tp_context, tp_compute, tp_sq_norm
 from repro_torch.launch.mesh import dp_axis_names, n_agents_of
 from repro_torch.models.model import apply_model, init_model, lm_loss
 from repro_torch.optim.optimizers import (adamw, apply_updates,
@@ -200,9 +201,9 @@ def place_state(state: Dict[str, Tree], mesh) -> Tuple[Dict[str, Tree],
 def general_tp_axes(cfg: ArchConfig, mesh) -> Tuple[str, ...]:
     """The axes the general step of ``cfg`` computes tensor-parallel over
     on ``mesh``: its axes other than dp that hold more than one rank, for
-    a dense decoder (``dist.tp.tp_dense``); none for the other families,
-    which compute whole on every rank."""
-    if not tp_dense(cfg):
+    a GQA decoder, dense or MoE (``dist.tp.tp_compute``); none for the
+    other families, which compute whole on every rank."""
+    if not tp_compute(cfg):
         return ()
     dp = dp_axis_names(mesh)
     return tuple(a for a in mesh.axis_names
@@ -225,7 +226,7 @@ def place_general_state(state: Dict[str, Tree], mesh,
     mesh=mesh)``: its agent's ledger and error rows) as the reference's
     dry run lays it out: parameters and optimizer moments in the compute
     layout (:func:`general_specs`: tensor-parallel blocks over "model"
-    for a dense decoder, whole for the other families), ``ledger`` and
+    for a GQA decoder, whole for the other families), ``ledger`` and
     ``err`` this agent's rows whole on every model rank, ``step`` as it
     is. With model = 1 the state comes back as it is."""
     out = dict(state)
@@ -310,7 +311,7 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig, moe_groups: int = 1,
     partitioner, so the gather reads the storage specs and brings each
     block to its block of the compute layout, ``tree_specs(params,
     compute_rules(...))`` over the ``tp`` axes (checked at the first
-    step): tensor-parallel for a dense decoder, whole for the other
+    step): tensor-parallel for a GQA decoder, whole for the other
     families and where ``tp`` is None."""
     resolve_mode(tc.mode)               # fail fast on unknown modes
     opt = make_optimizer(tc)
@@ -393,7 +394,7 @@ def _make_placed_step(cfg, tc, moe_groups, opt, dp, tp, param_specs, sizes,
     # tensor-parallel compute over the policy's tp axes of the mesh that
     # the batch does not split
     tp_axes = (tuple(a for a in _norm_axes(tp) if mesh.shape.get(a, 1) > 1
-                     and a not in dp_axes) if tp_dense(cfg) else ())
+                     and a not in dp_axes) if tp_compute(cfg) else ())
     plc = Placement(mesh, dp_axes, tp_axes)
     whole = mesh.size == 1
     split = {a for a in dp_axes if mesh.shape[a] > 1}
@@ -519,7 +520,9 @@ class _Blocks:
         """The whole tree's flat ``(P,)`` f32 vector (the ledger's layout)
         from this rank's blocks ``leaves``, in one ``-0.0``-padded
         all-reduce over tp, bit for bit: each block is written by the
-        first rank of the ranks that hold it."""
+        first rank of the ranks that hold it. The sum runs in the padded
+        buffer itself: a whole f32 row is the largest tensor of the step
+        (3.6 GB at one layer of arctic's widths)."""
         lay = self.whole
         buf = torch.full((ledger_dim(lay),), -0.0,
                          dtype=torch.float32, device=leaves[0].device)
@@ -528,7 +531,7 @@ class _Blocks:
                                            lay.sizes):
             if self.tp.leads(g):
                 buf[off:off + sz].view(full)[sl] = l.to(torch.float32)
-        return self.tp.all_reduce(buf)
+        return self.tp.all_reduce(buf, inplace=True)
 
 
 def make_general_step(cfg: ArchConfig, tc: TrainConfig, mesh,
@@ -542,7 +545,7 @@ def make_general_step(cfg: ArchConfig, tc: TrainConfig, mesh,
     holds its agent's ledger and error rows (``init_state(...,
     mesh=mesh)``). The loss and metrics are the same on every rank.
 
-    Where :func:`general_tp_axes` names axes (a dense decoder on a mesh
+    Where :func:`general_tp_axes` names axes (a GQA decoder on a mesh
     whose "model" axes hold more than one rank), the state is
     ``place_general_state``'s and the step is tensor-parallel over them,
     as the reference's GSPMD runs its general step on TP-sharded

@@ -35,13 +35,21 @@ def param_dtype(cfg: ArchConfig) -> torch.dtype:
 # init helpers: draws on the generator's device, then cast and moved
 
 
-def _normal(gen: torch.Generator, shape, std: float, dtype, device):
+def _normal(gen: torch.Generator, shape, std: float, dtype, device,
+            rows: Optional[slice] = None):
+    """A normal draw of ``shape`` scaled by ``std``, cast and moved; with
+    ``rows`` only those rows of its first dimension are kept (cut from
+    the f32 draw, which is freed on return)."""
     if torch.device(device).type == "meta":      # shapes only, no draw
+        if rows is not None:
+            shape = (len(range(shape[0])[rows]),) + tuple(shape[1:])
         return torch.empty(shape, dtype=dtype, device="meta")
     # scaled in place: one f32 draw alive at a time (an arctic expert
     # stack is 17.8 GB in f32)
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32).mul_(std)
+    if rows is not None:
+        x = x[rows]
     return x.to(device=device, dtype=dtype)
 
 
@@ -156,14 +164,17 @@ def init_mlp(gen, cfg: ArchConfig, device, d_ff: Optional[int] = None):
             "b_out": torch.zeros(d, dtype=dt, device=device)}
 
 
-def apply_mlp(p, x, cfg: ArchConfig):
-    """The MLP. Under a tensor-parallel context (``dist.tp``) whose
-    compute layout splits the hidden width (the first matrix's local
-    fan-out short of ``d_ff``): column- then row-parallel, this rank's
-    hidden columns and the partial outputs summed over tp."""
+def apply_mlp(p, x, cfg: ArchConfig, d_ff: Optional[int] = None):
+    """The MLP of hidden width ``d_ff`` (``cfg.d_ff`` by default; an MoE
+    block's fused shared experts are wider). Under a tensor-parallel
+    context (``dist.tp``) whose compute layout splits the hidden width
+    (the first matrix's local fan-out short of it): column- then
+    row-parallel, this rank's hidden columns and the partial outputs
+    summed over tp."""
     swiglu = cfg.act == "swiglu"
     split = (current_tp() is not None
-             and p["w_gate" if swiglu else "w_in"].shape[-1] != cfg.d_ff)
+             and p["w_gate" if swiglu else "w_in"].shape[-1]
+             != (d_ff or cfg.d_ff))
     if split:
         x = copy_to_tp(x)
     if swiglu:

@@ -43,7 +43,7 @@ from repro_torch.models import ssm as S
 
 
 def _init_layer(gen, cfg: ArchConfig, kind: str, layer_idx: int, device,
-                cross: bool = False):
+                cross: bool = False, experts: Optional[slice] = None):
     p: Dict[str, Any] = {"norm1": L.init_norm(cfg, device),
                          "norm2": L.init_norm(cfg, device)}
     if kind == "attn":
@@ -58,7 +58,7 @@ def _init_layer(gen, cfg: ArchConfig, kind: str, layer_idx: int, device,
     if kind == "rwkv":
         p["ffn"] = S.init_rwkv_channel(gen, cfg, device)
     elif cfg.moe_on_layer(layer_idx):            # the global layer index
-        p["ffn"] = M.init_moe(gen, cfg, cfg.moe, device)
+        p["ffn"] = M.init_moe(gen, cfg, cfg.moe, device, experts=experts)
     else:
         p["ffn"] = L.init_mlp(gen, cfg, device)
     if cross:
@@ -89,13 +89,15 @@ def _unstack(tree, n: int):
 
 
 def init_model(generator: Optional[torch.Generator], cfg: ArchConfig,
-               device="cuda", max_pos: int = 32768):
+               device="cuda", max_pos: int = 32768,
+               experts: Optional[slice] = None):
     """Random weights with the reference's distributions (normal weights
     scaled by 1/sqrt(d_in), embeddings by 0.02, unit norms, zero biases,
     the SSM and router leaves in f32), each leaf drawn in f32 on the
     generator's device, then cast to ``param_dtype`` and moved to
     ``device``. ``device="meta"`` builds the shapes only (no generator
-    needed)."""
+    needed). ``experts`` keeps only those experts of each MoE stack,
+    the same numbers as the whole draw's (``launch.serve.init_params``)."""
     device = resolve_device(device)
     dt = L.param_dtype(cfg)
     params: Dict[str, Any] = {"embed": L.init_embed(generator, cfg, device)}
@@ -105,7 +107,7 @@ def init_model(generator: Optional[torch.Generator], cfg: ArchConfig,
     period = cfg.period
     params["blocks"] = tuple(
         _stack([_init_layer(generator, cfg, kind, pi * period + pos, device,
-                            cross=cfg.encoder_decoder)
+                            cross=cfg.encoder_decoder, experts=experts)
                 for pi in range(cfg.n_periods)])
         for pos, kind in enumerate(cfg.layer_pattern))
     params["norm_f"] = L.init_norm(cfg, device)

@@ -18,29 +18,44 @@ the inputs alone, on any device:
   ``(expert, rank)`` slots and adds them in ascending expert order, where
   the reference scatter-adds (``index_add_`` would use atomics on CUDA,
   a sum in a varying order).
+
+Expert-parallel (:func:`apply_moe` under ``dist.tp``), as the
+reference's compiled program splits the block over "model": every rank
+computes the router's block of the logits, gathers them whole and routes
+alike; it runs its E/n experts on their ``(E/n, C, d)`` slots and adds
+its slots of each token in the same ascending order into a partial
+``(T, d)``, which one all-reduce sums over tp. That sum is the one
+process's up to the order of its terms (for top-2, whose two terms meet
+in one addition either way, the same rounding).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.dist.act_sharding import constrain
+from repro_torch.dist.tp import (copy_to_tp, current_tp, gather_from_tp,
+                                 reduce_from_tp)
 from repro_torch.models.layers import (_normal, apply_mlp, dense_init,
                                        init_mlp, param_dtype)
 
 
-def init_moe(gen, cfg: ArchConfig, moe: MoEConfig, device):
+def init_moe(gen, cfg: ArchConfig, moe: MoEConfig, device,
+             experts: Optional[slice] = None):
     """Router (d, E) in f32; expert stacks (E, d_in, d_out) with std
     1/sqrt(d_in); shared experts fused into one SwiGLU of width
-    n_shared * ff; arctic's dense residual MLP."""
+    n_shared * ff; arctic's dense residual MLP. With ``experts`` each
+    stack keeps only those experts, cut from its draw (the same numbers,
+    without the whole stack in its dtype)."""
     d, dt = cfg.d_model, param_dtype(cfg)
     e, ff = moe.num_experts, moe.d_ff_expert
 
     def stack(d_in, d_out):
-        return _normal(gen, (e, d_in, d_out), d_in ** -0.5, dt, device)
+        return _normal(gen, (e, d_in, d_out), d_in ** -0.5, dt, device,
+                       rows=experts)
 
     p = {"router": dense_init(gen, d, e, torch.float32, device),
          "w_gate": stack(d, ff), "w_up": stack(d, ff),
@@ -59,10 +74,15 @@ def _capacity(tokens_per_group: int, moe: MoEConfig) -> int:
     return max(c, 4)
 
 
-def _route(router, xg, k: int):
+def _route(router, xg, k: int, e: int = 0):
     """f32 router softmax and its top k: (probs (T, E), top_w (T, K)
-    renormalised, top_i (T, K)); ties go to the lower expert id."""
+    renormalised, top_i (T, K)); ties go to the lower expert id. A router
+    narrower than ``e`` experts is this rank's block of a column-parallel
+    router (``dist.tp``): its logits are gathered whole, bit for bit,
+    before the softmax, so every rank routes alike."""
     logits = xg.to(torch.float32) @ router.to(torch.float32)
+    if e and router.shape[-1] != e:
+        logits = gather_from_tp(logits, -1)
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_i = top_w[:, :k], top_i[:, :k]
@@ -107,27 +127,42 @@ def _count(ids, n: int):
         0, ids, torch.ones_like(ids))
 
 
-def _moe_group(p, xg, moe: MoEConfig, c: int):
-    """xg: (T, d), one dispatch group -> (out (T, d), aux)."""
+def _moe_group(p, xg, moe: MoEConfig, c: int, tp=None):
+    """xg: (T, d), one dispatch group -> (out (T, d), aux). With ``tp``
+    (the expert stacks split over it, :func:`apply_moe`), this rank's
+    experts: the routing whole and alike on every rank, this rank's
+    ``(E/n, C, d)`` products, and its partial combine summed over tp."""
     t, d = xg.shape
     e, k = moe.num_experts, moe.top_k
-    probs, top_w, top_i = _route(p["router"], xg, k)
+    if tp is not None:
+        xg = copy_to_tp(xg)          # the router's and the dispatch's dx
+    probs, top_w, top_i = _route(p["router"], xg, k, e)
+    if tp is not None:
+        top_w = copy_to_tp(top_w)    # each rank weighs its experts' slots
     token_map, weight_map, valid, slot = _dispatch_indices(top_i, top_w,
                                                            e, c)
-    vmask = valid[..., None].to(xg.dtype)
-    xe = xg[token_map.reshape(-1).long()].reshape(e, c, d) * vmask
+    mine = slice(0, e) if tp is None else tp.block(e)
+    el = mine.stop - mine.start
+    vmask = valid[mine, :, None].to(xg.dtype)
+    xe = xg[token_map[mine].reshape(-1).long()].reshape(el, c, d) * vmask
     g = torch.bmm(xe, p["w_gate"])
     u = torch.bmm(xe, p["w_up"])
     h = F.silu(g.to(torch.float32)).to(xg.dtype) * u
     ye = torch.bmm(h, p["w_down"])
-    ye = ye * (weight_map[..., None].to(xg.dtype) * vmask)
+    ye = ye * (weight_map[mine, :, None].to(xg.dtype) * vmask)
     # combine: each token's slots in ascending expert order (ascending
-    # slot), the overflow slot e*c reading a zero row
-    ye = torch.cat([ye.reshape(e * c, d), ye.new_zeros(1, d)])
+    # slot), the overflow slot reading a zero row; under tp so does a
+    # slot of another rank's expert, and the partial sums are summed
+    ye = torch.cat([ye.reshape(el * c, d), ye.new_zeros(1, d)])
     slot = slot.sort(dim=-1).values
+    if tp is not None:
+        slot = slot - mine.start * c
+        slot = torch.where((slot >= 0) & (slot < el * c), slot, el * c)
     out = ye[slot[:, 0]]
     for j in range(1, k):
         out = out + ye[slot[:, j]]
+    if tp is not None:
+        out = reduce_from_tp(out)
     # load-balance aux loss (Switch): E * sum_e f_e * p_e
     me = _count(top_i.reshape(-1), e).to(torch.float32) / (t * k)
     aux = e * torch.sum(me * probs.mean(0))
@@ -136,18 +171,33 @@ def _moe_group(p, xg, moe: MoEConfig, c: int):
 
 def apply_moe(p, x, cfg: ArchConfig, moe: MoEConfig,
               n_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (B, S, d), aux loss scalar (mean over groups)."""
+    """x: (B, S, d) -> (B, S, d), aux loss scalar (mean over groups).
+
+    Under a tensor-parallel context (``dist.tp``) whose compute layout
+    splits the expert stacks (their local E short of ``num_experts``:
+    the ep axes, equal to the tp axes, divide E), expert-parallel: the
+    router's block of the logits gathered whole, so every rank routes
+    alike and drops the same overflow; this rank's E/n experts on its
+    slots; the combine summed over tp. The shared experts and arctic's
+    dense residual take ``layers.apply_mlp``'s column/row forms where
+    their hidden width is split. Where the stacks are whole (an extent
+    that does not divide E), the block computes whole on every rank."""
     b, s, d = x.shape
     tokens = b * s
     if tokens % n_groups:
         n_groups = 1
     tpg = tokens // n_groups
     c = _capacity(tpg, moe)
+    tp = current_tp()
+    if tp is not None and p["w_gate"].shape[0] == moe.num_experts:
+        tp = None
     xg = constrain(x.reshape(n_groups, tpg, d), "moe_tokens")
-    outs, auxs = zip(*(_moe_group(p, g, moe, c) for g in xg))
+    outs, auxs = zip(*(_moe_group(p, g, moe, c, tp) for g in xg))
     out = constrain(torch.stack(outs), "moe_tokens").reshape(b, s, d)
     if moe.num_shared_experts:
-        out = out + apply_mlp(p["shared"], x, cfg)
+        out = out + apply_mlp(p["shared"], x, cfg,
+                              d_ff=moe.num_shared_experts
+                              * moe.d_ff_expert)
     if moe.dense_residual:
         out = out + apply_mlp(p["dense"], x, cfg)
     return out, torch.stack(auxs).mean()

@@ -23,6 +23,12 @@ replaced at run time by a mesh of ``Auto`` axes (jax 0.9.0's
     record's argument bytes exactly the reference's general cell's (the
     agent's ledger and residual rows whole on every model rank) and its
     FLOPs within [0.90, 1.10] of it.
+(g) arctic-480b (MoE: 128 experts, 8 a rank over "model", top-2, a
+    dense residual) at full depth (35 layers) on one pod: its baseline
+    train_4k, prefill_32k and decode_32k cells and its cge and quantized
+    general cells tensor- and expert-parallel, each within [0.90, 1.10]
+    of the reference's FLOPs a rank, the train cells' argument bytes
+    exactly the reference's.
 (d) the placed step's collective bytes equal a count summed here from
     the storage specs, the compute specs the baseline gathers to and the
     TP layer's all-reduces per layer, and on 2 gloo ranks of the CPU the
@@ -64,10 +70,12 @@ from repro_torch.models.layers import rope_cos_sin, rope_freqs
 from repro_torch.models.model import init_cache, init_model
 
 ROOT = Path(__file__).resolve().parents[1]
-QWEN, DEEPSEEK = "qwen2-0.5b", "deepseek-v2-236b"
-CELLS = [(QWEN, s, lay) for s in ("train_4k", "prefill_32k", "decode_32k")
-         for lay in ("baseline", "dp_all")] + [(DEEPSEEK, "train_4k",
-                                                 "dp_all")]
+QWEN, DEEPSEEK, ARCTIC = "qwen2-0.5b", "deepseek-v2-236b", "arctic-480b"
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+CELLS = ([(QWEN, s, lay) for s in SHAPES for lay in ("baseline", "dp_all")]
+         + [(DEEPSEEK, "train_4k", "dp_all")]
+         + [(ARCTIC, s, "baseline") for s in SHAPES])
+GENERAL = (QWEN, ARCTIC)
 FLOPS_REL = 0.05
 SIZES = {"data": 16, "model": 16}
 META = torch.device("meta")
@@ -96,14 +104,15 @@ def reference(tmp_path_factory):
     run = subprocess.run(
         [sys.executable, str(ROOT / "scripts" / "reference_dryrun.py"),
          "--out", str(out), "--mode", ",".join(D.GENERAL_MODES),
-         f"{QWEN}:train_4k"],
+         *(f"{a}:train_4k" for a in GENERAL)],
         capture_output=True, text=True, timeout=600, env=env)
     assert run.returncode == 0, run.stderr[-3000:]
-    for mode in D.GENERAL_MODES:
-        rec = json.loads((out / f"{QWEN}__train_4k__single__{mode}.json")
-                         .read_text())
-        assert rec["ok"] and rec["mode"] == mode, rec.get("error")
-        recs[f"{QWEN}|train_4k|{mode}"] = rec
+    for arch in GENERAL:
+        for mode in D.GENERAL_MODES:
+            rec = json.loads((out / f"{arch}__train_4k__single__{mode}"
+                                    ".json").read_text())
+            assert rec["ok"] and rec["mode"] == mode, rec.get("error")
+            recs[f"{arch}|train_4k|{mode}"] = rec
     return recs
 
 
@@ -158,6 +167,35 @@ def test_general_cell_against_the_reference(reference, mode, tmp_path):
     assert rec["memory"]["argument_size_in_bytes"] == \
         ref["memory"]["argument_size_in_bytes"] == GENERAL_ARG_BYTES[mode]
     assert rec["flops_ratio"] == rec["hlo"]["flops"] / ref["hlo"]["flops"]
+    assert 0.90 <= rec["flops_ratio"] <= 1.10
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_arctic_baseline_cells_within_the_band(records, reference, shape):
+    """arctic's experts over "model" (8 of 128 a rank), its router's
+    logits gathered, its GQA attention over gcd(56, 16) = 8 head groups,
+    its dense residual and untied unembedding split: one rank's FLOPs
+    within [0.90, 1.10] of the reference's, train arguments exact."""
+    key = f"{ARCTIC}|{shape}|baseline"
+    rec, ref = records[key], reference[key]
+    assert "tensor-parallel" in rec["compute"]
+    assert rec["flops_ratio"] == rec["hlo"]["flops"] / ref["hlo"]["flops"]
+    assert 0.90 <= rec["flops_ratio"] <= 1.10
+    if shape == "train_4k":
+        assert rec["memory"]["argument_size_in_bytes"] == \
+            ref["memory"]["argument_size_in_bytes"]
+
+
+@pytest.mark.parametrize("mode", ["cge", "quantized"])
+def test_arctic_general_cell_against_the_reference(reference, mode,
+                                                   tmp_path):
+    ref = reference[f"{ARCTIC}|train_4k|{mode}"]
+    rec = D.run_cell(ARCTIC, "train_4k", False, mode=mode,
+                     out_dir=str(tmp_path), tag=mode, reference=ref)
+    assert rec["ok"], rec.get("traceback")
+    assert "tensor-parallel" in rec["compute"]
+    assert rec["memory"]["argument_size_in_bytes"] == \
+        ref["memory"]["argument_size_in_bytes"]
     assert 0.90 <= rec["flops_ratio"] <= 1.10
 
 

@@ -83,11 +83,12 @@ def test_general_multi_pod_cell_builds(tmp_path):
 
 
 def test_general_non_dense_cell_computes_whole(tmp_path):
-    """arctic (MoE) at one period: recorded ``ok``, every parameter and
-    moment whole in the rank's arguments."""
-    cfg = get_config("arctic-480b")
+    """whisper-base (an encoder-decoder, without tensor-parallel compute)
+    at one period: recorded ``ok``, every parameter and moment whole in
+    the rank's arguments."""
+    cfg = get_config("whisper-base")
     patch = {"n_layers": cfg.period}
-    rec = D.run_cell("arctic-480b", "train_4k", False, mode="cge",
+    rec = D.run_cell("whisper-base", "train_4k", False, mode="cge",
                      out_dir=str(tmp_path), cfg_patch=patch)
     _check(rec)
     assert "whole parameters" in rec["compute"]

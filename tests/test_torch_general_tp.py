@@ -7,22 +7,24 @@ optimizer and ``apply_updates`` (the reference's numbers do not depend
 on its layout). SGD with momentum, f = 1, tau = 1, 3 steps, reduced
 configs cut to 2 layers, f32:
 
-- reduced qwen2-0.5b (tied embeddings, QKV bias), all four modes, and
-  reduced yi-6b (untied unembedding, remat), cge, on data 4 x model 2,
-  one agent masked per step;
+- reduced qwen2-0.5b (tied embeddings, QKV bias) and arctic-480b (MoE:
+  4 experts over the tp ranks, top-2, the dense residual; untied), all
+  four modes, and reduced yi-6b (untied unembedding, remat), cge, on
+  data 4 x model 2, one agent masked per step;
 - reduced qwen2-0.5b with 6 query heads on data 2 x model 4 (the heads
-  over gcd(6, 4) = 2 groups of ranks), cge and quantized, every agent
-  received but at step 1: CGE keeps the smaller whole-gradient norm and
-  the quantizer scales by the whole gradient's max, so both must count
-  each block once.
+  over gcd(6, 4) = 2 groups of ranks), cge and quantized, and arctic
+  with 6 query heads, cge (one expert a rank), every agent received but
+  at step 1: CGE keeps the smaller whole-gradient norm and the quantizer
+  scales by the whole gradient's max, so both must count each block
+  once (the expert stacks split on their dimension 1).
 
 For each: loss, grad norm and the gathered parameters within ``TOL`` of
 the oracle; each tp block identical on every dp rank and each whole leaf
 identical on every rank; the stale ledger row and the quantized residual
 row whole and identical on every model rank of an agent; a rank's FLOPs
-on the meta device below the same step's at model 1. A reduced arctic
-(not a dense decoder) computes whole on every rank: its rank FLOPs at
-data 2 x model 2 are those at data 2 x model 1. ``dist.tp.tp_sq_norm``
+on the meta device below the same step's at model 1. A reduced rwkv6-3b
+(no tensor-parallel compute) computes whole on every rank: its rank
+FLOPs at data 2 x model 2 are those at data 2 x model 1. ``dist.tp.tp_sq_norm``
 and ``tp_abs_max`` are held on recording meshes (what each rank sends)
 and on the 8 ranks (the whole tree's norm and max, the same on every
 rank).
@@ -54,9 +56,11 @@ WORLD, TIMEOUT = 8, 300
 # name -> (data, model, n_heads patch)
 MESHES = {"data4_model2": (4, 2, None), "data2_model4_h6": (2, 4, 6)}
 CASES = ([("data4_model2", "qwen2-0.5b", m) for m in MODES]
+         + [("data4_model2", "arctic-480b", m) for m in MODES]
          + [("data4_model2", "yi-6b", "cge")]
          + [("data2_model4_h6", "qwen2-0.5b", m) for m in ("cge",
-                                                           "quantized")])
+                                                           "quantized")]
+         + [("data2_model4_h6", "arctic-480b", "cge")])
 # the agent masked at each step, per agent count
 MASKED = {4: (2, 2, 0), 2: (None, 1, None)}
 
@@ -72,7 +76,8 @@ def _cfg(name, heads=None):
 def _tc_kwargs(name, mode):
     return dict(mode=mode, optimizer="sgdm", lr=3e-2, lr_kind="cosine",
                 lr_total=10, warmup=1, f=1, tau=1,
-                remat_policy="full" if name == "yi-6b" else "none")
+                remat_policy="full" if name in ("yi-6b", "arctic-480b")
+                else "none")
 
 
 def _data(n):
@@ -440,7 +445,25 @@ def test_tp_general_rank_flops_below_model_one(key, name, mode):
 
 
 def test_non_dense_general_step_computes_whole_on_every_rank():
-    cfg = _cfg("arctic-480b")
+    cfg = _cfg("rwkv6-3b")
     tp_flops, axes = _rank_flops(cfg, "cge", 2, 2)
     assert axes == ()
     assert tp_flops == _rank_flops(cfg, "cge", 2, 1)[0] > 0
+
+
+def test_row_join_sums_in_its_own_buffer():
+    """``Mesh.all_reduce(..., inplace=True)``, the row join's: the sum
+    lands in the buffer given and that buffer comes back, the collective
+    reported as the copying form reports it; the copying form leaves its
+    input alone; a strided buffer is refused."""
+    from repro_torch.launch.mesh import watch_collectives
+    mesh = RecordingMesh((2, 2), ("data", "model"), device="cpu")
+    seen = []
+    buf = torch.arange(6, dtype=torch.float32)
+    with watch_collectives(lambda *a: seen.append(a)):
+        same = mesh.all_reduce(buf, ("model",), inplace=True)
+        copy = mesh.all_reduce(buf, ("model",))
+    assert same is buf and copy is not buf and torch.equal(copy, buf)
+    assert seen[0] == seen[1] == ("all-reduce", ("model",), 2, 24)
+    with pytest.raises(ValueError, match="contiguous"):
+        mesh.all_reduce(torch.zeros(4, 4).T, ("model",), inplace=True)

@@ -1,31 +1,36 @@
-"""Tensor-parallel compute over "model" for the dense decoders
-(``repro_torch.dist.tp`` and the layers, steps and placement that read
-it), on gloo ranks of the CPU, against live ``repro`` run unsharded (the
-reference's numbers do not depend on its layout):
+"""Tensor-parallel compute over "model" for the GQA decoders, dense and
+MoE (``repro_torch.dist.tp`` and the layers, steps and placement that
+read it), on gloo ranks of the CPU, against live ``repro`` run unsharded
+(the reference's numbers do not depend on its layout):
 
 - the four tp Functions (``copy_to_tp``, ``reduce_from_tp``,
   ``gather_from_tp``, ``scatter_to_tp``, with and without head groups)
   give one process's autograd values and gradients;
 - the placed masked step of reduced qwen2-0.5b (tied embeddings, QKV
-  bias) and yi-6b (untied unembedding), 2 layers, f32, SGD-momentum and
-  AdamW, 3 steps with a mask dropping one of 4 agents, on data 1 x model
+  bias), yi-6b (untied unembedding) and arctic-480b (4 experts over the
+  tp ranks, top-2, the dense residual, untied; 4 dispatch groups),
+  2 layers, f32, SGD-momentum and AdamW, 3 steps with a mask dropping
+  one of 4 agents, on data 1 x model
   2 (H % tp = 0: each rank its own heads), data 2 x model 2, and data 1
   x model 4 with 6 query heads (``wq`` split across head boundaries, the
   heads over gcd(6, 4) = 2 groups): loss, grad norm and the gathered
   parameters within ``TOL`` of the reference's ``make_train_step``, and
   identical on every rank;
-- ``launch.serve``'s prefill and decode at model 2 and 4: logits within
-  ``TOL`` of the reference's, greedy tokens equal;
+- ``launch.serve``'s prefill and decode at model 2 and 4 (arctic at
+  model 4: one expert a rank): logits within ``TOL`` of the reference's,
+  greedy tokens equal;
 - a rank's matmul FLOPs (``OpCounter`` on the meta device) are 1/tp of
   the one-process step's, but for the whole leaves ``wk`` / ``wv`` (a
   rank projects the KV heads its query heads read) and the tied
   unembedding's input gradient where many tokens gathered the weight
-  (whole on every rank, as the reference's compiled step computes it):
-  the step does not gather whole and compute whole;
-- at model = 1 the dense step, and at model 2 a non-dense family
-  (reduced arctic, whole on every rank: its rank FLOPs are the
-  one-rank step's), are bit for bit the placed step as it was before
-  tensor-parallel compute (digests of the same runs on the parent tree).
+  (whole on every rank, as the reference's compiled step computes it),
+  arctic's experts and router included: the step does not gather whole
+  and compute whole;
+- at model = 1 the dense step, and at model 2 a family without
+  tensor-parallel compute (reduced rwkv6-3b, whole on every rank: its
+  rank FLOPs are the one-rank step's), are bit for bit the placed step
+  as it was before tensor-parallel compute (digests of the same runs on
+  a tree without it).
 
 TOL is 1e-5 (rtol and atol), as the placed step's own parity tests:
 the partial products are summed over ranks in another order.
@@ -43,13 +48,15 @@ from repro_torch.launch.mesh import run_ranks
 TOL = dict(rtol=1e-5, atol=1e-5)
 N_AGENTS, B, S, STEPS = 4, 8, 16, 3
 TIMEOUT = 300
-ARCHS = ("qwen2-0.5b", "yi-6b")
+ARCHS = ("qwen2-0.5b", "yi-6b", "arctic-480b")
+WHOLE = "rwkv6-3b"          # a family without tensor-parallel compute
 OPTIMIZERS = ("sgdm", "adamw")
 # name -> (data, model, n_heads patch)
 MESHES = {"model2": (1, 2, None), "data2_model2": (2, 2, None),
           "model4_h6": (1, 4, 6)}
 SERVE = (("model2", "qwen2-0.5b"), ("model2", "yi-6b"),
-         ("model4_h6", "qwen2-0.5b"))
+         ("model4_h6", "qwen2-0.5b"), ("model2", "arctic-480b"),
+         ("model4_h6", "arctic-480b"))
 PROMPT, NEW, MAX_LEN = 6, 4, 12
 
 
@@ -65,7 +72,8 @@ def _tc_kwargs(name, optimizer):
     return dict(mode="masked", optimizer=optimizer,
                 lr=3e-2 if optimizer == "sgdm" else 1e-4,
                 lr_kind="cosine", lr_total=10, warmup=1,
-                remat_policy="full" if name == "yi-6b" else "none")
+                remat_policy=("full" if name in ("yi-6b", "arctic-480b",
+                                                 WHOLE) else "none"))
 
 
 def _batches():
@@ -177,18 +185,16 @@ def _rank(rank, world, meshes, np_params, batches):
                 out["serve", key, name] = _serve(
                     built[key], _cfg(name, heads), np_params[name, heads])
     if world == 4:
-        # model = 1, and a non-dense family at model 2
+        # model = 1, and a family without tensor-parallel compute at
+        # model 2
         tc = T.TrainConfig(**_tc_kwargs("qwen2-0.5b", "adamw"))
-        arctic = dataclasses.replace(get_config("arctic-480b").reduced(),
-                                     n_layers=2)
-        atc = T.TrainConfig(**{**_tc_kwargs("arctic-480b", "adamw"),
-                               "remat_policy": "full"})
         out["model1"] = _train(Mesh((4, 1), ("data", "model"),
                                     device="cpu"),
                                _cfg("qwen2-0.5b"), tc,
                                np_params["qwen2-0.5b", None], batches)
-        out["arctic"] = _train(built["data2_model2"], arctic, atc,
-                               np_params["arctic-480b", None], batches)
+        out["rwkv6"] = _train(built["data2_model2"], _cfg(WHOLE),
+                              T.TrainConfig(**_tc_kwargs(WHOLE, "adamw")),
+                              np_params[WHOLE, None], batches)
     return out
 
 
@@ -303,7 +309,7 @@ def jax_params():
     from repro.configs.registry import get_config as jax_config
     from repro.models import model as jmodel
     out = {}
-    for name in ARCHS + ("arctic-480b",):
+    for name in ARCHS + (WHOLE,):
         for heads in ((None, 6) if name in ARCHS else (None,)):
             jcfg = dataclasses.replace(jax_config(name).reduced(),
                                        **_patch(heads))
@@ -421,8 +427,8 @@ def test_tp_prefill_and_decode_match_live_reference(spawned, jax_params,
 BEFORE_TP = {
     "model1": "65ffb24061fc2a877bfbdaaf222b22536a2c2ed2"
               "b862b605836e972f0f8c110d",
-    "arctic": "2ccd30009ea95ff25367f2f805277fb4562c7485"
-              "75b675648039b0eb6d4bb689",
+    "rwkv6": "22e203cce99dedd8805eb9a9a2cbccbac6ef9aac"
+             "c08062e8722323e2554cc4d4",
 }
 
 
@@ -436,9 +442,10 @@ def _digest(run):
 @pytest.mark.parametrize("key", sorted(BEFORE_TP))
 def test_model_one_and_other_families_are_bit_for_bit_unchanged(spawned,
                                                                  key):
-    """Dense qwen2-0.5b on data 4 x model 1, and reduced arctic (MoE, not
-    dense) on data 2 x model 2 with remat: no tp axis engaged, and every
-    rank's result bit for bit the step's before this layer existed."""
+    """Dense qwen2-0.5b on data 4 x model 1, and reduced rwkv6-3b (no
+    tensor-parallel compute) on data 2 x model 2 with remat: no tp axis
+    engaged, and every rank's result bit for bit the step's before this
+    layer existed."""
     for o in _ranks_of(spawned, "data2_model2"):
         assert o[key]["tp"] == ()
         assert _digest(o[key]) == BEFORE_TP[key]
@@ -501,11 +508,13 @@ def test_rank_flops_are_one_tp_th_of_the_whole_step(name, model):
 
 
 def test_non_dense_rank_flops_stay_whole():
+    """A family without tensor-parallel compute (reduced rwkv6-3b)
+    computes whole on every rank: its rank FLOPs at model 2 are model
+    1's."""
     from repro_torch.dist.sharding import shard_tree
     from repro_torch.launch import train as T
     from repro_torch.launch.mesh import RecordingMesh
-    cfg = dataclasses.replace(get_config("arctic-480b").reduced(),
-                              n_layers=2)
+    cfg = _cfg(WHOLE)
     tc = T.TrainConfig(optimizer="sgdm", remat_policy="none")
     meta = torch.device("meta")
     flops = []
