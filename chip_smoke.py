@@ -59,7 +59,7 @@ Phases, each fatal on failure:
    then a few quantized iterations: device us per iteration of the int8
    quantization's PyTorch operations beside ``dequant_accum``'s.
 6. The serving path: ``ServeEngine`` at the full width of qwen2-0.5b
-   (``SERVE_LAYERS`` = 12 of its 24 layers, d=896, 14 query heads over 2
+   (``SERVE_LAYERS`` = 6 of its 24 layers, d=896, 14 query heads over 2
    KV heads, vocab 151,936, bf16, weights from seed 0; the model of
    phases 6-14) serves 24 requests (prompts of 64-512
    tokens, 16-64 new tokens each) on 8 slots of a paged cache with
@@ -306,15 +306,16 @@ Phases, each fatal on failure:
    time), holds 32 experts, exactly a quarter of the expert bytes, and
    runs ``make_prefill_step`` and ``make_decode_step`` on 16c's 4
    prompts of 64 tokens, 32 new: a decode step's FLOPs and collectives
-   on the card equal op by op to a ``RecordingMesh``'s count on the
-   meta device (its all-reduces printed), every rank streams the same
-   tokens, one rank's greedy argmax along them (whole parameters, the
-   same steps) wherever its top-2 margin exceeds ``LOGIT_TOL``; ms per
-   decode step beside one rank's. 20b: data 2 x model 2 at the
-   published widths, 1 layer: 2 placed masked steps (8 experts, 4 a
-   rank, AdamW, 16a's agents and masks) and 2 general steps a mode (2
-   experts, one a rank, SGD with momentum; 19's masks): seconds per
-   step, the last step's FLOPs and collectives equal op by op to a
+   on the card equal op by op to a ``RecordingMesh``'s count on the meta
+   device (its all-reduces printed), every rank streams the same tokens,
+   one rank's greedy argmax along them (whole parameters, the same
+   steps) wherever its top-2 margin exceeds ``LOGIT_TOL``; ms per decode
+   step beside one rank's. 20b: data 2 x model 2 at the published
+   widths, 1 layer: 1 placed masked step (8 experts, 4 a rank, AdamW,
+   16a's agents and masks) and 2 general steps in cge and quantized (2
+   experts, one a rank, SGD with momentum; 19's masks; stale and trimmed
+   counted on the meta device, run on the twins): seconds per step, the
+   last step's FLOPs and collectives equal op by op to a
    ``RecordingMesh``'s count (all-reduces and wire bytes a rank), state
    bytes a rank within 1% of the meta report, the most bytes allocated,
    parameters identical on every rank (placed) and per tp block over dp
@@ -323,7 +324,26 @@ Phases, each fatal on failure:
    ``make_train_step`` and of a ``core.gradagg`` oracle. No kernel lies
    on this path (the reference's experts are three ``einsum``s outside
    any Pallas kernel).
-21. A JSON line with every kernel's launches (summed over the phases
+21. deepseek-v2-236b tensor- and expert-parallel over "model", its MLA
+   split too (``models/attention.py:_apply_mla_tp``), by phase 20's
+   code. 21a: 1 of 60 layers at every published width (MLA at latent
+   rank 512, q rank 1536, 128 heads; all 160 experts, top-6, 2 shared)
+   from seed 0, on data 1 x model 4 (40 experts and 32 heads a rank),
+   with 20a's checks, in bf16 and then, in the same ranks, in f32: in
+   bf16 a rounding difference can flip a near tie of top-6 of 160
+   routing and move a logit past ``LOGIT_TOL``, so there the streams
+   against one rank's argmax and rank 0's largest logit gap to one rank
+   along its stream are printed; in f32 the streams are held to one
+   rank's argmax at every clear margin and the logits within 1e-4. 21b:
+   data 2 x model 2, 1 layer: 1 placed masked step (8 experts, AdamW)
+   and 2 general cge steps (6 experts, the fewest top-6 allows, SGD with
+   momentum) with 20b's checks; the quantized mode, whose whole f32 rows
+   four ranks cannot hold at this vocabulary, is counted on the meta
+   device (FLOPs, all-reduces, state bytes) and run on the f32 twins
+   (reduced deepseek-v2, 4 experts, 2 layers: placed, cge and quantized
+   within 1e-4 of one process). No kernel lies on this path (the
+   reference's MLA is ``jnp`` einsums and ``attention_math``).
+22. A JSON line with every kernel's launches (summed over the phases
    that drive a path: 4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16, all
    ranks of 15), error and times, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -347,6 +367,7 @@ import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -370,6 +391,7 @@ from repro_torch.dist import collectives  # noqa: E402
 from repro_torch.dist.act_sharding import act_policy  # noqa: E402
 from repro_torch.dist.sharding import (gather_tree,  # noqa: E402
                                        shard_tree, tree_specs)
+from repro_torch.dist.tp import gather_from_tp, tp_context  # noqa: E402
 from repro_torch.kernels import _build, agg, ops  # noqa: E402
 from repro_torch.kernels import cge_norms as cgen  # noqa: E402
 from repro_torch.kernels import decode_attention as dattn  # noqa: E402
@@ -394,6 +416,7 @@ from repro_torch.launch.train import (TrainConfig,  # noqa: E402
                                       state_rules, value_and_grad)
 from repro_torch.models import attention as mattn  # noqa: E402
 from repro_torch.models import layers as mlayers  # noqa: E402
+from repro_torch.models.layers import vocab_split  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
 from repro_torch.models import model as mmodel  # noqa: E402
 from repro_torch.models.model import classifier_loss  # noqa: E402
@@ -1303,7 +1326,7 @@ SERVE_ARCH = "qwen2-0.5b"
 # the model of phases 6-14 (one parameter set, phase 6's): qwen2-0.5b at
 # full width, cut in depth; the host issues each layer's operations, so
 # their times (phase 14's timescale among them) follow the depth
-SERVE_LAYERS = 12
+SERVE_LAYERS = 6
 
 
 def serve_cfg():
@@ -1319,6 +1342,7 @@ SERVE_CCFG = PagedCacheConfig(num_slots=8, page_size=16, max_pages_per_seq=48,
 # bf16 cast), which 24 layers carry into logits of order 1 to 10, whose
 # own bf16 step is 2^-7 to 2^-4
 LOGIT_TOL = 0.125
+F32_LOGIT_TOL = 1e-4          # f32 tensor-parallel logits vs one rank's
 
 
 class TimedEngine(ServeEngine):
@@ -4409,21 +4433,34 @@ def tpc_one_rank(prompts, device="cuda", cfg=None):
 
 
 @torch.no_grad()
-def tpc_teacher_forced(params, prompts, streams, device="cuda", cfg=None):
+def tpc_teacher_forced(params, prompts, streams, device="cuda", cfg=None,
+                       mesh=None):
     """One rank's logits along ``streams`` (the prefill's last position,
-    then each decode fed the stream's previous token): (B, T, V) f32."""
+    then each decode fed the stream's previous token): (B, T, V) f32.
+    With ``mesh``, the tensor-parallel ranks' (``params`` this rank's
+    blocks, every rank of the mesh calling), the vocabulary gathered."""
     cfg = cfg or spmd_cfg()
     batch = torch.from_numpy(prompts).to(device)
-    logits, _, pre = apply_model(params, batch, cfg, mode="prefill")
-    out = [logits[:, -1].float()]
-    cache = dense_cache(cfg, pre, len(prompts),
-                        GREEDY_PROMPT_LEN + GREEDY_NEW, device)
-    feed = torch.from_numpy(streams).to(device)
-    for i in range(streams.shape[1] - 1):
-        logits, _, _ = apply_model(params, feed[:, i:i + 1], cfg,
-                                   mode="decode", cache=cache,
-                                   cache_index=GREEDY_PROMPT_LEN + i)
-        out.append(logits[:, -1].float())
+
+    def last(logits):
+        lf = logits[:, -1]
+        return (gather_from_tp(lf, -1) if vocab_split(lf, cfg)
+                else lf).float()
+
+    with tp_context(mesh):
+        logits, _, pre = apply_model(params, batch, cfg, mode="prefill")
+        out = [last(logits)]
+        cache = (dense_cache(cfg, pre, len(prompts),
+                             GREEDY_PROMPT_LEN + GREEDY_NEW, device)
+                 if mesh is None else
+                 tpc_grow(cfg, pre, len(prompts),
+                          GREEDY_PROMPT_LEN + GREEDY_NEW, mesh))
+        feed = torch.from_numpy(streams).to(device)
+        for i in range(streams.shape[1] - 1):
+            logits, _, _ = apply_model(params, feed[:, i:i + 1], cfg,
+                                       mode="decode", cache=cache,
+                                       cache_index=GREEDY_PROMPT_LEN + i)
+            out.append(last(logits))
     return torch.stack(out, 1)
 
 
@@ -4835,39 +4872,72 @@ def drive_general_tp(device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# 20. arctic-480b tensor- and expert-parallel over "model"
+# 20-21. an MoE model tensor- and expert-parallel over "model"
 
 
-# 20a: phase 11's cut (1 of 35 layers) at every published width, all 128
-# experts, served on data 1 x model 4 (32 experts a rank) through
-# launch.serve's steps, 16c's prompts. 20b: data 2 x model 2 at the
-# published widths, 1 layer, the expert count cut to what 4 ranks sharing
-# the card hold: the placed step's AdamW state and its gathers' f32
-# gradient blocks at 8 experts (4 a rank); the general step's stale and
-# quantized modes hold the agent's whole f32 row three times over while
-# it is joined over tp (3 x 4 B x 0.89e9 parameters at 2 experts, one a
-# rank), so its modes run 2 experts with SGD and momentum. The f32 twins
-# on reduced arctic (4 experts, 2 layers, remat).
-MOE_ARCH = "arctic-480b"
-ARC_LAYERS, ARC_SERVE_MODEL = 1, 4
-ARC_DATA, ARC_MODEL, ARC_STEPS = 2, 2, 2
-ARC_PLACED_EXPERTS, ARC_GEN_EXPERTS, ARC_TWIN_LAYERS = 8, 2, 2
+class MoeRun(NamedTuple):
+    """What phase 20 (arctic-480b) or 21 (deepseek-v2-236b) runs.
+
+    Its a: ``layers`` layers at every published width, all experts,
+    served on data 1 x model ``serve_model`` through launch.serve's
+    steps, 16c's prompts. Its b: data 2 x model 2 at the published widths,
+    the expert count cut to what 4 ranks sharing the card hold:
+    ``placed_experts`` for the placed step (AdamW), ``gen_experts`` for
+    the general step's ``gen_modes`` (SGD with momentum; its stale and
+    quantized modes hold the agent's whole f32 row several times over
+    while it is joined over tp). The f32 twins on the reduced config,
+    ``twin_layers`` layers, remat: the placed step and the general step's
+    ``twin_modes``; ``placed_steps`` placed steps, the last counted.
+    ``meta_modes``: general modes counted on the meta device at
+    ``gen_experts`` (FLOPs, all-reduces, state bytes) but not run."""
+    phase: str
+    arch: str
+    layers: int
+    serve_model: int
+    placed_experts: int
+    gen_experts: int
+    gen_modes: tuple
+    twin_modes: tuple
+    twin_layers: int = 2
+    placed_steps: int = 2
+    meta_modes: tuple = ()
+
+    def cfg(self, experts=None, dtype=None):
+        """The arch cut to ``layers`` (and ``experts`` experts), its
+        parameters and compute in ``dtype`` where one is given."""
+        cfg = get_config(self.arch)
+        moe = (cfg.moe if experts is None
+               else dataclasses.replace(cfg.moe, num_experts=experts))
+        cfg = dataclasses.replace(cfg, n_layers=self.layers, moe=moe)
+        return (cfg if dtype is None else dataclasses.replace(
+            cfg, param_dtype=dtype, compute_dtype=dtype))
+
+    def twin_cfg(self):
+        return dataclasses.replace(get_config(self.arch).reduced(),
+                                   n_layers=self.twin_layers)
 
 
-def arc_cfg(experts=None):
-    """arctic-480b cut to ``ARC_LAYERS`` (and ``experts`` experts)."""
-    cfg = get_config(MOE_ARCH)
-    moe = (cfg.moe if experts is None
-           else dataclasses.replace(cfg.moe, num_experts=experts))
-    return dataclasses.replace(cfg, n_layers=ARC_LAYERS, moe=moe)
+# arctic: phase 11's cut (1 of 35 layers); 3 x 4 B x 0.89e9 parameters of
+# the general step's whole rows at 2 experts, one a rank. To pay for
+# phase 21 its placed step runs once and its general step at the
+# published widths runs cge and quantized (the whole-row mode); stale and
+# trimmed are counted on the meta device and run on the twins (and at
+# full width on qwen2-0.5b in phase 19)
+ARCTIC = MoeRun("20", "arctic-480b", 1, 4, 8, 2, ("cge", "quantized"),
+                GENERAL_MODES, placed_steps=1,
+                meta_modes=("stale", "trimmed"))
+# deepseek-v2: 1 of 60 layers; top-6 needs 6 experts. At 6 the general
+# step's whole f32 row is 5.55 GB (the untied 102,400 x 5,120 embedding
+# and unembedding are 1.05e9 of its 1.39e9 parameters): the stale and
+# quantized modes, ~4x the row a rank at peak (arctic's 20b), would want
+# ~90 GB on 4 ranks, so at the published widths the general step runs cge
+# and the whole-row mode runs on the twin (its meta count is reported)
+DEEPSEEK = MoeRun("21", "deepseek-v2-236b", 1, 4, 8, 6, ("cge",),
+                  ("cge", "quantized"), placed_steps=1,
+                  meta_modes=("quantized",))
 
 
-def arc_twin_cfg():
-    return dataclasses.replace(get_config(MOE_ARCH).reduced(),
-                               n_layers=ARC_TWIN_LAYERS)
-
-
-def arc_gen_tc(mode: str, twin: bool) -> TrainConfig:
+def moe_gen_tc(mode: str, twin: bool) -> TrainConfig:
     return dataclasses.replace(gen_tc(mode, twin), optimizer="sgdm",
                                remat_policy="full" if twin else "none")
 
@@ -4882,36 +4952,44 @@ def expert_bytes(params) -> int:
                for k in ("w_gate", "w_up", "w_down"))
 
 
-def arc_decode_batch(tok, cache, i):
+def moe_decode_batch(tok, cache, i):
     return {"tokens": tok[:, None], "cache": cache,
             "pos": GREEDY_PROMPT_LEN + i}
 
 
-def arc_meta_decode():
-    """20a's decode step on rank 0 of a recording mesh data 1 x model 4,
-    on the meta device: its op table."""
-    cfg = arc_cfg()
-    mesh = RecordingMesh((1, ARC_SERVE_MODEL), ("data", "model"))
+def moe_meta_decode(run: MoeRun, dtype=None):
+    """a's decode step on rank 0 of a recording mesh data 1 x
+    ``serve_model``, on the meta device: its op table."""
+    cfg = run.cfg(dtype=dtype)
+    mesh = RecordingMesh((1, run.serve_model), ("data", "model"))
     params = place_params(init_model(None, cfg, device=META), cfg, mesh)
     cache = place_cache(mmodel.init_cache(
         cfg, GREEDY_PROMPTS, GREEDY_PROMPT_LEN + GREEDY_NEW, device=META),
         cfg, mesh)
     tok = torch.zeros((GREEDY_PROMPTS,), dtype=torch.int32, device=META)
     _, cnt = counted(make_decode_step(cfg, mesh=mesh), params,
-                     arc_decode_batch(tok, cache, 0))
+                     moe_decode_batch(tok, cache, 0))
     return cnt.table()
 
 
-@torch.no_grad()
-def arc_serve_rank(rank, world, prompts, device="cuda"):
-    """20a on one rank (gloo, data 1 x model 4): this rank's blocks drawn
-    by ``init_params`` (one rank at a time: a whole f32 expert stack is
-    17.8 GB), the prompts' prefill, the first decode step counted, the
-    other 30 timed."""
+def moe_serve_rank(rank, world, run, prompts, device="cuda", dtypes=(None,),
+                   gap=False):
+    """a on one rank (gloo, data 1 x model ``serve_model``), once for
+    each of ``dtypes``."""
     card_flags()
-    mesh = make_test_mesh(data=1, model=ARC_SERVE_MODEL, device=device)
+    mesh = make_test_mesh(data=1, model=run.serve_model, device=device)
+    return {dt: moe_serve_one(mesh, run, prompts, dt, gap) for dt in dtypes}
+
+
+@torch.no_grad()
+def moe_serve_one(mesh, run, prompts, dtype, gap):
+    """a in ``dtype`` on this rank: its blocks drawn by ``init_params``
+    (one rank at a time: a whole f32 expert stack is 17.8 GB for
+    arctic), the prompts' prefill, the first decode step counted, the
+    other 30 timed; with ``gap``, then the rank's logits along its
+    stream (rank 0 keeps them)."""
     dev = mesh.device
-    cfg = arc_cfg()
+    cfg = run.cfg(dtype=dtype)
     t0 = time.perf_counter()
     for r in range(mesh.size):
         if r == mesh.rank:
@@ -4930,13 +5008,13 @@ def arc_serve_rank(rank, world, prompts, device="cuda"):
                      mesh)
     del pre
     out = [tok]
-    (tok, _), cnt = counted(decode, params, arc_decode_batch(tok, cache, 0))
+    (tok, _), cnt = counted(decode, params, moe_decode_batch(tok, cache, 0))
     out.append(tok)
     sync(dev)
     prefill_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for i in range(1, GREEDY_NEW - 1):
-        tok, _ = decode(params, arc_decode_batch(tok, cache, i))
+        tok, _ = decode(params, moe_decode_batch(tok, cache, i))
         out.append(tok)
     sync(dev)
     ms = (time.perf_counter() - t0) / (GREEDY_NEW - 2) * 1e3
@@ -4949,57 +5027,85 @@ def arc_serve_rank(rank, world, prompts, device="cuda"):
         mesh.all_reduce(x, ("model",))
     sync(dev)
     ar_ms = (time.perf_counter() - t0) / 20 * 1e3
-    res = dict(tokens=torch.stack(out, 1).cpu().numpy(), decode_ms=ms,
-               allreduce_ms=ar_ms,
+    toks = torch.stack(out, 1).cpu().numpy()
+    forced = None
+    if gap:
+        forced = tpc_teacher_forced(params, prompts, toks, dev, cfg,
+                                    mesh=mesh).cpu()
+    res = dict(tokens=toks, decode_ms=ms, allreduce_ms=ar_ms,
                table=cnt.table(), held=held, make_s=make_s,
                prefill_s=prefill_s, expert_bytes=expert_bytes(params),
-               experts=params["blocks"][0]["ffn"]["w_gate"].shape[1])
+               experts=params["blocks"][0]["ffn"]["w_gate"].shape[1],
+               forced=forced if mesh.rank == 0 else None)
     del params, cache
     torch.cuda.empty_cache()
     return res
 
 
-def drive_arctic_serve(device="cuda"):
-    """20a from the parent: the ranks, then the one-rank run (whole
-    parameters) and its teacher-forced argmax along the ranks' streams."""
-    t_all = time.perf_counter()
-    cfg = arc_cfg()
+def drive_moe_serve(run: MoeRun, device="cuda", dtypes=(None,),
+                    unchecked=(), gap=False):
+    """a from the parent: the ranks (one spawn for every dtype of
+    ``dtypes``), then for each the one-rank run (whole parameters) and
+    its teacher-forced argmax along the ranks' streams, held at every
+    clear margin but for the dtypes in ``unchecked``. With ``gap``, also
+    the largest |logit| gap between rank 0's teacher-forced logits along
+    its stream and the one rank's, held within ``F32_LOGIT_TOL`` in
+    f32."""
     prompts = np.random.default_rng(0).integers(       # 16c's prompts
-        0, cfg.vocab_size, (GREEDY_PROMPTS, GREEDY_PROMPT_LEN)).astype(
-            np.int32)
+        0, run.cfg().vocab_size, (GREEDY_PROMPTS, GREEDY_PROMPT_LEN)
+        ).astype(np.int32)
     ex = ThreadPoolExecutor(1)
-    counting = ex.submit(arc_meta_decode)
+    counting = [ex.submit(moe_meta_decode, run, dt) for dt in dtypes]
     t0 = time.perf_counter()
-    res = run_ranks(arc_serve_rank, ARC_SERVE_MODEL, backend="gloo",
+    res = run_ranks(moe_serve_rank, run.serve_model, backend="gloo",
                     device=device, timeout=SPMD_TIMEOUT,
-                    args=(prompts, device),
-                    threads=CORES // ARC_SERVE_MODEL)
+                    args=(run, prompts, device, dtypes, gap),
+                    threads=CORES // run.serve_model)
     ranks_s = time.perf_counter() - t0
-    dry = counting.result()
+    dry = [c.result() for c in counting]
     ex.shutdown()
+    for dt, dry_dt in zip(dtypes, dry):
+        moe_serve_checks(run, device, dt, dt not in unchecked, prompts,
+                         [o[dt] for o in res], dry_dt, ranks_s)
+    log(f"  {run.phase}a in {time.perf_counter() - t0:.1f} s")
+
+
+def moe_serve_checks(run, device, dtype, streams_checked, prompts, res,
+                     dry, ranks_s):
+    """a's checks in ``dtype`` on the ranks' results ``res`` and the meta
+    count ``dry``."""
+    tag = run.phase + "a" + ("" if dtype is None else f" ({dtype})")
+    cfg = run.cfg(dtype=dtype)
+    gap = res[0]["forced"] is not None
     t0 = time.perf_counter()
     one_tok, one_ms, params = tpc_one_rank(prompts, device, cfg)
     whole = expert_bytes(params)
     streams = res[0]["tokens"]
     lg = tpc_teacher_forced(params, prompts, streams, device, cfg)
     del params
-    gc.collect()                      # 28 GB: nothing may keep it for 20b
+    gc.collect()              # tens of GB: nothing may keep it for b
     torch.cuda.empty_cache()
     one_s = time.perf_counter() - t0
     top2 = lg.topk(2, dim=-1).values
     clear = ((top2[..., 0] - top2[..., 1]) > LOGIT_TOL).cpu().numpy()
     agree = lg.argmax(-1).cpu().numpy() == streams
     finite = bool(torch.isfinite(lg).all())
+    gaps = None
+    if gap:                     # (B, T): the largest |logit| gap a position
+        gaps = (res[0]["forced"].to(lg.device) - lg).abs().amax(-1).cpu(
+            ).numpy()
     del lg, top2
     a = analyze(dry)
     r0 = res[0]
-    log(f"  20a: {MOE_ARCH} at full width ({cfg.n_layers} layer, "
-        f"{cfg.moe.num_experts} experts, bf16 from seed 0), launch.serve's "
-        f"prefill and decode steps on data 1 x model {ARC_SERVE_MODEL} (4 "
-        f"gloo ranks sharing the card, {ranks_s:.1f} s with start-up: "
-        f"rank 0 drew its blocks in {r0['make_s']:.1f} s (one rank at a "
-        f"time), prefill and the counted step {r0['prefill_s']:.1f} s; then "
-        f"one rank with whole parameters {one_s:.1f} s)")
+    log(f"  {tag}: {run.arch} at full width ({cfg.n_layers} layer, "
+        f"{cfg.moe.num_experts} experts, {cfg.param_dtype} from seed 0), "
+        f"launch.serve's "
+        f"prefill and decode steps on data 1 x model {run.serve_model} ("
+        f"{run.serve_model} gloo ranks sharing the card, {ranks_s:.1f} s "
+        f"with start-up for every dtype: rank 0 drew its blocks in "
+        f"{r0['make_s']:.1f} s (one rank at a time), prefill and the "
+        f"counted step {r0['prefill_s']:.1f} s; then one rank with whole "
+        f"parameters {one_s:.1f} s)")
     for r, o in enumerate(res):
         log(f"    rank {r}: {o['experts']} experts, expert bytes "
             f"{o['expert_bytes']:,} of {whole:,} "
@@ -5019,28 +5125,42 @@ def drive_arctic_serve(device="cuda"):
         f"the one-rank argmax along the streams at {int(agree.sum())} of "
         f"{agree.size} positions, {int((~clear).sum())} within the "
         f"{LOGIT_TOL} margin; logits finite: {finite}")
+    if gaps is not None:
+        big = np.argwhere(gaps > LOGIT_TOL)
+        log(f"    rank 0's teacher-forced logits along its stream against "
+            f"one rank's: the largest |gap| a position, median "
+            f"{np.median(gaps):.4g}, max {gaps.max():.4g}; positions past "
+            f"{LOGIT_TOL}: " + (", ".join(
+                f"prompt {b} step {t} ({gaps[b, t]:.4g})" for b, t in big)
+                or "none"))
+        if cfg.param_dtype == "float32" and gaps.max() > F32_LOGIT_TOL:
+            raise AssertionError(f"{tag}: logits {gaps.max()} from one "
+                                 f"rank's, past {F32_LOGIT_TOL}")
     for r, o in enumerate(res):
-        require_same_ops(f"20a rank {r}", dry, o["table"], keys=("flops",))
+        require_same_ops(f"{tag} rank {r}", dry, o["table"], keys=("flops",))
         if o["table"]["collectives"] != dry["collectives"]:
-            raise AssertionError(f"20a rank {r}: collectives "
+            raise AssertionError(f"{tag} rank {r}: collectives "
                                  f"{o['table']['collectives']}, recorded "
                                  f"{dry['collectives']}")
         if not np.array_equal(o["tokens"], streams):
-            raise AssertionError(f"20a rank {r}: tokens differ from rank 0's")
-        if (o["experts"] != cfg.moe.num_experts // ARC_SERVE_MODEL
-                or o["expert_bytes"] * ARC_SERVE_MODEL != whole):
-            raise AssertionError(f"20a rank {r}: {o['experts']} experts, "
+            raise AssertionError(f"{tag} rank {r}: tokens differ from rank "
+                                 "0's")
+        if (o["experts"] != cfg.moe.num_experts // run.serve_model
+                or o["expert_bytes"] * run.serve_model != whole):
+            raise AssertionError(f"{tag} rank {r}: {o['experts']} experts, "
                                  f"{o['expert_bytes']} of {whole} B")
     if not (finite and streams.shape == (GREEDY_PROMPTS, GREEDY_NEW)
-            and agree[clear].all()):
-        raise AssertionError("20a: a stream leaves one rank's greedy argmax "
-                             "at a clear margin, or the logits are not "
-                             "finite")
-    log(f"  20a in {time.perf_counter() - t_all:.1f} s")
+            and (agree[clear].all() or not streams_checked)):
+        raise AssertionError(f"{tag}: a stream leaves one rank's greedy "
+                             "argmax at a clear margin, or the logits are "
+                             "not finite")
 
 
-def arc_placed_state(cfg, tc, mesh):
-    """20b's placed state on this rank: the whole parameters from seed 0,
+MOE_DATA, MOE_MODEL = 2, 2
+
+
+def moe_placed_state(cfg, tc, mesh):
+    """b's placed state on this rank: the whole parameters from seed 0,
     cut to this rank's storage blocks, and the optimizer state of the
     blocks (zeros: the blocks of the whole moments, never made)."""
     dev = mesh.device
@@ -5054,11 +5174,11 @@ def arc_placed_state(cfg, tc, mesh):
              "step": torch.zeros((), dtype=torch.int32)}, specs)
 
 
-def arc_placed_meta():
-    """20b's placed step on rank 0 of a recording mesh data 2 x model 2,
+def moe_placed_meta(run: MoeRun):
+    """b's placed step on rank 0 of a recording mesh data 2 x model 2,
     on the meta device: its op table."""
-    cfg, tc = arc_cfg(ARC_PLACED_EXPERTS), placed_tc("none")
-    mesh = RecordingMesh((ARC_DATA, ARC_MODEL), ("data", "model"))
+    cfg, tc = run.cfg(run.placed_experts), placed_tc("none")
+    mesh = RecordingMesh((MOE_DATA, MOE_MODEL), ("data", "model"))
     state, specs = place_state(abstract_state(cfg, tc,
                                               max_pos=TRAIN_SEQ + 1), mesh)
     step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS, dp="data",
@@ -5068,15 +5188,15 @@ def arc_placed_meta():
     return cnt.table()
 
 
-def arc_placed_run(mesh):
-    """20b's placed masked steps on this rank (16a's batches and masks,
+def moe_placed_run(mesh, run: MoeRun):
+    """b's placed masked steps on this rank (16a's batches and masks,
     AdamW, no remat): bytes placed, seconds per step, the last step's op
     table, the gathered parameters identical on every rank."""
     dev = mesh.device
-    cfg, tc = arc_cfg(ARC_PLACED_EXPERTS), placed_tc("none")
+    cfg, tc = run.cfg(run.placed_experts), placed_tc("none")
     torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev)
-    state, specs = arc_placed_state(cfg, tc, mesh)
+    state, specs = moe_placed_state(cfg, tc, mesh)
     gc.collect()
     torch.cuda.empty_cache()
     placed = torch.cuda.memory_allocated(dev) - before
@@ -5084,8 +5204,9 @@ def arc_placed_run(mesh):
                            tp="model", param_specs=specs["params"],
                            sizes=mesh.shape, mesh=mesh)
     losses, secs, table = [], [], None
-    for i, (x, y, w) in enumerate(placed_batches(cfg.vocab_size)[:ARC_STEPS]):
-        last = i == ARC_STEPS - 1
+    batches = placed_batches(cfg.vocab_size)[:run.placed_steps]
+    for i, (x, y, w) in enumerate(batches):
+        last = i == run.placed_steps - 1
         sync(dev)
         t0 = time.perf_counter()
         with OpCounter() if last else contextlib.nullcontext() as cnt:
@@ -5107,53 +5228,55 @@ def arc_placed_run(mesh):
     return out
 
 
-def arc_placed_twin_tc() -> TrainConfig:
+def moe_placed_twin_tc() -> TrainConfig:
     return TrainConfig(mode="masked", optimizer="sgdm", lr=3e-2,
                        remat_policy="full")
 
 
-def arc_train_rank(rank, world, ref_dir, device="cuda"):
-    """A rank of 20b on the card (gloo, data 2 x model 2)."""
+def moe_train_rank(rank, world, run, ref_dir, device="cuda"):
+    """A rank of b on the card (gloo, data 2 x model 2)."""
     card_flags()
-    mesh = make_test_mesh(data=ARC_DATA, model=ARC_MODEL, device=device)
+    mesh = make_test_mesh(data=MOE_DATA, model=MOE_MODEL, device=device)
     t0 = time.perf_counter()
-    out = {"placed": arc_placed_run(mesh)}
+    out = {"placed": moe_placed_run(mesh, run)}
     out["placed_s"] = time.perf_counter() - t0
-    gcfg = arc_cfg(ARC_GEN_EXPERTS)
-    for mode in GENERAL_MODES:
+    gcfg = run.cfg(run.gen_experts)
+    for mode in run.gen_modes:
         t0 = time.perf_counter()
         out[mode] = gen_rank_run(mesh, mode, False, cfg=gcfg,
-                                 tc=arc_gen_tc(mode, False))
+                                 tc=moe_gen_tc(mode, False))
         out[mode]["mode_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["placed_twin_same"] = twin_placed(
-        mesh, arc_twin_cfg(), arc_placed_twin_tc(),
-        os.path.join(ref_dir, "arc_twin_tp.pt"))
-    out["twin"] = {mode: gen_rank_run(mesh, mode, True, cfg=arc_twin_cfg(),
-                                      tc=arc_gen_tc(mode, True))
-                   for mode in GENERAL_MODES}
+        mesh, run.twin_cfg(), moe_placed_twin_tc(),
+        os.path.join(ref_dir, f"moe{run.phase}_twin_tp.pt"))
+    out["twin"] = {mode: gen_rank_run(mesh, mode, True, cfg=run.twin_cfg(),
+                                      tc=moe_gen_tc(mode, True))
+                   for mode in run.twin_modes}
     out["twin_s"] = time.perf_counter() - t0
     return out
 
 
-def drive_arctic_train(device="cuda"):
-    """20b from the parent: the twins' one-process references, the meta
+def drive_moe_train(run: MoeRun, device="cuda"):
+    """b from the parent: the twins' one-process references, the meta
     counts beside the ranks, then every check."""
     t_all = time.perf_counter()
+    tag = run.phase + "b"
     t0 = time.perf_counter()
-    ref = twin_one_process(arc_twin_cfg(), arc_placed_twin_tc(), device)
-    oracle = {mode: gen_oracle(mode, device, cfg=arc_twin_cfg(),
-                               tc=arc_gen_tc(mode, True))
-              for mode in GENERAL_MODES}
+    ref = twin_one_process(run.twin_cfg(), moe_placed_twin_tc(), device)
+    oracle = {mode: gen_oracle(mode, device, cfg=run.twin_cfg(),
+                               tc=moe_gen_tc(mode, True))
+              for mode in run.twin_modes}
     t_ref = time.perf_counter() - t0
-    gcfg = arc_cfg(ARC_GEN_EXPERTS)
+    gcfg = run.cfg(run.gen_experts)
 
     def meta_counts():
         t0 = time.perf_counter()
-        out = {"placed": arc_placed_meta()}
+        out = {"placed": moe_placed_meta(run)}
         out.update({(mode, r): gen_meta_count(mode, r, cfg=gcfg,
-                                              tc=arc_gen_tc(mode, False))
-                    for mode in GENERAL_MODES for r in (0, ARC_MODEL)})
+                                              tc=moe_gen_tc(mode, False))
+                    for mode in run.gen_modes + run.meta_modes
+                    for r in (0, MOE_MODEL)})
         return out, time.perf_counter() - t0
 
     gc.collect()
@@ -5161,7 +5284,7 @@ def drive_arctic_train(device="cuda"):
     held = (torch.cuda.memory_allocated(device),
             torch.cuda.memory_reserved(device))
     free, total = torch.cuda.mem_get_info(device)
-    log(f"  20b: before the ranks this process holds {held[0]:,} B "
+    log(f"  {tag}: before the ranks this process holds {held[0]:,} B "
         f"({held[1]:,} reserved); the card has {free:,} of {total:,} B "
         f"free")
     ex = ThreadPoolExecutor(1)
@@ -5174,10 +5297,10 @@ def drive_arctic_train(device="cuda"):
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         t0 = time.perf_counter()
         try:
-            res = run_ranks(arc_train_rank, ARC_DATA * ARC_MODEL,
+            res = run_ranks(moe_train_rank, MOE_DATA * MOE_MODEL,
                             backend="gloo", device=device,
-                            timeout=SPMD_TIMEOUT, args=(tmp, device),
-                            threads=CORES // (ARC_DATA * ARC_MODEL))
+                            timeout=SPMD_TIMEOUT, args=(run, tmp, device),
+                            threads=CORES // (MOE_DATA * MOE_MODEL))
         finally:
             if alloc is None:
                 del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
@@ -5186,33 +5309,34 @@ def drive_arctic_train(device="cuda"):
         ranks_s = time.perf_counter() - t0
         dry, t_meta = counting.result()
         ex.shutdown()
-        twin_err = twin_gap(os.path.join(tmp, "arc_twin_tp.pt"), ref, device)
+        twin_err = twin_gap(os.path.join(tmp, f"moe{run.phase}_twin_tp.pt"),
+                            ref, device)
     del ref
     r0 = res[0]
-    log(f"  20b: {MOE_ARCH} at its published widths, {ARC_LAYERS} layer, bf16, "
-        f"on data {ARC_DATA} x model {ARC_MODEL} (4 gloo ranks sharing the "
-        f"card, {ranks_s:.1f} s with start-up: rank 0's placed steps "
+    log(f"  {tag}: {run.arch} at its published widths, {run.layers} layer, "
+        f"bf16, on data {MOE_DATA} x model {MOE_MODEL} (4 gloo ranks sharing"
+        f" the card, {ranks_s:.1f} s with start-up: rank 0's placed steps "
         f"{r0['placed_s']:.1f} s, general modes " + ", ".join(
-            f"{m} {r0[m]['mode_s']:.1f} s" for m in GENERAL_MODES)
+            f"{m} {r0[m]['mode_s']:.1f} s" for m in run.gen_modes)
         + f", twins {r0['twin_s']:.1f} s; before the ranks, the twins' "
         f"one-process references {t_ref:.1f} s; beside them, the meta "
         f"counts {t_meta:.1f} s)")
     bad = []
     p, a = r0["placed"], analyze(dry["placed"])
-    log(f"    placed masked step, {ARC_PLACED_EXPERTS} experts ({p['experts']}"
-        f" a rank), AdamW, 4 agents with 2 masked a step: s per step (rank "
-        f"0) " + ", ".join(f"{t:.2f}" for t in p["secs"]) + f"; losses "
-        f"{p['losses']}; all-reduces a rank {a['collective_count']:.0f} "
-        f"({a['collectives']['all-reduce']:.6e} wire bytes), FLOPs "
-        f"{a['flops']:.6e}; state bytes a rank " + ", ".join(
-            f"{o['placed']['placed']:,}" for o in res)
+    log(f"    placed masked step, {run.placed_experts} experts "
+        f"({p['experts']} a rank), AdamW, 4 agents with 2 masked a step: s "
+        f"per step (rank 0) " + ", ".join(f"{t:.2f}" for t in p["secs"])
+        + f"; losses {p['losses']}; all-reduces a rank "
+        f"{a['collective_count']:.0f} ({a['collectives']['all-reduce']:.6e}"
+        f" wire bytes), FLOPs {a['flops']:.6e}; state bytes a rank " +
+        ", ".join(f"{o['placed']['placed']:,}" for o in res)
         + f" (meta report {p['report']:,}); most bytes allocated " + ", ".join(
             f"{o['placed']['peak']:,}" for o in res) + "; gathered "
         f"parameters identical on every rank: "
         f"{all(o['placed']['same'] for o in res)}; tp axes {p['tp']}")
     for r, o in enumerate(res):
         q = o["placed"]
-        require_same_ops(f"20b placed rank {r}", dry["placed"], q["table"],
+        require_same_ops(f"{tag} placed rank {r}", dry["placed"], q["table"],
                          keys=("flops",))
         if q["table"]["collectives"] != dry["placed"]["collectives"]:
             bad.append(f"placed rank {r}: collectives differ from the "
@@ -5224,10 +5348,10 @@ def drive_arctic_train(device="cuda"):
                 and np.isfinite(q["losses"]).all()):
             bad.append(f"placed rank {r}: same {q['same']}, tp {q['tp']}, "
                        f"losses {q['losses']}")
-    for mode in GENERAL_MODES:
+    for mode in run.gen_modes:
         a = analyze(dry[mode, 0][0])
-        log(f"    general {mode} ({GEN_WHY[mode]}), {ARC_GEN_EXPERTS} experts"
-            f", SGD-momentum: s per step (rank 0) " + ", ".join(
+        log(f"    general {mode} ({GEN_WHY[mode]}), {run.gen_experts} "
+            f"experts, SGD-momentum: s per step (rank 0) " + ", ".join(
                 f"{t:.2f}" for t in r0[mode]["secs"])
             + f"; losses {r0[mode]['losses']}; all-reduces a rank "
             f"{a['collective_count']:.0f} ({a['collectives']['all-reduce']:.6e}"
@@ -5239,9 +5363,9 @@ def drive_arctic_train(device="cuda"):
             f"{all(o[mode]['same_blocks'] for o in res)}, whole leaves over "
             f"all ranks: {all(o[mode]['same_whole'] for o in res)}")
         for r, o in enumerate(res):
-            want, want_bytes = dry[mode, (r // ARC_MODEL) * ARC_MODEL]
-            require_same_ops(f"20b {mode} rank {r}", want, o[mode]["table"],
-                             keys=("flops",))
+            want, want_bytes = dry[mode, (r // MOE_MODEL) * MOE_MODEL]
+            require_same_ops(f"{tag} {mode} rank {r}", want,
+                             o[mode]["table"], keys=("flops",))
             if o[mode]["table"]["collectives"] != want["collectives"]:
                 bad.append(f"{mode} rank {r}: collectives differ from the "
                            "recording mesh's")
@@ -5255,8 +5379,17 @@ def drive_arctic_train(device="cuda"):
                 bad.append(f"{mode} rank {r}: blocks {o[mode]['same_blocks']}"
                            f", whole {o[mode]['same_whole']}, tp "
                            f"{o[mode]['tp']}, losses {o[mode]['losses']}")
+    row = 4 * sum(l.numel() for l in tree_flatten(init_model(
+        None, gcfg, device=META, max_pos=TRAIN_SEQ + 1))[0])
+    for mode in run.meta_modes:
+        a = analyze(dry[mode, 0][0])
+        log(f"    general {mode} on the meta device only (not run: see the "
+            f"phase's cut), {run.gen_experts} experts: all-reduces a rank "
+            f"{a['collective_count']:.0f} ({a['collectives']['all-reduce']:.6e}"
+            f" wire bytes), FLOPs {a['flops']:.6e}; state bytes a rank "
+            f"{dry[mode, 0][1]:,}, the agent's whole f32 row {row:,} B")
     errs = {}
-    for mode in GENERAL_MODES:
+    for mode in run.twin_modes:
         for r, o in enumerate(res):
             tw = o["twin"][mode]
             if not (tw["same_blocks"] and tw["same_whole"]):
@@ -5268,26 +5401,42 @@ def drive_arctic_train(device="cuda"):
             errs[mode] = max(errs.get(mode, 0.0), max(
                 float(np.max(np.abs(x - y)))
                 for x, y in zip(tw["params"], oracle[mode])))
-    log(f"    f32 twins (reduced {MOE_ARCH}, {ARC_TWIN_LAYERS} layers, 4 "
-        f"experts, SGD-momentum, remat): the placed step against the "
-        f"one-process make_train_step {twin_err:.3e}, identical on every "
-        f"rank: {all(o['placed_twin_same'] for o in res)}; the general step "
+    log(f"    f32 twins (reduced {run.arch}, {run.twin_layers} layers, "
+        f"{run.twin_cfg().moe.num_experts} experts, SGD-momentum, remat): "
+        f"the placed step against the one-process make_train_step "
+        f"{twin_err:.3e}, identical on every rank: "
+        f"{all(o['placed_twin_same'] for o in res)}; the general step "
         f"against the one-process core.gradagg oracle " + ", ".join(
             f"{m} {e:.3e}" for m, e in errs.items())
         + f" (tolerance {TWIN_TOL['atol']:.0e})")
     if not all(o["placed_twin_same"] for o in res):
         bad.append("placed twin: not identical on every rank")
     if bad:
-        raise AssertionError("20b: " + "; ".join(bad))
-    log(f"  20b in {time.perf_counter() - t_all:.1f} s")
+        raise AssertionError(f"{tag}: " + "; ".join(bad))
+    log(f"  {tag} in {time.perf_counter() - t_all:.1f} s")
 
 
 def drive_arctic(device="cuda"):
-    """20a-20b."""
+    """20a-20b: arctic-480b."""
     t0 = time.perf_counter()
-    drive_arctic_serve(device)
-    drive_arctic_train(device)
+    drive_moe_serve(ARCTIC, device)
+    drive_moe_train(ARCTIC, device)
     log(f"  phase 20 in {time.perf_counter() - t0:.1f} s")
+
+
+def drive_deepseek(device="cuda"):
+    """21a-21b: deepseek-v2-236b, its MLA over "model" beside its
+    experts. 21a runs in bf16 (times, counts, bytes; the streams against
+    one rank's argmax reported: in bf16 a rounding difference can flip
+    one of top-6-of-160 routing's near ties, which moves a logit past
+    the margin) and again in f32 at the same widths, where the streams
+    are held to one rank's argmax at every clear margin and the logits
+    within ``F32_LOGIT_TOL``."""
+    t0 = time.perf_counter()
+    drive_moe_serve(DEEPSEEK, device, dtypes=(None, "float32"),
+                    unchecked=(None,), gap=True)
+    drive_moe_train(DEEPSEEK, device)
+    log(f"  phase 21 in {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -5433,7 +5582,12 @@ def main() -> int:
         "general step on data 2 x model 2")
     drive_arctic()
 
-    log("== 21. result")
+    log("== 21. deepseek-v2-236b tensor- and expert-parallel over model, "
+        "its MLA split: launch.serve's steps on data 1 x model 4, the "
+        "placed and the general step on data 2 x model 2")
+    drive_deepseek()
+
+    log("== 22. result")
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

@@ -14,7 +14,8 @@
   points (``constrain``, ``act_policy``) and the storage -> compute
   gather (``constrain_tree``).
 - ``repro_torch.dist.tp``           tensor-parallel compute over the
-  "model" axes for the GQA decoders: the context the layers read and
+  "model" axes for the attention decoders (GQA or MLA): the context the
+  layers read and
   Megatron's four autograd Functions on all-reduces.
 """
 from repro_torch.dist import registry  # noqa: F401

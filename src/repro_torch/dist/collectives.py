@@ -23,17 +23,17 @@ all-reduces one scalar per agent and reuses
 trimmed mean needs every agent's value per coordinate, so it rebuilds
 the stack, a column block at a time to bound its memory.
 
-*Tensor-parallel blocks.* On the general step of a GQA decoder over a
-mesh whose "model" axis is above 1, a rank's gradient tree holds its tp
-blocks of the split leaves and the others whole (``dist.tp``). The sums
-and the trimmed mean are coordinate-wise, so they run on the blocks as
-they are, over dp. The two rules that read the whole gradient take
-``tp=`` (a ``dist.tp.TP``) and ``groups=`` (per leaf, the blocks it is
-split into; 1: whole; None: every leaf whole): CGE's per-agent norm and the quantizer's
-per-agent scale then come from ``dist.tp.tp_sq_norm`` and
-``tp_abs_max``, the same on every tp rank, so every rank derives the
-same keep-set and scale. With no ``tp``, or a tp extent of 1, each is
-the one-block code bit for bit.
+*Tensor-parallel blocks.* On the general step of an attention decoder
+(GQA or MLA) over a mesh whose "model" axis is above 1, a rank's
+gradient tree holds its tp blocks of the split leaves and the others
+whole (``dist.tp``). The sums and the trimmed mean are coordinate-wise,
+so they run on the blocks as they are, over dp. The two rules that read
+the whole gradient take ``tp=`` (a ``dist.tp.TP``) and ``groups=`` (per
+leaf, the blocks it is split into; 1: whole; None: every leaf whole):
+CGE's per-agent norm and the quantizer's per-agent scale then come from
+``dist.tp.tp_sq_norm`` and ``tp_abs_max``, the same on every tp rank, so
+every rank derives the same keep-set and scale. With no ``tp``, or a tp
+extent of 1, each is the one-block code bit for bit.
 """
 from __future__ import annotations
 

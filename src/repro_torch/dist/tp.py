@@ -1,8 +1,8 @@
 """Tensor-parallel compute over the mesh's "model" axes: the context the
-layers of the GQA decoders (dense and MoE) read, and Megatron's four
-autograd Functions on its axes (the port's counterpart of what GSPMD
-derives for the reference from its compute layout, ``tree_specs(params,
-MeshRules(fsdp_axes=()))``).
+layers of the attention decoders (GQA or MLA, dense or MoE) read, and
+Megatron's four autograd Functions on its axes (the port's counterpart
+of what GSPMD derives for the reference from its compute layout,
+``tree_specs(params, MeshRules(fsdp_axes=()))``).
 
 The placed train step, the general step and ``launch.serve``'s steps
 install a :class:`tp_context` (mesh, tp axes) for a config
@@ -18,7 +18,8 @@ blocks of the compute layout:
 - ``gather_from_tp`` / ``scatter_to_tp`` change a tensor's layout where
   the reference's constraint points change it (the embedding's model
   columns, a query split across head boundaries, the decode's head_dim,
-  the router's logits over the experts);
+  the router's logits over the experts, MLA's latents and its
+  ``w_uk`` / ``w_uv`` re-laid from a block of every head to whole heads);
 - an MoE block computes this rank's experts on the routing every rank
   computes alike, and sums the ranks' partial combines over tp.
 
@@ -210,13 +211,13 @@ def current_tp() -> Optional[TP]:
 
 def tp_compute(cfg) -> bool:
     """The families this layer of tensor parallelism covers: every layer
-    GQA attention with a dense MLP or an MoE block (its experts over the
-    expert-parallel axes, ``dist.sharding.MeshRules.ep_axes``, which the
-    compute layouts set equal to the tp axes), no MLA, no SSM or RWKV, no
-    encoder. The one predicate every caller reads; the other families
+    attention, GQA or MLA, with a dense MLP or an MoE block (its experts
+    over the expert-parallel axes, ``dist.sharding.MeshRules.ep_axes``,
+    which the compute layouts set equal to the tp axes), no SSM or RWKV,
+    no encoder. The one predicate every caller reads; the other families
     compute whole on every rank."""
     return (all(k == "attn" for k in cfg.layer_pattern)
-            and cfg.attention != "mla" and not cfg.encoder_decoder)
+            and not cfg.encoder_decoder)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@ only: nothing is allocated and no card is needed) over a
   of the state (``shard_tree`` under the layout's storage rules) and the
   global batch it slices itself. Each period's blocks are gathered to
   the compute layout (``dist.sharding.compute_rules``, the reference's
-  ``param_cspecs``): a GQA decoder, dense or MoE
+  ``param_cspecs``): an attention decoder, GQA or MLA, dense or MoE
   (``dist.tp.tp_compute``), computes tensor-parallel over "model"
   (``dist.tp``; an MoE block's experts over the ep axes, the layouts'
   tp axes); the other families gather whole leaves and compute whole on
@@ -22,14 +22,15 @@ only: nothing is allocated and no card is needed) over a
 - train, the general modes (cge, stale, trimmed, quantized):
   ``make_general_step`` on ``place_general_state``'s share of the state,
   the reference's general layout: parameters and moments in the compute
-  layout (a GQA decoder's TP blocks over "model", replicated over dp;
+  layout (an attention decoder's TP blocks over "model", replicated over dp;
   whole for the other families), this agent's ledger and error rows
   whole, the global batch it slices itself and a host ``fresh_mask`` of
   ones (the reference's ``(n_agents,)`` f32 argument).
 - prefill and decode: ``launch.serve``'s steps on this rank's dp block
-  of the batch and cache. A GQA decoder runs tensor-parallel on the
-  compute layout (``place_params``) and a cache with ``cache_specs``'
-  tp entries (head_dim over "model", ``place_cache``), as the
+  of the batch and cache. An attention decoder runs tensor-parallel on
+  the compute layout (``place_params``) and a cache with
+  ``cache_specs``' tp entries (head_dim, or MLA's latent and rope-key
+  columns, over "model", ``place_cache``), as the
   reference's cells place them; the other families take whole
   parameters and the cache's dp entries only.
 

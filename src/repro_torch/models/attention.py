@@ -29,7 +29,12 @@ Under tensor-parallel compute (``dist.tp``, the placed train step and
 ``launch.serve``'s steps on a mesh) GQA runs on this rank's blocks of
 the reference's compute layout (``_apply_gqa_tp``): the query heads over
 gcd(H, tp) groups of ranks, ``wo``'s fan-in block summed over tp, and a
-dense decode over this rank's head_dim block of the cache.
+dense decode over this rank's head_dim block of the cache. MLA does too
+(``_apply_mla_tp``): its latents projected on this rank's columns,
+normed by block sums of squares summed over tp and gathered whole,
+``w_uk`` / ``w_uv`` re-laid from a block of every head to the group's
+whole heads, ``wo``'s fan-in block summed over tp, and a dense decode
+on a cache of this rank's latent and rope-key columns, gathered whole.
 """
 from __future__ import annotations
 
@@ -471,6 +476,23 @@ def _mla_tp_shard(absorbed, q_nope, q_rope, w_uk, w_uv, h: int):
     return mesh.all_reduce(full, tp_axes)
 
 
+def _absorbed(qn, qr, wuk, wuv, ckv, kr, kv_len, scale: float):
+    """MLA's absorbed decode over a latent cache: ``w_uk`` absorbed into
+    the query, ``w_uv`` into the output, scores and values in latent
+    space. qn (B, S, h, nope), qr (B, S, h, rope), wuk (rank, h, nope),
+    wuv (rank, h, v), ckv (B, T, rank), kr (B, T, rope) -> (B, S, h, v)."""
+    t = ckv.shape[1]
+    q_abs = torch.einsum("bshn,lhn->bshl", qn, wuk)
+    scores = (torch.einsum("bshl,btl->bhst", q_abs, ckv)
+              + torch.einsum("bshr,btr->bhst", qr, kr)
+              ).to(torch.float32) * scale
+    mask = torch.arange(t, device=ckv.device)[None, :] < kv_len[:, None]
+    scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(qn.dtype)
+    out_lat = torch.einsum("bhst,btl->bshl", w, ckv)
+    return torch.einsum("bshl,lhv->bshv", out_lat, wuv)
+
+
 def apply_mla(p, x, cfg: ArchConfig, *, positions, cache=None,
               cache_index=None, return_cache=False, page_table=None):
     """Multi-head latent attention. Train and prefill materialise
@@ -483,6 +505,11 @@ def apply_mla(p, x, cfg: ArchConfig, *, positions, cache=None,
     b, s, _ = x.shape
     h = cfg.n_heads
     nope, rp, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    tp = current_tp()
+    if tp is not None and p["w_uq"].shape[-1] != h * (nope + rp):
+        return _apply_mla_tp(p, x, cfg, tp, positions=positions, cache=cache,
+                             cache_index=cache_index,
+                             return_cache=return_cache)
 
     cq = _rms(x @ p["w_dq"], p["q_norm"])
     q = (cq @ p["w_uq"]).reshape(b, s, h, nope + rp)
@@ -506,20 +533,10 @@ def apply_mla(p, x, cfg: ArchConfig, *, positions, cache=None,
             ckv, kr = cache["ckv"], cache["kr"]
             kv_len = _write_decode(cache_index, b, s, (ckv, ckv_new),
                                    (kr, kr_new))
-        t = ckv.shape[1]
         scale = (nope + rp) ** -0.5
 
         def absorbed(qn, qr, wuk, wuv):
-            q_abs = torch.einsum("bshn,lhn->bshl", qn, wuk)
-            scores = (torch.einsum("bshl,btl->bhst", q_abs, ckv)
-                      + torch.einsum("bshr,btr->bhst", qr, kr)
-                      ).to(torch.float32) * scale
-            mask = (torch.arange(t, device=x.device)[None, :]
-                    < kv_len[:, None])
-            scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
-            w = torch.softmax(scores, dim=-1).to(x.dtype)
-            out_lat = torch.einsum("bhst,btl->bshl", w, ckv)
-            return torch.einsum("bshl,lhv->bshv", out_lat, wuv)
+            return _absorbed(qn, qr, wuk, wuv, ckv, kr, kv_len, scale)
 
         out = _mla_tp_shard(absorbed, q_nope, q_rope, p["w_uk"], p["w_uv"],
                             h)
@@ -535,3 +552,125 @@ def apply_mla(p, x, cfg: ArchConfig, *, positions, cache=None,
         new_cache = ({"ckv": ckv_new, "kr": kr_new} if return_cache
                      else None)
     return out.reshape(b, s, h * vd).to(x.dtype) @ p["wo"], new_cache
+
+
+def _rms_split(x, scale, full: int):
+    """``_rms`` over a last dimension of which ``x`` is this rank's block
+    (``full`` wide in all) and ``scale`` the whole replicated leaf: the
+    block's sum of squares summed over tp, as the reference's compiled
+    norm does (its mean can differ from one process's by an ulp)."""
+    xf = x.to(torch.float32)
+    ss = copy_to_tp(reduce_from_tp(xf.square().sum(-1, keepdim=True)))
+    y = xf * torch.rsqrt(ss / full + 1e-6)
+    return (y * scatter_to_tp(scale, -1).to(torch.float32)).to(x.dtype)
+
+
+def _latent(x, xc, w, scale, full: int):
+    """A latent projection, normed by ``scale`` (None: not normed), on
+    this rank's block of ``w``'s columns (``xc`` the input through
+    ``copy_to_tp``) and gathered whole, or on the whole ``w`` where it
+    is whole."""
+    if w.shape[-1] == full:
+        return x @ w if scale is None else _rms(x @ w, scale)
+    blk = xc @ w
+    if scale is not None:
+        blk = _rms_split(blk, scale, full)
+    return gather_from_tp(blk, -1)
+
+
+def _head_block(w, full: int, groups: int, heads: slice):
+    """``w_uk`` or ``w_uv`` (rank, H, d) from this rank's block of its
+    last dimension (or the whole) to the group's heads with the whole
+    last dimension, the layout the attention wants. The backward sums one
+    rank of each group over tp (the group's ranks repeat its heads), so
+    every rank holds the whole gradient before it keeps its block."""
+    if w.shape[-1] != full:
+        w = gather_from_tp(w, -1)
+    return copy_to_tp(w, groups)[:, heads]
+
+
+def _cache_cols(t, tp):
+    """A latent's block in ``cache_specs``' layout: this rank's block of
+    its last dimension, the whole where tp does not divide it."""
+    d = t.shape[-1]
+    return t[..., tp.block(d)] if d % tp.size == 0 else t
+
+
+def _apply_mla_tp(p, x, cfg: ArchConfig, tp, *, positions, cache,
+                  cache_index, return_cache):
+    """MLA on this rank's blocks of the compute layout, as the reference's
+    compiled steps split it (read from their HLO): ``w_dq``, ``w_dkv``,
+    ``w_kr`` and ``w_uq`` column blocks, ``w_uk`` / ``w_uv`` split within
+    each head on their last dimension, ``wo`` a row block, the two norms
+    whole.
+
+    - The latents are projected on this rank's columns and normed with
+      the block's sum of squares summed over tp, then gathered whole; the
+      rope key is gathered before its rotation, whose pairs span blocks.
+    - The query heads split over g = gcd(H, n) groups of consecutive
+      ranks (its ``w_uq`` columns gathered to the group's heads where
+      g < n). ``w_uk`` and ``w_uv`` are re-laid from this rank's block of
+      every head to the group's heads whole, the reference's all-to-all.
+    - Train and prefill attend over the group's heads; ``wo``'s fan-in
+      block is this rank's, the partial products summed over tp. A
+      prefill returns the cache in ``cache_specs``' layout: this rank's
+      block of the latent and of the rope key.
+    - A dense decode writes its blocks into that cache, gathers the whole
+      cache, and runs the absorbed decode on the group's heads.
+    """
+    if cache is not None and cache_index is not None and "ckv_pages" in cache:
+        raise NotImplementedError("paged decode runs on the serving "
+                                  "engine's own TP (dist.sharding.serve_tp)")
+    m = cfg.mla
+    b, s, _ = x.shape
+    H, n = cfg.n_heads, tp.size
+    nope, rp, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    groups = math.gcd(H, n)
+    heads = tp.block(H, groups)                 # this group's query heads
+    gh = H // groups
+
+    xc = copy_to_tp(x)
+    cq = _latent(x, xc, p["w_dq"], p["q_norm"], m.q_lora_rank)
+    ckv_new = _latent(x, xc, p["w_dkv"], p["kv_norm"], m.kv_lora_rank)
+    kr_new = _latent(x, xc, p["w_kr"], None, rp)
+    kr_new = apply_rope(kr_new[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    q = copy_to_tp(cq) @ p["w_uq"]
+    if groups != n:
+        q = gather_from_tp(q, -1, groups)
+    q = q.reshape(b, s, gh, nope + rp)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    wuk = _head_block(p["w_uk"], nope, groups, heads)
+    wuv = _head_block(p["w_uv"], vd, groups, heads)
+
+    if cache is not None and cache_index is not None:
+        ckv, kr = cache["ckv"], cache["kr"]
+        kv_len = _write_decode(
+            cache_index, b, s,
+            (ckv, ckv_new if ckv.shape[-1] == m.kv_lora_rank
+             else _cache_cols(ckv_new, tp)),
+            (kr, kr_new if kr.shape[-1] == rp else _cache_cols(kr_new, tp)))
+        if ckv.shape[-1] != m.kv_lora_rank:
+            ckv = gather_from_tp(ckv, -1)
+        if kr.shape[-1] != rp:
+            kr = gather_from_tp(kr, -1)
+        out = _absorbed(q_nope, q_rope, wuk, wuv, ckv, kr, kv_len,
+                        (nope + rp) ** -0.5)
+        new_cache = cache
+    else:
+        ckv_c, kr_c = (copy_to_tp(t, groups) for t in (ckv_new, kr_new))
+        k_nope = torch.einsum("btl,lhn->bthn", ckv_c, wuk)
+        v = torch.einsum("btl,lhv->bthv", ckv_c, wuv)
+        k = torch.cat([k_nope, kr_c[:, :, None, :].expand(b, s, gh, rp)],
+                      dim=-1)
+        out = attention_math(
+            constrain(torch.cat([q_nope, q_rope], dim=-1), "heads4"),
+            constrain(k, "heads4"), constrain(v, "heads4"), causal=True)
+        new_cache = ({"ckv": _cache_cols(ckv_new, tp),
+                      "kr": _cache_cols(kr_new, tp)} if return_cache
+                     else None)
+    out = out.reshape(b, s, gh * vd).to(x.dtype)
+    if groups != n:
+        out = scatter_to_tp(out, -1, groups)
+    return reduce_from_tp(out @ p["wo"]), new_cache

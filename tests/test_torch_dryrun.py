@@ -29,6 +29,12 @@ replaced at run time by a mesh of ``Auto`` axes (jax 0.9.0's
     general cells tensor- and expert-parallel, each within [0.90, 1.10]
     of the reference's FLOPs a rank, the train cells' argument bytes
     exactly the reference's.
+(h) deepseek-v2-236b (MLA over "model", 160 experts, 10 a rank, top-6,
+    2 shared experts) at one period of depth on one pod (the full 60
+    layers cost ~2 min more here; why one stands for 60 is in the
+    test): its baseline train_4k, prefill_32k and decode_32k cells and
+    its cge general cell, each within [0.90, 1.10] of the reference's
+    FLOPs a rank and its argument bytes exactly the reference's.
 (d) the placed step's collective bytes equal a count summed here from
     the storage specs, the compute specs the baseline gathers to and the
     TP layer's all-reduces per layer, and on 2 gloo ranks of the CPU the
@@ -113,6 +119,20 @@ def reference(tmp_path_factory):
                                     ".json").read_text())
             assert rec["ok"] and rec["mode"] == mode, rec.get("error")
             recs[f"{arch}|train_4k|{mode}"] = rec
+    # deepseek-v2 at one period of depth: its baseline cells, then cge
+    for mode, cells in (("masked", SHAPES), ("cge", ("train_4k",))):
+        run = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "reference_dryrun.py"),
+             "--out", str(out), "--period", "--mode", mode,
+             *(f"{DEEPSEEK}:{c}" for c in cells)],
+            capture_output=True, text=True, timeout=600, env=env)
+        assert run.returncode == 0, run.stderr[-3000:]
+        for shape in cells:
+            tag = D.record_tag(None, True, mode)
+            rec = json.loads((out / f"{DEEPSEEK}__{shape}__single__{tag}"
+                                    ".json").read_text())
+            assert rec["ok"] and rec["mode"] == mode, rec.get("error")
+            recs[f"{DEEPSEEK}|{shape}|{tag}"] = rec
     return recs
 
 
@@ -197,6 +217,34 @@ def test_arctic_general_cell_against_the_reference(reference, mode,
     assert rec["memory"]["argument_size_in_bytes"] == \
         ref["memory"]["argument_size_in_bytes"]
     assert 0.90 <= rec["flops_ratio"] <= 1.10
+
+
+@pytest.mark.parametrize("shape,mode", [(s, "masked") for s in SHAPES]
+                         + [("train_4k", "cge")])
+def test_deepseek_cells_within_the_band(reference, shape, mode, tmp_path):
+    """deepseek-v2's MLA over "model" (its latents projected on a rank's
+    columns, normed by block sums of squares summed over tp and gathered;
+    ``w_uk`` / ``w_uv`` re-laid to 8 whole heads a rank; ``wo`` a row
+    block) and its 160 experts, 10 a rank, at one period of depth (one
+    layer): one rank's FLOPs within [0.90, 1.10] of the reference's
+    (train 0.974, prefill and decode 1.000, cge 0.974) and the argument
+    bytes exactly the reference's, the decode's cache in
+    ``cache_specs``' latent blocks included. One layer stands for the
+    full 60: a cell's FLOPs are E + L x (one layer's), and by the CLI's
+    records at 1 and 60 layers both the layer's ratio (0.955) and the
+    rest's (1.001) lie in the band, so every depth's does (60 layers:
+    0.956, 1.000, 1.000, cge 0.956; ROADMAP item 11d)."""
+    tag = D.record_tag(None, True, mode)
+    ref = reference[f"{DEEPSEEK}|{shape}|{tag}"]
+    rec = D.run_cell(DEEPSEEK, shape, False, mode=mode,
+                     out_dir=str(tmp_path), tag=tag, reference=ref,
+                     cfg_patch={"n_layers": get_config(DEEPSEEK).period})
+    assert rec["ok"], rec.get("traceback")
+    assert "tensor-parallel" in rec["compute"]
+    assert rec["flops_ratio"] == rec["hlo"]["flops"] / ref["hlo"]["flops"]
+    assert 0.90 <= rec["flops_ratio"] <= 1.10
+    assert rec["memory"]["argument_size_in_bytes"] == \
+        ref["memory"]["argument_size_in_bytes"]
 
 
 def _period_flops(step, *args):

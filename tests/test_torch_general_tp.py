@@ -16,7 +16,11 @@ configs cut to 2 layers, f32:
   with 6 query heads, cge (one expert a rank), every agent received but
   at step 1: CGE keeps the smaller whole-gradient norm and the quantizer
   scales by the whole gradient's max, so both must count each block
-  once (the expert stacks split on their dimension 1).
+  once (the expert stacks split on their dimension 1);
+- reduced deepseek-v2-236b (MLA over tp, 4 experts, a shared expert;
+  remat), cge and quantized on data 4 x model 2 and cge with 6 query
+  heads on data 2 x model 4 (``w_uk`` / ``w_uv`` split within every
+  head, ``w_uq`` and ``wo`` across head boundaries).
 
 For each: loss, grad norm and the gathered parameters within ``TOL`` of
 the oracle; each tp block identical on every dp rank and each whole leaf
@@ -60,7 +64,10 @@ CASES = ([("data4_model2", "qwen2-0.5b", m) for m in MODES]
          + [("data4_model2", "yi-6b", "cge")]
          + [("data2_model4_h6", "qwen2-0.5b", m) for m in ("cge",
                                                            "quantized")]
-         + [("data2_model4_h6", "arctic-480b", "cge")])
+         + [("data2_model4_h6", "arctic-480b", "cge")]
+         + [("data4_model2", "deepseek-v2-236b", m) for m in ("cge",
+                                                             "quantized")]
+         + [("data2_model4_h6", "deepseek-v2-236b", "cge")])
 # the agent masked at each step, per agent count
 MASKED = {4: (2, 2, 0), 2: (None, 1, None)}
 
@@ -76,7 +83,8 @@ def _cfg(name, heads=None):
 def _tc_kwargs(name, mode):
     return dict(mode=mode, optimizer="sgdm", lr=3e-2, lr_kind="cosine",
                 lr_total=10, warmup=1, f=1, tau=1,
-                remat_policy="full" if name in ("yi-6b", "arctic-480b")
+                remat_policy="full" if name in ("yi-6b", "arctic-480b",
+                                                "deepseek-v2-236b")
                 else "none")
 
 

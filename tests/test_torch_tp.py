@@ -1,30 +1,34 @@
-"""Tensor-parallel compute over "model" for the GQA decoders, dense and
-MoE (``repro_torch.dist.tp`` and the layers, steps and placement that
-read it), on gloo ranks of the CPU, against live ``repro`` run unsharded
-(the reference's numbers do not depend on its layout):
+"""Tensor-parallel compute over "model" for the attention decoders, GQA
+and MLA, dense and MoE (``repro_torch.dist.tp`` and the layers, steps
+and placement that read it), on gloo ranks of the CPU, against live
+``repro`` run unsharded (the reference's numbers do not depend on its
+layout):
 
 - the four tp Functions (``copy_to_tp``, ``reduce_from_tp``,
   ``gather_from_tp``, ``scatter_to_tp``, with and without head groups)
   give one process's autograd values and gradients;
 - the placed masked step of reduced qwen2-0.5b (tied embeddings, QKV
-  bias), yi-6b (untied unembedding) and arctic-480b (4 experts over the
-  tp ranks, top-2, the dense residual, untied; 4 dispatch groups),
-  2 layers, f32, SGD-momentum and AdamW, 3 steps with a mask dropping
-  one of 4 agents, on data 1 x model
-  2 (H % tp = 0: each rank its own heads), data 2 x model 2, and data 1
-  x model 4 with 6 query heads (``wq`` split across head boundaries, the
-  heads over gcd(6, 4) = 2 groups): loss, grad norm and the gathered
-  parameters within ``TOL`` of the reference's ``make_train_step``, and
-  identical on every rank;
+  bias), yi-6b (untied unembedding), arctic-480b (4 experts over the tp
+  ranks, top-2, the dense residual, untied; 4 dispatch groups) and
+  deepseek-v2-236b (MLA: its latents, ``w_uk`` / ``w_uv`` and ``wo``
+  over tp; 4 experts, top-2, a shared expert; remat), 2 layers, f32,
+  SGD-momentum and AdamW, 3 steps with a mask dropping one of 4 agents,
+  on data 1 x model 2 (H % tp = 0: each rank its own heads), data 2 x
+  model 2, and data 1 x model 4 with 6 query heads (``wq`` split across
+  head boundaries, the heads over gcd(6, 4) = 2 groups): loss, grad norm
+  and the gathered parameters within ``TOL`` of the reference's
+  ``make_train_step``, and identical on every rank;
 - ``launch.serve``'s prefill and decode at model 2 and 4 (arctic at
-  model 4: one expert a rank): logits within ``TOL`` of the reference's,
+  model 4: one expert a rank; deepseek's cache holds this rank's latent
+  and rope-key columns): logits within ``TOL`` of the reference's,
   greedy tokens equal;
 - a rank's matmul FLOPs (``OpCounter`` on the meta device) are 1/tp of
   the one-process step's, but for the whole leaves ``wk`` / ``wv`` (a
   rank projects the KV heads its query heads read) and the tied
   unembedding's input gradient where many tokens gathered the weight
   (whole on every rank, as the reference's compiled step computes it),
-  arctic's experts and router included: the step does not gather whole
+  arctic's and deepseek's experts and router and deepseek's MLA
+  included: the step does not gather whole
   and compute whole;
 - at model = 1 the dense step, and at model 2 a family without
   tensor-parallel compute (reduced rwkv6-3b, whole on every rank: its
@@ -48,7 +52,7 @@ from repro_torch.launch.mesh import run_ranks
 TOL = dict(rtol=1e-5, atol=1e-5)
 N_AGENTS, B, S, STEPS = 4, 8, 16, 3
 TIMEOUT = 300
-ARCHS = ("qwen2-0.5b", "yi-6b", "arctic-480b")
+ARCHS = ("qwen2-0.5b", "yi-6b", "arctic-480b", "deepseek-v2-236b")
 WHOLE = "rwkv6-3b"          # a family without tensor-parallel compute
 OPTIMIZERS = ("sgdm", "adamw")
 # name -> (data, model, n_heads patch)
@@ -56,7 +60,8 @@ MESHES = {"model2": (1, 2, None), "data2_model2": (2, 2, None),
           "model4_h6": (1, 4, 6)}
 SERVE = (("model2", "qwen2-0.5b"), ("model2", "yi-6b"),
          ("model4_h6", "qwen2-0.5b"), ("model2", "arctic-480b"),
-         ("model4_h6", "arctic-480b"))
+         ("model4_h6", "arctic-480b"), ("model2", "deepseek-v2-236b"),
+         ("model4_h6", "deepseek-v2-236b"))
 PROMPT, NEW, MAX_LEN = 6, 4, 12
 
 
@@ -73,7 +78,8 @@ def _tc_kwargs(name, optimizer):
                 lr=3e-2 if optimizer == "sgdm" else 1e-4,
                 lr_kind="cosine", lr_total=10, warmup=1,
                 remat_policy=("full" if name in ("yi-6b", "arctic-480b",
-                                                 WHOLE) else "none"))
+                                                 "deepseek-v2-236b", WHOLE)
+                              else "none"))
 
 
 def _batches():
@@ -163,7 +169,7 @@ def _serve(mesh, cfg, np_params):
                               "pos": PROMPT + i})
         steps.append(tok.numpy().copy())
     return {"logits": out, "tokens": steps,
-            "cache_hd": tuple(big[0]["mixer"]["k"].shape)}
+            "cache_hd": {k: v.shape[-1] for k, v in big[0]["mixer"].items()}}
 
 
 def _rank(rank, world, meshes, np_params, batches):
@@ -410,10 +416,15 @@ def test_tp_prefill_and_decode_match_live_reference(spawned, jax_params,
     heads = MESHES[mesh][2]
     want = _jax_serve(name, heads, jax_params[name, heads])
     tp = MESHES[mesh][1]
-    hd = _cfg(name, heads).resolved_head_dim
+    cfg = _cfg(name, heads)
+    # head_dim over tp; MLA's latent and rope key columns over tp
+    want_cols = ({"ckv": cfg.mla.kv_lora_rank // tp,
+                  "kr": cfg.mla.qk_rope_head_dim // tp} if cfg.mla
+                 else {"k": cfg.resolved_head_dim // tp,
+                       "v": cfg.resolved_head_dim // tp})
     for o in _ranks_of(spawned, mesh):
         got = o["serve", mesh, name]
-        assert got["cache_hd"][-1] == hd // tp      # head_dim over tp
+        assert got["cache_hd"] == want_cols
         for a, b in zip(got["logits"], want):
             np.testing.assert_allclose(a, b, **TOL)
         toks = [w[:, -1].argmax(-1) for w in want]
@@ -498,12 +509,14 @@ def test_rank_flops_are_one_tp_th_of_the_whole_step(name, model):
     extra = (2 * B * S * cfg.vocab_size * cfg.d_model * (1 - 1 / model)
              if cfg.tie_embeddings and gathered else 0)
     # wk / wv are whole leaves: a rank projects the KV heads its query
-    # heads read, at least one (forward and two backward matmuls, K and V)
-    hd, rep = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
-    kv_heads = (cfg.n_heads // model - 1) // rep + 1
-    kv = 3 * 2 * (2 * B * S * cfg.d_model * cfg.n_kv_heads * hd) \
-        * cfg.n_layers
-    extra += kv * (kv_heads / cfg.n_kv_heads - 1 / model)
+    # heads read, at least one (forward and two backward matmuls, K and V);
+    # MLA has none, its every weight split over tp
+    if cfg.attention != "mla":
+        hd, rep = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+        kv_heads = (cfg.n_heads // model - 1) // rep + 1
+        kv = 3 * 2 * (2 * B * S * cfg.d_model * cfg.n_kv_heads * hd) \
+            * cfg.n_layers
+        extra += kv * (kv_heads / cfg.n_kv_heads - 1 / model)
     assert rank == whole / model + extra
 
 
