@@ -59,7 +59,7 @@ Phases, each fatal on failure:
    then a few quantized iterations: device us per iteration of the int8
    quantization's PyTorch operations beside ``dequant_accum``'s.
 6. The serving path: ``ServeEngine`` at the full width of qwen2-0.5b
-   (``SERVE_LAYERS`` = 6 of its 24 layers, d=896, 14 query heads over 2
+   (``SERVE_LAYERS`` = 4 of its 24 layers, d=896, 14 query heads over 2
    KV heads, vocab 151,936, bf16, weights from seed 0; the model of
    phases 6-14) serves 24 requests (prompts of 64-512
    tokens, 16-64 new tokens each) on 8 slots of a paged cache with
@@ -311,9 +311,9 @@ Phases, each fatal on failure:
    one rank's greedy argmax along them (whole parameters, the same
    steps) wherever its top-2 margin exceeds ``LOGIT_TOL``; ms per decode
    step beside one rank's. 20b: data 2 x model 2 at the published
-   widths, 1 layer: 1 placed masked step (8 experts, 4 a rank, AdamW,
-   16a's agents and masks) and 2 general steps in cge and quantized (2
-   experts, one a rank, SGD with momentum; 19's masks; stale and trimmed
+   widths, 1 layer: 2 general cge steps (2 experts, one a rank, SGD with
+   momentum; 19's masks; the placed masked step (8 experts, 4 a rank,
+   AdamW, 16a's agents and masks) and stale, trimmed and quantized
    counted on the meta device, run on the twins): seconds per step, the
    last step's FLOPs and collectives equal op by op to a
    ``RecordingMesh``'s count (all-reduces and wire bytes a rank), state
@@ -329,21 +329,41 @@ Phases, each fatal on failure:
    code. 21a: 1 of 60 layers at every published width (MLA at latent
    rank 512, q rank 1536, 128 heads; all 160 experts, top-6, 2 shared)
    from seed 0, on data 1 x model 4 (40 experts and 32 heads a rank),
-   with 20a's checks, in bf16 and then, in the same ranks, in f32: in
-   bf16 a rounding difference can flip a near tie of top-6 of 160
-   routing and move a logit past ``LOGIT_TOL``, so there the streams
-   against one rank's argmax and rank 0's largest logit gap to one rank
-   along its stream are printed; in f32 the streams are held to one
-   rank's argmax at every clear margin and the logits within 1e-4. 21b:
-   data 2 x model 2, 1 layer: 1 placed masked step (8 experts, AdamW)
-   and 2 general cge steps (6 experts, the fewest top-6 allows, SGD with
-   momentum) with 20b's checks; the quantized mode, whose whole f32 rows
-   four ranks cannot hold at this vocabulary, is counted on the meta
+   16 new tokens, with 20a's checks, in bf16 and then, in the same
+   ranks, in f32: in bf16 a rounding difference can flip a near tie of
+   top-6 of 160 routing and move a logit past ``LOGIT_TOL``, so there
+   the streams against one rank's argmax are printed; in f32 the streams
+   are held to one rank's argmax at every clear margin and rank 0's
+   teacher-forced logits within 1e-4 of one rank's. 21b:
+   data 2 x model 2, 1 layer: 2 general cge steps (6 experts, the fewest
+   top-6 allows, SGD with momentum) with 20b's checks; the placed masked
+   step (8 experts, AdamW) and the quantized mode, whose whole f32 rows
+   four ranks cannot hold at this vocabulary, are counted on the meta
    device (FLOPs, all-reduces, state bytes) and run on the f32 twins
    (reduced deepseek-v2, 4 experts, 2 layers: placed, cge and quantized
    within 1e-4 of one process). No kernel lies on this path (the
    reference's MLA is ``jnp`` einsums and ``attention_math``).
-22. A JSON line with every kernel's launches (summed over the phases
+22. jamba-v0.1-52b tensor- and expert-parallel over "model", its Mamba
+   mixers split too (``models/ssm.py:_apply_mamba_tp``: a block of the
+   inner width di a rank, ``a_log`` and the decode state over d_state),
+   by phase 20's code. 22a: one period (8 of 32 layers: 7 Mamba, 1 GQA
+   with 32 heads over 8 KV heads, 4 MoE blocks) at every published width
+   and all 16 experts, bf16 from seed 0, on data 1 x model 4 (4 experts,
+   8 heads and 2048 of di a rank), 16 new tokens, with 20a's checks and
+   the share of the decode's wire bytes that re-lays the Mamba
+   activations, then in
+   the same ranks in f32 at 4 experts (one a rank): the streams held to
+   one rank's argmax at every clear margin and the logits within 1e-4
+   there, printed in bf16 (top-2 routing's near ties can flip). 22b: data
+   2 x model 2 at the published widths, the period cut to its positions
+   4-5 (a GQA layer with its dense MLP, a Mamba layer with an MoE
+   block): 1 placed masked step (4 experts, AdamW) and 2 general cge
+   steps (2 experts, SGD with momentum) with 20b's checks; quantized
+   counted on the meta device and run on the f32 twins (reduced jamba
+   cut the same way, 4 experts: placed, cge and quantized within 1e-4 of
+   one process). No kernel lies on this path (the reference's
+   Mamba is ``jnp`` einsums and ``lax.associative_scan``).
+23. A JSON line with every kernel's launches (summed over the phases
    that drive a path: 4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16, all
    ranks of 15), error and times, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -367,7 +387,7 @@ import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -1326,7 +1346,7 @@ SERVE_ARCH = "qwen2-0.5b"
 # the model of phases 6-14 (one parameter set, phase 6's): qwen2-0.5b at
 # full width, cut in depth; the host issues each layer's operations, so
 # their times (phase 14's timescale among them) follow the depth
-SERVE_LAYERS = 6
+SERVE_LAYERS = 4
 
 
 def serve_cfg():
@@ -4320,7 +4340,10 @@ def tpc_grow(cfg, prefill, rows, max_len, mesh):
     for blk, pre in zip(cache, prefill):
         for name, leaf in blk["mixer"].items():
             src = pre["mixer"][name]
-            leaf[:, :, :src.shape[2]] = src
+            if leaf.shape == src.shape:         # a Mamba state, whole
+                leaf.copy_(src)
+            else:
+                leaf[:, :, :src.shape[2]] = src
     return cache
 
 
@@ -4407,10 +4430,10 @@ def tpc_card_rank(rank, world, ref_dir, prompts, device="cuda"):
 
 
 @torch.no_grad()
-def tpc_one_rank(prompts, device="cuda", cfg=None):
+def tpc_one_rank(prompts, device="cuda", cfg=None, new=GREEDY_NEW):
     """18b's one-rank reference (20a's with ``cfg``): the same prefill and
-    greedy decode steps with whole parameters; (tokens, ms per decode
-    step, parameters)."""
+    greedy decode steps with whole parameters, ``new`` tokens; (tokens,
+    ms per decode step, parameters)."""
     cfg = cfg or spmd_cfg()
     params = init_model(torch.Generator(device=device).manual_seed(0), cfg,
                         device=device)
@@ -4418,17 +4441,17 @@ def tpc_one_rank(prompts, device="cuda", cfg=None):
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     prefill(params, {"tokens": batch[:, :8]})                 # warm-up
     tok, pre = prefill(params, {"tokens": batch})
-    cache = dense_cache(cfg, pre, len(prompts),
-                        GREEDY_PROMPT_LEN + GREEDY_NEW, device)
+    cache = dense_cache(cfg, pre, len(prompts), GREEDY_PROMPT_LEN + new,
+                        device)
     out = [tok]
     sync(device)
     t0 = time.perf_counter()
-    for i in range(GREEDY_NEW - 1):
+    for i in range(new - 1):
         tok, _ = decode(params, {"tokens": tok[:, None], "cache": cache,
                                  "pos": GREEDY_PROMPT_LEN + i})
         out.append(tok)
     sync(device)
-    ms = (time.perf_counter() - t0) / (GREEDY_NEW - 1) * 1e3
+    ms = (time.perf_counter() - t0) / (new - 1) * 1e3
     return torch.stack(out, 1).cpu().numpy(), ms, params
 
 
@@ -4876,20 +4899,25 @@ def drive_general_tp(device="cuda"):
 
 
 class MoeRun(NamedTuple):
-    """What phase 20 (arctic-480b) or 21 (deepseek-v2-236b) runs.
+    """What phase 20 (arctic-480b), 21 (deepseek-v2-236b) or 22
+    (jamba-v0.1-52b) runs.
 
     Its a: ``layers`` layers at every published width, all experts,
     served on data 1 x model ``serve_model`` through launch.serve's
-    steps, 16c's prompts. Its b: data 2 x model 2 at the published widths,
-    the expert count cut to what 4 ranks sharing the card hold:
-    ``placed_experts`` for the placed step (AdamW), ``gen_experts`` for
-    the general step's ``gen_modes`` (SGD with momentum; its stale and
-    quantized modes hold the agent's whole f32 row several times over
-    while it is joined over tp). The f32 twins on the reduced config,
-    ``twin_layers`` layers, remat: the placed step and the general step's
-    ``twin_modes``; ``placed_steps`` placed steps, the last counted.
-    ``meta_modes``: general modes counted on the meta device at
-    ``gen_experts`` (FLOPs, all-reduces, state bytes) but not run."""
+    steps, 16c's prompts, ``new_tokens`` new; in f32 with ``f32_experts``
+    experts where given.
+    Its b: data 2 x model 2 at the published widths, the expert count cut
+    to what 4 ranks sharing the card hold: ``placed_experts`` for the
+    placed step (AdamW), ``gen_experts`` for the general step's
+    ``gen_modes`` (SGD with momentum; its stale and quantized modes hold
+    the agent's whole f32 row several times over while it is joined over
+    tp), the layers cut to ``train_pattern`` where one is given. The f32
+    twins on the reduced config, ``twin_layers`` layers (or b's cut),
+    remat: the placed step and the general step's ``twin_modes``;
+    ``placed_steps`` placed steps, the last counted (0: counted on the
+    meta device only). ``meta_modes``: general modes counted on the meta
+    device at ``gen_experts`` (FLOPs, all-reduces, state bytes) but not
+    run."""
     phase: str
     arch: str
     layers: int
@@ -4901,40 +4929,63 @@ class MoeRun(NamedTuple):
     twin_layers: int = 2
     placed_steps: int = 2
     meta_modes: tuple = ()
+    f32_experts: Optional[int] = None
+    train_pattern: tuple = ()
+    new_tokens: int = GREEDY_NEW
 
     def cfg(self, experts=None, dtype=None):
-        """The arch cut to ``layers`` (and ``experts`` experts), its
-        parameters and compute in ``dtype`` where one is given."""
+        """The arch cut to ``layers`` (and ``experts`` experts; in f32,
+        ``f32_experts`` where given), its parameters and compute in
+        ``dtype`` where one is given."""
         cfg = get_config(self.arch)
+        if experts is None and dtype == "float32":
+            experts = self.f32_experts
         moe = (cfg.moe if experts is None
                else dataclasses.replace(cfg.moe, num_experts=experts))
         cfg = dataclasses.replace(cfg, n_layers=self.layers, moe=moe)
         return (cfg if dtype is None else dataclasses.replace(
             cfg, param_dtype=dtype, compute_dtype=dtype))
 
+    def train_cfg(self, experts):
+        """b's model: ``cfg(experts)``, its layers cut to
+        ``train_pattern`` where one is given."""
+        cfg = self.cfg(experts)
+        if not self.train_pattern:
+            return cfg
+        return dataclasses.replace(cfg, layer_pattern=self.train_pattern,
+                                   n_layers=len(self.train_pattern))
+
     def twin_cfg(self):
-        return dataclasses.replace(get_config(self.arch).reduced(),
-                                   n_layers=self.twin_layers)
+        """The f32 twins' model: the reduced config at ``twin_layers``
+        layers, or cut to ``train_pattern`` as b's is."""
+        cfg = get_config(self.arch).reduced()
+        if self.train_pattern:
+            return dataclasses.replace(cfg, layer_pattern=self.train_pattern,
+                                       n_layers=len(self.train_pattern))
+        return dataclasses.replace(cfg, n_layers=self.twin_layers)
 
 
 # arctic: phase 11's cut (1 of 35 layers); 3 x 4 B x 0.89e9 parameters of
 # the general step's whole rows at 2 experts, one a rank. To pay for
-# phase 21 its placed step runs once and its general step at the
-# published widths runs cge and quantized (the whole-row mode); stale and
-# trimmed are counted on the meta device and run on the twins (and at
-# full width on qwen2-0.5b in phase 19)
-ARCTIC = MoeRun("20", "arctic-480b", 1, 4, 8, 2, ("cge", "quantized"),
-                GENERAL_MODES, placed_steps=1,
-                meta_modes=("stale", "trimmed"))
+# phases 21-22 its general step at the published widths runs cge; its
+# placed step (22b runs one with GQA and an MoE block at these widths)
+# and stale, trimmed and quantized (the whole-row modes) are counted on
+# the meta device and run on the twins (and the modes at full width on
+# qwen2-0.5b in phase 19)
+ARCTIC = MoeRun("20", "arctic-480b", 1, 4, 8, 2, ("cge",),
+                GENERAL_MODES, placed_steps=0,
+                meta_modes=("stale", "trimmed", "quantized"))
 # deepseek-v2: 1 of 60 layers; top-6 needs 6 experts. At 6 the general
 # step's whole f32 row is 5.55 GB (the untied 102,400 x 5,120 embedding
 # and unembedding are 1.05e9 of its 1.39e9 parameters): the stale and
 # quantized modes, ~4x the row a rank at peak (arctic's 20b), would want
 # ~90 GB on 4 ranks, so at the published widths the general step runs cge
-# and the whole-row mode runs on the twin (its meta count is reported)
+# and the whole-row mode runs on the twin (its meta count is reported).
+# To pay for phase 22 its placed step is counted on the meta device and
+# runs on the twin, and 21a streams 16 new tokens
 DEEPSEEK = MoeRun("21", "deepseek-v2-236b", 1, 4, 8, 6, ("cge",),
-                  ("cge", "quantized"), placed_steps=1,
-                  meta_modes=("quantized",))
+                  ("cge", "quantized"), placed_steps=0,
+                  meta_modes=("quantized",), new_tokens=16)
 
 
 def moe_gen_tc(mode: str, twin: bool) -> TrainConfig:
@@ -4946,10 +4997,21 @@ def barrier(mesh) -> None:
     mesh.all_reduce(torch.zeros(1, device=mesh.device), mesh.axis_names)
 
 
-def expert_bytes(params) -> int:
-    ffn = params["blocks"][0]["ffn"]
+def moe_positions(cfg) -> list:
+    """The positions of the layer pattern that hold an MoE block."""
+    return [p for p in range(cfg.period) if cfg.moe_on_layer(p)]
+
+
+def expert_bytes(params, cfg) -> int:
     return sum(ffn[k].numel() * ffn[k].element_size()
+               for ffn in (params["blocks"][p]["ffn"]
+                           for p in moe_positions(cfg))
                for k in ("w_gate", "w_up", "w_down"))
+
+
+def expert_count(params, cfg) -> int:
+    """The experts a stack holds (dimension 1 of ``w_gate``)."""
+    return params["blocks"][moe_positions(cfg)[0]]["ffn"]["w_gate"].shape[1]
 
 
 def moe_decode_batch(tok, cache, i):
@@ -4964,21 +5026,21 @@ def moe_meta_decode(run: MoeRun, dtype=None):
     mesh = RecordingMesh((1, run.serve_model), ("data", "model"))
     params = place_params(init_model(None, cfg, device=META), cfg, mesh)
     cache = place_cache(mmodel.init_cache(
-        cfg, GREEDY_PROMPTS, GREEDY_PROMPT_LEN + GREEDY_NEW, device=META),
-        cfg, mesh)
+        cfg, GREEDY_PROMPTS, GREEDY_PROMPT_LEN + run.new_tokens,
+        device=META), cfg, mesh)
     tok = torch.zeros((GREEDY_PROMPTS,), dtype=torch.int32, device=META)
     _, cnt = counted(make_decode_step(cfg, mesh=mesh), params,
                      moe_decode_batch(tok, cache, 0))
     return cnt.table()
 
 
-def moe_serve_rank(rank, world, run, prompts, device="cuda", dtypes=(None,),
-                   gap=False):
+def moe_serve_rank(rank, world, run, prompts, device="cuda", dtypes=(None,)):
     """a on one rank (gloo, data 1 x model ``serve_model``), once for
-    each of ``dtypes``."""
+    each of ``dtypes``, an f32 pass teacher-forced along its stream too."""
     card_flags()
     mesh = make_test_mesh(data=1, model=run.serve_model, device=device)
-    return {dt: moe_serve_one(mesh, run, prompts, dt, gap) for dt in dtypes}
+    return {dt: moe_serve_one(mesh, run, prompts, dt, dt == "float32")
+            for dt in dtypes}
 
 
 @torch.no_grad()
@@ -4986,26 +5048,28 @@ def moe_serve_one(mesh, run, prompts, dtype, gap):
     """a in ``dtype`` on this rank: its blocks drawn by ``init_params``
     (one rank at a time: a whole f32 expert stack is 17.8 GB for
     arctic), the prompts' prefill, the first decode step counted, the
-    other 30 timed; with ``gap``, then the rank's logits along its
-    stream (rank 0 keeps them)."""
+    others timed; with ``gap``, then the rank's logits along its stream
+    (rank 0 keeps them)."""
     dev = mesh.device
     cfg = run.cfg(dtype=dtype)
     t0 = time.perf_counter()
     for r in range(mesh.size):
         if r == mesh.rank:
+            t1 = time.perf_counter()
             before = torch.cuda.memory_allocated(dev)
             params = init_params(torch.Generator(device=dev).manual_seed(0),
                                  cfg, mesh, device=dev)
             held = torch.cuda.memory_allocated(dev) - before
             torch.cuda.empty_cache()
+            draw_s = time.perf_counter() - t1
         barrier(mesh)
     make_s = time.perf_counter() - t0
     prefill = make_prefill_step(cfg, mesh=mesh)
     decode = make_decode_step(cfg, mesh=mesh)
     t0 = time.perf_counter()
     tok, pre = prefill(params, {"tokens": torch.from_numpy(prompts).to(dev)})
-    cache = tpc_grow(cfg, pre, len(prompts), GREEDY_PROMPT_LEN + GREEDY_NEW,
-                     mesh)
+    cache = tpc_grow(cfg, pre, len(prompts),
+                     GREEDY_PROMPT_LEN + run.new_tokens, mesh)
     del pre
     out = [tok]
     (tok, _), cnt = counted(decode, params, moe_decode_batch(tok, cache, 0))
@@ -5013,11 +5077,11 @@ def moe_serve_one(mesh, run, prompts, dtype, gap):
     sync(dev)
     prefill_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for i in range(1, GREEDY_NEW - 1):
+    for i in range(1, run.new_tokens - 1):
         tok, _ = decode(params, moe_decode_batch(tok, cache, i))
         out.append(tok)
     sync(dev)
-    ms = (time.perf_counter() - t0) / (GREEDY_NEW - 2) * 1e3
+    ms = (time.perf_counter() - t0) / (run.new_tokens - 2) * 1e3
     # for scale: one all-reduce of a decode step's (B, d) over model here
     x = torch.zeros((len(prompts), cfg.d_model), dtype=torch.bfloat16,
                     device=dev)
@@ -5033,9 +5097,9 @@ def moe_serve_one(mesh, run, prompts, dtype, gap):
         forced = tpc_teacher_forced(params, prompts, toks, dev, cfg,
                                     mesh=mesh).cpu()
     res = dict(tokens=toks, decode_ms=ms, allreduce_ms=ar_ms,
-               table=cnt.table(), held=held, make_s=make_s,
-               prefill_s=prefill_s, expert_bytes=expert_bytes(params),
-               experts=params["blocks"][0]["ffn"]["w_gate"].shape[1],
+               table=cnt.table(), held=held, make_s=make_s, draw_s=draw_s,
+               prefill_s=prefill_s, expert_bytes=expert_bytes(params, cfg),
+               experts=expert_count(params, cfg),
                forced=forced if mesh.rank == 0 else None)
     del params, cache
     torch.cuda.empty_cache()
@@ -5043,14 +5107,13 @@ def moe_serve_one(mesh, run, prompts, dtype, gap):
 
 
 def drive_moe_serve(run: MoeRun, device="cuda", dtypes=(None,),
-                    unchecked=(), gap=False):
+                    unchecked=()):
     """a from the parent: the ranks (one spawn for every dtype of
     ``dtypes``), then for each the one-rank run (whole parameters) and
     its teacher-forced argmax along the ranks' streams, held at every
-    clear margin but for the dtypes in ``unchecked``. With ``gap``, also
-    the largest |logit| gap between rank 0's teacher-forced logits along
-    its stream and the one rank's, held within ``F32_LOGIT_TOL`` in
-    f32."""
+    clear margin but for the dtypes in ``unchecked``. In f32, also the
+    largest |logit| gap between rank 0's teacher-forced logits along its
+    stream and the one rank's, held within ``F32_LOGIT_TOL``."""
     prompts = np.random.default_rng(0).integers(       # 16c's prompts
         0, run.cfg().vocab_size, (GREEDY_PROMPTS, GREEDY_PROMPT_LEN)
         ).astype(np.int32)
@@ -5059,7 +5122,7 @@ def drive_moe_serve(run: MoeRun, device="cuda", dtypes=(None,),
     t0 = time.perf_counter()
     res = run_ranks(moe_serve_rank, run.serve_model, backend="gloo",
                     device=device, timeout=SPMD_TIMEOUT,
-                    args=(run, prompts, device, dtypes, gap),
+                    args=(run, prompts, device, dtypes),
                     threads=CORES // run.serve_model)
     ranks_s = time.perf_counter() - t0
     dry = [c.result() for c in counting]
@@ -5078,8 +5141,9 @@ def moe_serve_checks(run, device, dtype, streams_checked, prompts, res,
     cfg = run.cfg(dtype=dtype)
     gap = res[0]["forced"] is not None
     t0 = time.perf_counter()
-    one_tok, one_ms, params = tpc_one_rank(prompts, device, cfg)
-    whole = expert_bytes(params)
+    one_tok, one_ms, params = tpc_one_rank(prompts, device, cfg,
+                                           new=run.new_tokens)
+    whole = expert_bytes(params, cfg)
     streams = res[0]["tokens"]
     lg = tpc_teacher_forced(params, prompts, streams, device, cfg)
     del params
@@ -5110,7 +5174,8 @@ def moe_serve_checks(run, device, dtype, streams_checked, prompts, res,
         log(f"    rank {r}: {o['experts']} experts, expert bytes "
             f"{o['expert_bytes']:,} of {whole:,} "
             f"({o['expert_bytes'] / whole:.4f}), parameters held "
-            f"{o['held']:,} B; {o['decode_ms']:.2f} ms per decode step, "
+            f"{o['held']:,} B (drawn in {o['draw_s']:.2f} s); "
+            f"{o['decode_ms']:.2f} ms per decode step, "
             f"{o['allreduce_ms']:.2f} ms per all-reduce of a step's "
             f"({GREEDY_PROMPTS}, {cfg.d_model}) bf16 alone")
     log(f"    a decode step's rank FLOPs: card {analyze(r0['table'])['flops']:.6e}"
@@ -5119,6 +5184,13 @@ def moe_serve_checks(run, device, dtype, streams_checked, prompts, res,
         f"({a['collectives']['all-reduce']:.6e} wire bytes); "
         f"{np.mean([o['decode_ms'] for o in res]):.2f} ms per decode step "
         f"against one rank's {one_ms:.2f}")
+    if "mamba" in cfg.layer_pattern:
+        relay = mamba_relay_bytes(cfg, len(prompts))
+        log(f"    of those wire bytes, re-laying the Mamba mixers' "
+            f"activations (xz, xh, dt/B/C, delta; counted from their "
+            f"shapes) {relay:.6e} "
+            f"({relay / a['collectives']['all-reduce']:.4f}); re-laying "
+            f"weights 0 (no weight is re-laid)")
     log(f"    streams equal to one rank's greedy tokens: "
         f"{np.array_equal(streams, one_tok)} "
         f"({int((streams == one_tok).sum())} of {streams.size} positions); "
@@ -5133,7 +5205,7 @@ def moe_serve_checks(run, device, dtype, streams_checked, prompts, res,
             f"{LOGIT_TOL}: " + (", ".join(
                 f"prompt {b} step {t} ({gaps[b, t]:.4g})" for b, t in big)
                 or "none"))
-        if cfg.param_dtype == "float32" and gaps.max() > F32_LOGIT_TOL:
+        if gaps.max() > F32_LOGIT_TOL:
             raise AssertionError(f"{tag}: logits {gaps.max()} from one "
                                  f"rank's, past {F32_LOGIT_TOL}")
     for r, o in enumerate(res):
@@ -5149,7 +5221,7 @@ def moe_serve_checks(run, device, dtype, streams_checked, prompts, res,
                 or o["expert_bytes"] * run.serve_model != whole):
             raise AssertionError(f"{tag} rank {r}: {o['experts']} experts, "
                                  f"{o['expert_bytes']} of {whole} B")
-    if not (finite and streams.shape == (GREEDY_PROMPTS, GREEDY_NEW)
+    if not (finite and streams.shape == (GREEDY_PROMPTS, run.new_tokens)
             and (agree[clear].all() or not streams_checked)):
         raise AssertionError(f"{tag}: a stream leaves one rank's greedy "
                              "argmax at a clear margin, or the logits are "
@@ -5177,7 +5249,7 @@ def moe_placed_state(cfg, tc, mesh):
 def moe_placed_meta(run: MoeRun):
     """b's placed step on rank 0 of a recording mesh data 2 x model 2,
     on the meta device: its op table."""
-    cfg, tc = run.cfg(run.placed_experts), placed_tc("none")
+    cfg, tc = run.train_cfg(run.placed_experts), placed_tc("none")
     mesh = RecordingMesh((MOE_DATA, MOE_MODEL), ("data", "model"))
     state, specs = place_state(abstract_state(cfg, tc,
                                               max_pos=TRAIN_SEQ + 1), mesh)
@@ -5188,12 +5260,20 @@ def moe_placed_meta(run: MoeRun):
     return cnt.table()
 
 
+def moe_placed_report(run: MoeRun) -> int:
+    """b's placed state bytes a rank, as the meta report states them."""
+    return state_bytes_per_rank(run.train_cfg(run.placed_experts),
+                                placed_tc("none"),
+                                {"data": MOE_DATA, "model": MOE_MODEL},
+                                max_pos=TRAIN_SEQ + 1)["total"]
+
+
 def moe_placed_run(mesh, run: MoeRun):
     """b's placed masked steps on this rank (16a's batches and masks,
     AdamW, no remat): bytes placed, seconds per step, the last step's op
     table, the gathered parameters identical on every rank."""
     dev = mesh.device
-    cfg, tc = run.cfg(run.placed_experts), placed_tc("none")
+    cfg, tc = run.train_cfg(run.placed_experts), placed_tc("none")
     torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev)
     state, specs = moe_placed_state(cfg, tc, mesh)
@@ -5217,9 +5297,8 @@ def moe_placed_run(mesh, run: MoeRun):
             table = cnt.table()
     out = dict(placed=placed, losses=losses, secs=secs, table=table,
                tp=step.placement.tp, peak=torch.cuda.max_memory_allocated(dev),
-               report=state_bytes_per_rank(cfg, tc, mesh.shape,
-                                           max_pos=TRAIN_SEQ + 1)["total"],
-               experts=state["params"]["blocks"][0]["ffn"]["w_gate"].shape[1])
+               report=moe_placed_report(run),
+               experts=expert_count(state["params"], cfg))
     del step
     out["same"] = agreed(mesh, gather_tree(state["params"], specs["params"],
                                            mesh))
@@ -5238,9 +5317,9 @@ def moe_train_rank(rank, world, run, ref_dir, device="cuda"):
     card_flags()
     mesh = make_test_mesh(data=MOE_DATA, model=MOE_MODEL, device=device)
     t0 = time.perf_counter()
-    out = {"placed": moe_placed_run(mesh, run)}
+    out = {"placed": moe_placed_run(mesh, run) if run.placed_steps else None}
     out["placed_s"] = time.perf_counter() - t0
-    gcfg = run.cfg(run.gen_experts)
+    gcfg = run.train_cfg(run.gen_experts)
     for mode in run.gen_modes:
         t0 = time.perf_counter()
         out[mode] = gen_rank_run(mesh, mode, False, cfg=gcfg,
@@ -5268,7 +5347,7 @@ def drive_moe_train(run: MoeRun, device="cuda"):
                                tc=moe_gen_tc(mode, True))
               for mode in run.twin_modes}
     t_ref = time.perf_counter() - t0
-    gcfg = run.cfg(run.gen_experts)
+    gcfg = run.train_cfg(run.gen_experts)
 
     def meta_counts():
         t0 = time.perf_counter()
@@ -5313,7 +5392,8 @@ def drive_moe_train(run: MoeRun, device="cuda"):
                             ref, device)
     del ref
     r0 = res[0]
-    log(f"  {tag}: {run.arch} at its published widths, {run.layers} layer, "
+    log(f"  {tag}: {run.arch} at its published widths, {gcfg.n_layers} "
+        f"layer(s) ({', '.join(gcfg.layer_pattern)}), "
         f"bf16, on data {MOE_DATA} x model {MOE_MODEL} (4 gloo ranks sharing"
         f" the card, {ranks_s:.1f} s with start-up: rank 0's placed steps "
         f"{r0['placed_s']:.1f} s, general modes " + ", ".join(
@@ -5323,18 +5403,26 @@ def drive_moe_train(run: MoeRun, device="cuda"):
         f"counts {t_meta:.1f} s)")
     bad = []
     p, a = r0["placed"], analyze(dry["placed"])
-    log(f"    placed masked step, {run.placed_experts} experts "
-        f"({p['experts']} a rank), AdamW, 4 agents with 2 masked a step: s "
-        f"per step (rank 0) " + ", ".join(f"{t:.2f}" for t in p["secs"])
-        + f"; losses {p['losses']}; all-reduces a rank "
-        f"{a['collective_count']:.0f} ({a['collectives']['all-reduce']:.6e}"
-        f" wire bytes), FLOPs {a['flops']:.6e}; state bytes a rank " +
-        ", ".join(f"{o['placed']['placed']:,}" for o in res)
-        + f" (meta report {p['report']:,}); most bytes allocated " + ", ".join(
-            f"{o['placed']['peak']:,}" for o in res) + "; gathered "
-        f"parameters identical on every rank: "
-        f"{all(o['placed']['same'] for o in res)}; tp axes {p['tp']}")
-    for r, o in enumerate(res):
+    if p is None:
+        log(f"    placed masked step on the meta device only (not run: see "
+            f"the phase's cut), {run.placed_experts} experts, AdamW: "
+            f"all-reduces a rank {a['collective_count']:.0f} "
+            f"({a['collectives']['all-reduce']:.6e} wire bytes), FLOPs "
+            f"{a['flops']:.6e}; state bytes a rank {moe_placed_report(run):,}")
+    else:
+        log(f"    placed masked step, {run.placed_experts} experts "
+            f"({p['experts']} a rank), AdamW, 4 agents with 2 masked a step: "
+            f"s per step (rank 0) " + ", ".join(f"{t:.2f}" for t in p["secs"])
+            + f"; losses {p['losses']}; all-reduces a rank "
+            f"{a['collective_count']:.0f} "
+            f"({a['collectives']['all-reduce']:.6e} wire bytes), FLOPs "
+            f"{a['flops']:.6e}; state bytes a rank " +
+            ", ".join(f"{o['placed']['placed']:,}" for o in res)
+            + f" (meta report {p['report']:,}); most bytes allocated "
+            + ", ".join(f"{o['placed']['peak']:,}" for o in res)
+            + "; gathered parameters identical on every rank: "
+            f"{all(o['placed']['same'] for o in res)}; tp axes {p['tp']}")
+    for r, o in enumerate(res if p is not None else ()):
         q = o["placed"]
         require_same_ops(f"{tag} placed rank {r}", dry["placed"], q["table"],
                          keys=("flops",))
@@ -5401,8 +5489,9 @@ def drive_moe_train(run: MoeRun, device="cuda"):
             errs[mode] = max(errs.get(mode, 0.0), max(
                 float(np.max(np.abs(x - y)))
                 for x, y in zip(tw["params"], oracle[mode])))
-    log(f"    f32 twins (reduced {run.arch}, {run.twin_layers} layers, "
-        f"{run.twin_cfg().moe.num_experts} experts, SGD-momentum, remat): "
+    log(f"    f32 twins (reduced {run.arch}, {run.twin_cfg().n_layers} "
+        f"layers, {run.twin_cfg().moe.num_experts} experts, SGD-momentum, "
+        f"remat): "
         f"the placed step against the one-process make_train_step "
         f"{twin_err:.3e}, identical on every rank: "
         f"{all(o['placed_twin_same'] for o in res)}; the general step "
@@ -5414,6 +5503,40 @@ def drive_moe_train(run: MoeRun, device="cuda"):
     if bad:
         raise AssertionError(f"{tag}: " + "; ".join(bad))
     log(f"  {tag} in {time.perf_counter() - t_all:.1f} s")
+
+
+# jamba: 22a one period (8 layers: 7 Mamba, 1 GQA, 4 MoE blocks) at
+# 26.6 GB in bf16 with all 16 experts, 6.7 GB a rank at model 4; its f32
+# pass at 4 experts (one a rank; 19.4 GB whole, where 16 would be 53 GB
+# on the card beside the ranks). Its decode step is 60 gloo all-reduces
+# (~0.4 s in bf16, ~0.7 in f32), so it streams 16 new tokens, and only
+# the f32 pass is teacher-forced on the ranks. 22b at the published
+# widths, the period cut to its positions 4-5 (a GQA layer with a dense
+# MLP, a Mamba layer with an MoE block): at 8 layers and 2 experts its
+# 3.43e9 parameters would want ~69 GB on 4 ranks for the placed step
+# with SGD, ~89 with AdamW and ~96 for cge (meta counts, peak
+# temporaries beside state); at 2 layers the placed step runs 4 experts
+# (AdamW, ~10 GB a rank), cge 2 (~9 GB a rank), quantized (~19 GB a
+# rank) is counted on the meta device and runs on the twins (reduced
+# jamba, cut as 22b is)
+JAMBA = MoeRun("22", "jamba-v0.1-52b", 8, 4, 4, 2, ("cge",),
+               ("cge", "quantized"), placed_steps=1,
+               meta_modes=("quantized",), f32_experts=4,
+               train_pattern=("attn", "mamba"), new_tokens=16)
+
+
+def mamba_relay_bytes(cfg, rows: int) -> int:
+    """Wire bytes a rank of one decode step's Mamba re-layouts (ring
+    convention: twice each all-reduce's payload): every Mamba layer
+    gathers ``xz`` (2 di), ``xh`` (di) and ``x_proj``'s products (dt_rank
+    + 2 d_state) in the compute dtype and ``delta`` (di) in f32."""
+    ssm = cfg.ssm
+    di = ssm.expand * cfg.d_model
+    rank = ssm.dt_rank or -(-cfg.d_model // 16)
+    es = torch.finfo(getattr(torch, cfg.compute_dtype)).bits // 8
+    per = rows * ((3 * di + rank + 2 * ssm.d_state) * es + di * 4)
+    n_mamba = cfg.n_layers // cfg.period * cfg.layer_pattern.count("mamba")
+    return 2 * per * n_mamba
 
 
 def drive_arctic(device="cuda"):
@@ -5431,12 +5554,27 @@ def drive_deepseek(device="cuda"):
     one of top-6-of-160 routing's near ties, which moves a logit past
     the margin) and again in f32 at the same widths, where the streams
     are held to one rank's argmax at every clear margin and the logits
-    within ``F32_LOGIT_TOL``."""
+    within ``F32_LOGIT_TOL`` (16 new tokens, teacher-forced on the ranks
+    in f32 only, to pay for phase 22)."""
     t0 = time.perf_counter()
     drive_moe_serve(DEEPSEEK, device, dtypes=(None, "float32"),
-                    unchecked=(None,), gap=True)
+                    unchecked=(None,))
     drive_moe_train(DEEPSEEK, device)
     log(f"  phase 21 in {time.perf_counter() - t0:.1f} s")
+
+
+def drive_jamba(device="cuda"):
+    """22a-22b: jamba-v0.1-52b, its Mamba mixers over "model" beside its
+    attention heads and experts. 22a in bf16 (times, counts, bytes; the
+    streams against one rank's argmax reported: top-2 routing's near ties
+    can flip in bf16) and again in f32 at 4 experts, where the streams
+    are held to one rank's argmax at every clear margin and the logits
+    within ``F32_LOGIT_TOL``."""
+    t0 = time.perf_counter()
+    drive_moe_serve(JAMBA, device, dtypes=(None, "float32"),
+                    unchecked=(None,))
+    drive_moe_train(JAMBA, device)
+    log(f"  phase 22 in {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -5587,7 +5725,12 @@ def main() -> int:
         "placed and the general step on data 2 x model 2")
     drive_deepseek()
 
-    log("== 22. result")
+    log("== 22. jamba-v0.1-52b tensor- and expert-parallel over model, its "
+        "Mamba mixers split: launch.serve's steps on data 1 x model 4, the "
+        "placed and the general step on data 2 x model 2")
+    drive_jamba()
+
+    log("== 23. result")
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

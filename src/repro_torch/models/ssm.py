@@ -13,6 +13,13 @@ agrees with the reference within f32 rounding, not bit for bit.
 The reference's limits are kept, not repaired: a Mamba scan over S
 tokens needs ``S % min(SCAN_CHUNK, S) == 0``, and a prefill's conv tail
 holds ``min(S, d_conv - 1)`` rows (ROADMAP Queue 3).
+
+Under tensor-parallel compute (``dist.tp``: the placed train step, the
+general step and ``launch.serve``'s steps on a mesh) Mamba runs on this
+rank's blocks of the reference's compute layout (``_apply_mamba_tp``):
+its inner width di split over tp, ``a_log`` and the decode cache's
+state ``h`` split over d_state, ``w_out``'s fan-in block summed over
+tp. RWKV computes whole.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.act_sharding import constrain
+from repro_torch.dist.tp import (copy_to_tp, current_tp, gather_from_tp,
+                                 reduce_from_tp, scatter_to_tp)
 from repro_torch.models.layers import (_normal, apply_group_norm,
                                        dense_init, param_dtype)
 
@@ -37,26 +46,31 @@ def chunked_linear_scan(a, b, h0, chunk: int = SCAN_CHUNK):
     """h_t = a_t * h_{t-1} + b_t along axis 1 of (B, S, ...).
 
     Returns (h_all (B, S, ...), h_last). Raises where the reference's
-    assert fails: S not a multiple of min(chunk, S)."""
+    assert fails: S not a multiple of min(chunk, S). Every chunk is
+    scanned at once, then the state carried from chunk to chunk: the
+    same operations on the same numbers as one chunk at a time."""
     s = a.shape[1]
     c = min(chunk, s)
     if s % c:
         raise ValueError(f"linear scan over {s} steps needs a multiple of "
                          f"the chunk {c}")
-    hs, h = [], h0
-    for i in range(s // c):
-        pa, pb = a[:, i * c:(i + 1) * c], b[:, i * c:(i + 1) * c]
-        off = 1
-        while off < c:            # inclusive scan by doubling
-            pa, pb = (torch.cat([pa[:, :off], pa[:, off:] * pa[:, :-off]], 1),
-                      torch.cat([pb[:, :off],
-                                 pb[:, :-off] * pa[:, off:] + pb[:, off:]],
-                                1))
-            off *= 2
-        chunk_h = pb + pa * h[:, None]
-        h = chunk_h[:, -1]
-        hs.append(chunk_h)
-    return torch.cat(hs, 1), h
+    k = s // c
+    pa = a.reshape(a.shape[0], k, c, *a.shape[2:])
+    pb = b.reshape(pa.shape)
+    off = 1
+    while off < c:                # inclusive scan by doubling, per chunk
+        pa, pb = (torch.cat([pa[:, :, :off],
+                             pa[:, :, off:] * pa[:, :, :-off]], 2),
+                  torch.cat([pb[:, :, :off],
+                             pb[:, :, :-off] * pa[:, :, off:]
+                             + pb[:, :, off:]], 2))
+        off *= 2
+    starts, h = [], h0
+    for i in range(k):            # each chunk's starting state
+        starts.append(h)
+        h = pb[:, i, -1] + pa[:, i, -1] * h
+    hs = pb + pa * torch.stack(starts, 1)[:, :, None]
+    return hs.reshape(b.shape), h
 
 
 # ---------------------------------------------------------------------------
@@ -73,8 +87,9 @@ def init_mamba(gen, cfg: ArchConfig, device):
     d, dt = cfg.d_model, param_dtype(cfg)
     di = ssm.expand * d
     rank = _dt_rank(cfg)
-    a = torch.arange(1, ssm.d_state + 1, dtype=torch.float32,
-                     device=device).expand(di, ssm.d_state)
+    # log(1..N) made on the host and moved: a first log or arange on the
+    # meta device loads its Python kernels, seconds in a fresh process
+    a_log = torch.log(torch.arange(1, ssm.d_state + 1, dtype=torch.float32))
     f32 = dict(dtype=torch.float32, device=device)
     return {
         "w_in": dense_init(gen, d, 2 * di, dt, device),
@@ -83,7 +98,7 @@ def init_mamba(gen, cfg: ArchConfig, device):
         "x_proj": dense_init(gen, di, rank + 2 * ssm.d_state, dt, device),
         "dt_w": dense_init(gen, rank, di, dt, device),
         "dt_b": torch.full((di,), -4.6, **f32),    # softplus^-1(0.01)
-        "a_log": torch.log(a),                     # f32
+        "a_log": a_log.expand(di, ssm.d_state).contiguous().to(device),
         "d": torch.ones(di, **f32),
         "w_out": dense_init(gen, di, d, dt, device),
     }
@@ -107,6 +122,10 @@ def apply_mamba(p, x, cfg: ArchConfig, *, cache=None, return_cache=False):
     b, s, d = x.shape
     di, n = ssm.expand * d, ssm.d_state
     rank = _dt_rank(cfg)
+    tp = current_tp()
+    if tp is not None and p["w_in"].shape[-1] != 2 * di:
+        return _apply_mamba_tp(p, x, cfg, tp, cache=cache,
+                               return_cache=return_cache)
 
     xz = x @ p["w_in"]
     xh, z = constrain(xz[..., :di], "ffn"), constrain(xz[..., di:], "ffn")
@@ -153,6 +172,102 @@ def apply_mamba(p, x, cfg: ArchConfig, *, cache=None, return_cache=False):
     y = y + p["d"] * xh.to(torch.float32)
     y = y.to(x.dtype) * F.silu(z.to(torch.float32)).to(x.dtype)
     return y @ p["w_out"], new_cache
+
+
+def _apply_mamba_tp(p, x, cfg: ArchConfig, tp, *, cache, return_cache):
+    """Mamba on this rank's blocks of the compute layout, as the reference's
+    compiled steps split it (read from their HLO): ``w_in`` and ``x_proj``
+    on their fan-out columns, ``conv_w``, ``conv_b``, ``dt_w``, ``dt_b``
+    and ``d`` on a block of di, ``a_log`` on a block of d_state, ``w_out``
+    on its fan-in rows.
+
+    - ``xz`` is computed on this rank's columns, which lie in the ``xh``
+      half or the ``z`` half, and re-laid to this rank's block of di in
+      each (the reference's collective-permutes; here one gather of
+      ``xz`` whole, its gradient summed back to the columns).
+    - The causal conv runs on the di block. ``xh`` is gathered whole for
+      ``x_proj``; its columns' products (dt, B, C) are gathered whole and
+      their gradients summed over tp, as is ``xh``'s.
+    - Train and prefill scan this rank's block of di over every state,
+      ``a_log`` re-laid to that block (the reference's all-to-all). A
+      prefill returns the cache in ``cache_specs``' layout: ``h`` on this
+      rank's block of d_state, ``conv`` on its block of di.
+    - A decode updates its block of d_state of ``h`` from ``delta``
+      gathered whole and sums ``y``'s partial dots over tp.
+    - ``w_out``'s partial products are summed over tp.
+
+    Where tp does not divide ``x_proj``'s fan-out or d_state, that leaf
+    and ``h`` are whole, as the reference's ``fit`` leaves them.
+    """
+    ssm = cfg.ssm
+    b, s, d = x.shape
+    di, n = ssm.expand * d, ssm.d_state
+    rank = _dt_rank(cfg)
+    decode = cache is not None and s == 1
+    if cache is not None and not decode:
+        raise NotImplementedError("a prefill over a given Mamba state runs "
+                                  "whole (no tensor-parallel form)")
+    split_n = p["a_log"].shape[-1] != n
+
+    xz = gather_from_tp(copy_to_tp(x) @ p["w_in"], -1)     # (B, S, 2 di)
+    xz = scatter_to_tp(xz.reshape(b, s, 2, -1), -1)        # this di block
+    xh, z = constrain(xz[:, :, 0], "ffn"), constrain(xz[:, :, 1], "ffn")
+    if decode:
+        window = torch.cat([cache["conv"], xh], dim=1)      # (B, K, di/n)
+        new_conv = window[:, 1:]
+        xc = (torch.einsum("bkd,kd->bd", window,
+                           p["conv_w"].to(xh.dtype))[:, None]
+              + p["conv_b"].to(xh.dtype))
+    else:
+        xc = _mamba_conv_train(p, xh)
+    xc = F.silu(xc.to(torch.float32)).to(x.dtype)
+
+    xw = gather_from_tp(xc, -1)                             # (B, S, di)
+    if p["x_proj"].shape[-1] == rank + 2 * n:
+        dbc = copy_to_tp(xw @ p["x_proj"])
+    else:
+        dbc = copy_to_tp(gather_from_tp(copy_to_tp(xw) @ p["x_proj"], -1))
+    dt_in, b_, c_ = (dbc[..., :rank], dbc[..., rank:rank + n],
+                     dbc[..., rank + n:])
+    delta = F.softplus((dt_in @ p["dt_w"]).to(torch.float32)
+                       + p["dt_b"])                    # (B, S, di/n) f32
+
+    new_cache = None
+    if decode:
+        # this rank's block of d_state, every channel
+        nb = tp.block(n) if split_n else slice(None)
+        dw = gather_from_tp(delta, -1)[:, 0]                # (B, di)
+        a = -torch.exp(p["a_log"])                          # (di, N/n)
+        h = (torch.exp(dw[..., None] * a) * cache["h"]
+             + (dw * xw[:, 0].to(torch.float32))[..., None]
+             * b_[:, 0, nb].to(torch.float32)[:, None])     # (B, di, N/n)
+        y = torch.einsum("bdn,bn->bd", h, c_[:, 0, nb].to(torch.float32))
+        if split_n:
+            y = reduce_from_tp(y)
+        y = y[:, None, tp.block(di)]
+        cache["h"].copy_(h)
+        cache["conv"].copy_(new_conv)
+        new_cache = cache
+    else:
+        # this rank's block of di, every state
+        a_log = p["a_log"] if not split_n else gather_from_tp(p["a_log"], -1)
+        a = -torch.exp(copy_to_tp(a_log)[tp.block(di)])     # (di/n, N)
+        abar = torch.exp(delta[..., None] * a)              # (B, S, di/n, N)
+        bx = ((delta * xc.to(torch.float32))[..., None]
+              * b_.to(torch.float32)[:, :, None, :])
+        h0 = torch.zeros(b, a.shape[0], n, dtype=torch.float32,
+                         device=x.device)
+        hs, h_last = chunked_linear_scan(abar, bx, h0)
+        y = torch.einsum("bsdn,bsn->bsd", hs, c_.to(torch.float32))
+        if return_cache:
+            h_all = tp.gather(h_last.detach(), 1)           # (B, di, N)
+            k = p["conv_w"].shape[0]
+            new_cache = {"h": tp.keep(h_all, -1) if split_n else h_all,
+                         "conv": xh[:, -(k - 1):].detach().contiguous()}
+
+    y = y + p["d"] * xc.to(torch.float32)
+    y = y.to(x.dtype) * F.silu(z.to(torch.float32)).to(x.dtype)
+    return reduce_from_tp(y @ p["w_out"]), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ gloo ranks of the CPU, against an aggregate built here from live
 ``repro.core.gradagg`` rule on the stacked gradients, JAX's clipping,
 optimizer and ``apply_updates`` (the reference's numbers do not depend
 on its layout). SGD with momentum, f = 1, tau = 1, 3 steps, reduced
-configs cut to 2 layers, f32:
+configs cut to 2 layers (jamba to its period of 8), f32:
 
 - reduced qwen2-0.5b (tied embeddings, QKV bias) and arctic-480b (MoE:
   4 experts over the tp ranks, top-2, the dense residual; untied), all
@@ -20,7 +20,10 @@ configs cut to 2 layers, f32:
 - reduced deepseek-v2-236b (MLA over tp, 4 experts, a shared expert;
   remat), cge and quantized on data 4 x model 2 and cge with 6 query
   heads on data 2 x model 4 (``w_uk`` / ``w_uv`` split within every
-  head, ``w_uq`` and ``wo`` across head boundaries).
+  head, ``w_uq`` and ``wo`` across head boundaries);
+- reduced jamba-v0.1-52b at one period of 8 layers (7 Mamba mixers over
+  tp, one GQA layer, 4 MoE blocks; remat), cge and quantized on data 4 x
+  model 2.
 
 For each: loss, grad norm and the gathered parameters within ``TOL`` of
 the oracle; each tp block identical on every dp rank and each whole leaf
@@ -67,24 +70,30 @@ CASES = ([("data4_model2", "qwen2-0.5b", m) for m in MODES]
          + [("data2_model4_h6", "arctic-480b", "cge")]
          + [("data4_model2", "deepseek-v2-236b", m) for m in ("cge",
                                                              "quantized")]
-         + [("data2_model4_h6", "deepseek-v2-236b", "cge")])
+         + [("data2_model4_h6", "deepseek-v2-236b", "cge")]
+         + [("data4_model2", "jamba-v0.1-52b", m) for m in ("cge",
+                                                           "quantized")])
 # the agent masked at each step, per agent count
 MASKED = {4: (2, 2, 0), 2: (None, 1, None)}
 
 
-def _patch(heads):
-    return {"n_layers": 2, **({"n_heads": heads} if heads else {})}
+def _patch(cfg, heads):
+    """Two layers, or one period of a longer layer pattern (jamba's 8)."""
+    return {"n_layers": max(2, len(cfg.layer_pattern)),
+            **({"n_heads": heads} if heads else {})}
 
 
 def _cfg(name, heads=None):
-    return dataclasses.replace(get_config(name).reduced(), **_patch(heads))
+    cfg = get_config(name).reduced()
+    return dataclasses.replace(cfg, **_patch(cfg, heads))
 
 
 def _tc_kwargs(name, mode):
     return dict(mode=mode, optimizer="sgdm", lr=3e-2, lr_kind="cosine",
                 lr_total=10, warmup=1, f=1, tau=1,
                 remat_policy="full" if name in ("yi-6b", "arctic-480b",
-                                                "deepseek-v2-236b")
+                                                "deepseek-v2-236b",
+                                                "jamba-v0.1-52b")
                 else "none")
 
 
@@ -192,6 +201,9 @@ def _adopt_ties(x, deq, rx, port_err):
             int(np.sum(adopt & (q_port != q))))
 
 
+_VG = {}
+
+
 def _jax_reference(name, heads, mode, jparams, n, port_err=None):
     import jax
     import jax.numpy as jnp
@@ -200,10 +212,16 @@ def _jax_reference(name, heads, mode, jparams, n, port_err=None):
     from repro.core import gradagg
     from repro.launch import train as jtrain
     from repro.optim.optimizers import apply_updates, clip_by_global_norm
-    jcfg = dataclasses.replace(jax_config(name).reduced(), **_patch(heads))
+    jcfg = jax_config(name).reduced()
+    jcfg = dataclasses.replace(jcfg, **_patch(jcfg, heads))
     tc = jtrain.TrainConfig(**_tc_kwargs(name, mode))
     opt = jtrain.make_optimizer(tc)
-    vg = jax.jit(jax.value_and_grad(jtrain.make_loss_fn(jcfg, tc, 1)))
+    # the loss reads the config, remat and aux_coef, not the mode: one
+    # compilation per config
+    if (name, heads) not in _VG:
+        _VG[name, heads] = jax.jit(jax.value_and_grad(
+            jtrain.make_loss_fn(jcfg, tc, 1)))
+    vg = _VG[name, heads]
     params, ost = jparams, opt.init(jparams)
     flat0, unravel = ravel_pytree(params)
     ledger = np.zeros((n, flat0.size), np.float32)
@@ -268,8 +286,8 @@ def jax_params():
     for key, name, _ in CASES:
         heads = MESHES[key][2]
         if (name, heads) not in out:
-            jcfg = dataclasses.replace(jax_config(name).reduced(),
-                                       **_patch(heads))
+            jcfg = jax_config(name).reduced()
+            jcfg = dataclasses.replace(jcfg, **_patch(jcfg, heads))
             out[name, heads] = jax.tree.map(
                 np.asarray, jmodel.init_model(jax.random.PRNGKey(0), jcfg,
                                               max_pos=64))

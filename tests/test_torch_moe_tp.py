@@ -248,15 +248,16 @@ def test_one_expert_a_rank_and_the_fallback_are_what_ran(spawned):
 
 
 @pytest.mark.parametrize("name", ["arctic-480b", "deepseek-v2-236b",
-                                  "qwen2-0.5b", "rwkv6-3b"])
+                                  "jamba-v0.1-52b", "qwen2-0.5b",
+                                  "rwkv6-3b"])
 @pytest.mark.parametrize("model", [2, 4])
 def test_init_params_draws_place_params_blocks(name, model):
     """``launch.serve.init_params`` on every rank of a recording mesh:
     bit for bit ``place_params`` of the whole ``init_model`` from the
-    same seed (arctic's and deepseek's expert stacks cut to the rank's
-    experts as they are drawn, deepseek's MLA leaves to their compute
-    blocks), the whole tree where the family has no tensor-parallel
-    compute (rwkv6)."""
+    same seed (arctic's, deepseek's and jamba's expert stacks cut to the
+    rank's experts as they are drawn, deepseek's MLA and jamba's Mamba
+    leaves to their compute blocks), the whole tree where the family has
+    no tensor-parallel compute (rwkv6)."""
     from repro_torch.core.ledger import tree_flatten
     from repro_torch.launch.mesh import RecordingMesh
     from repro_torch.launch.serve import init_params, place_params
@@ -278,17 +279,20 @@ def test_init_params_draws_place_params_blocks(name, model):
         if cfg.moe is not None:
             local = init_params(torch.Generator().manual_seed(0), cfg, mesh,
                                 device="meta", max_pos=64)
-            assert local["blocks"][0]["ffn"]["w_up"].shape[1] == \
+            pos = next(i for i in range(cfg.period) if cfg.moe_on_layer(i))
+            assert local["blocks"][pos]["ffn"]["w_up"].shape[1] == \
                 cfg.moe.num_experts // model
 
 
 def test_tp_compute_covers_the_gqa_decoders():
-    """The one predicate: the dense GQA decoders, arctic (GQA with MoE)
-    and deepseek-v2 (MLA with MoE) compute tensor-parallel; the SSM
-    hybrid (jamba), RWKV and the encoder-decoder (whisper) do not yet."""
+    """The one predicate: the dense GQA decoders, arctic (GQA with MoE),
+    deepseek-v2 (MLA with MoE) and the Mamba hybrid jamba (Mamba and GQA
+    with MoE) compute tensor-parallel; RWKV and the encoder-decoder
+    (whisper) do not yet."""
     from repro_torch.configs.registry import list_configs
     from repro_torch.dist.tp import tp_compute
     got = {n: tp_compute(get_config(n)) for n in list_configs()}
     assert {n for n, ok in got.items() if ok} == {
-        "arctic-480b", "deepseek-v2-236b", "qwen1.5-4b", "qwen2-0.5b",
-        "qwen2-1.5b", "qwen2-vl-2b", "yi-6b"}
+        "arctic-480b", "deepseek-v2-236b", "jamba-v0.1-52b", "qwen1.5-4b",
+        "qwen2-0.5b", "qwen2-1.5b", "qwen2-vl-2b", "yi-6b"}
+    assert not got["rwkv6-3b"] and not got["whisper-base"]

@@ -1,5 +1,6 @@
 """Tensor-parallel compute over "model" for the attention decoders, GQA
-and MLA, dense and MoE (``repro_torch.dist.tp`` and the layers, steps
+and MLA, dense and MoE, and jamba's Mamba hybrid
+(``repro_torch.dist.tp`` and the layers, steps
 and placement that read it), on gloo ranks of the CPU, against live
 ``repro`` run unsharded (the reference's numbers do not depend on its
 layout):
@@ -11,25 +12,29 @@ layout):
   bias), yi-6b (untied unembedding), arctic-480b (4 experts over the tp
   ranks, top-2, the dense residual, untied; 4 dispatch groups) and
   deepseek-v2-236b (MLA: its latents, ``w_uk`` / ``w_uv`` and ``wo``
-  over tp; 4 experts, top-2, a shared expert; remat), 2 layers, f32,
+  over tp; 4 experts, top-2, a shared expert; remat), 2 layers, and
+  jamba-v0.1-52b (one period of 8 layers: 7 Mamba mixers over tp, one
+  GQA layer, 4 MoE blocks of 4 experts; remat), f32,
   SGD-momentum and AdamW, 3 steps with a mask dropping one of 4 agents,
   on data 1 x model 2 (H % tp = 0: each rank its own heads), data 2 x
   model 2, and data 1 x model 4 with 6 query heads (``wq`` split across
-  head boundaries, the heads over gcd(6, 4) = 2 groups): loss, grad norm
+  head boundaries, the heads over gcd(6, 4) = 2 groups), jamba on the
+  last two only (AdamW, then SGD-momentum): loss, grad norm
   and the gathered parameters within ``TOL`` of the reference's
   ``make_train_step``, and identical on every rank;
 - ``launch.serve``'s prefill and decode at model 2 and 4 (arctic at
   model 4: one expert a rank; deepseek's cache holds this rank's latent
-  and rope-key columns): logits within ``TOL`` of the reference's,
-  greedy tokens equal;
+  and rope-key columns, jamba's its block of each Mamba state's d_state
+  and conv rows' di): logits within ``TOL`` of the reference's, greedy
+  tokens equal;
 - a rank's matmul FLOPs (``OpCounter`` on the meta device) are 1/tp of
   the one-process step's, but for the whole leaves ``wk`` / ``wv`` (a
   rank projects the KV heads its query heads read) and the tied
   unembedding's input gradient where many tokens gathered the weight
   (whole on every rank, as the reference's compiled step computes it),
-  arctic's and deepseek's experts and router and deepseek's MLA
-  included: the step does not gather whole
-  and compute whole;
+  arctic's and deepseek's experts and router, deepseek's MLA and
+  jamba's Mamba included: the step does not gather whole and compute
+  whole;
 - at model = 1 the dense step, and at model 2 a family without
   tensor-parallel compute (reduced rwkv6-3b, whole on every rank: its
   rank FLOPs are the one-rank step's), are bit for bit the placed step
@@ -37,7 +42,10 @@ layout):
   a tree without it).
 
 TOL is 1e-5 (rtol and atol), as the placed step's own parity tests:
-the partial products are summed over ranks in another order.
+the partial products are summed over ranks in another order. jamba's
+serving logits are held within TOL of the port's one process and within
+1e-4 of JAX's, the bound ``test_torch_families.py`` holds the one
+process to (its scan and f32 state against ``lax.associative_scan``'s).
 """
 import dataclasses
 import hashlib
@@ -52,25 +60,38 @@ from repro_torch.launch.mesh import run_ranks
 TOL = dict(rtol=1e-5, atol=1e-5)
 N_AGENTS, B, S, STEPS = 4, 8, 16, 3
 TIMEOUT = 300
-ARCHS = ("qwen2-0.5b", "yi-6b", "arctic-480b", "deepseek-v2-236b")
+JAMBA = "jamba-v0.1-52b"
+ARCHS = ("qwen2-0.5b", "yi-6b", "arctic-480b", "deepseek-v2-236b", JAMBA)
 WHOLE = "rwkv6-3b"          # a family without tensor-parallel compute
 OPTIMIZERS = ("sgdm", "adamw")
 # name -> (data, model, n_heads patch)
 MESHES = {"model2": (1, 2, None), "data2_model2": (2, 2, None),
           "model4_h6": (1, 4, 6)}
+# every mesh and optimizer, but jamba's 8-layer period (about 20 s of JAX
+# compilation a step) on two: model 2 with AdamW, model 4 with SGD-momentum
+PLACED = ([(m, n, o) for m in sorted(MESHES) for n in ARCHS if n != JAMBA
+           for o in OPTIMIZERS]
+          + [("data2_model2", JAMBA, "adamw"), ("model4_h6", JAMBA, "sgdm")])
 SERVE = (("model2", "qwen2-0.5b"), ("model2", "yi-6b"),
          ("model4_h6", "qwen2-0.5b"), ("model2", "arctic-480b"),
          ("model4_h6", "arctic-480b"), ("model2", "deepseek-v2-236b"),
-         ("model4_h6", "deepseek-v2-236b"))
+         ("model4_h6", "deepseek-v2-236b"), ("model4_h6", JAMBA))
+# logits of a recurrent family against JAX's: the bound the one-process
+# port is held to (``test_torch_families.py``), the TP run within TOL of
+# the one process's
+RECURRENT_TOL = dict(rtol=1e-4, atol=1e-4)
 PROMPT, NEW, MAX_LEN = 6, 4, 12
 
 
-def _patch(heads):
-    return {"n_layers": 2, **({"n_heads": heads} if heads else {})}
+def _patch(cfg, heads):
+    """Two layers, or one period of a longer layer pattern (jamba's 8)."""
+    return {"n_layers": max(2, len(cfg.layer_pattern)),
+            **({"n_heads": heads} if heads else {})}
 
 
 def _cfg(name, heads=None):
-    return dataclasses.replace(get_config(name).reduced(), **_patch(heads))
+    cfg = get_config(name).reduced()
+    return dataclasses.replace(cfg, **_patch(cfg, heads))
 
 
 def _tc_kwargs(name, optimizer):
@@ -78,7 +99,8 @@ def _tc_kwargs(name, optimizer):
                 lr=3e-2 if optimizer == "sgdm" else 1e-4,
                 lr_kind="cosine", lr_total=10, warmup=1,
                 remat_policy=("full" if name in ("yi-6b", "arctic-480b",
-                                                 "deepseek-v2-236b", WHOLE)
+                                                 "deepseek-v2-236b",
+                                                 "jamba-v0.1-52b", WHOLE)
                               else "none"))
 
 
@@ -98,6 +120,15 @@ def _batches():
 def _prompt():
     return np.random.default_rng(7).integers(
         0, 256, (2, PROMPT)).astype(np.int32)
+
+
+def _fill(buf, pre):
+    """A dense decode cache's leaf (in place) from the prefill's: the
+    prompt's rows of an attention cache, a Mamba layer's whole state."""
+    if buf.shape == pre.shape:
+        buf.copy_(pre)
+    else:
+        buf[:, :, :PROMPT] = pre
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +177,7 @@ def _serve(mesh, cfg, np_params):
                               cfg, mesh)
         for c, p in zip(cache, pc):
             for key in c["mixer"]:
-                c["mixer"][key][:, :, :PROMPT] = p["mixer"][key]
+                _fill(c["mixer"][key], p["mixer"][key])
         tok = out[0][:, -1].argmax(-1)
         for i in range(NEW):
             logits, _, _ = apply_model(
@@ -163,13 +194,14 @@ def _serve(mesh, cfg, np_params):
                         mesh)
     for c, p in zip(big, cache):
         for key in c["mixer"]:
-            c["mixer"][key][:, :, :PROMPT] = p["mixer"][key]
+            _fill(c["mixer"][key], p["mixer"][key])
     for i in range(NEW):
         tok, _ = dec(params, {"tokens": tok[:, None], "cache": big,
                               "pos": PROMPT + i})
         steps.append(tok.numpy().copy())
     return {"logits": out, "tokens": steps,
-            "cache_hd": {k: v.shape[-1] for k, v in big[0]["mixer"].items()}}
+            "cache_hd": [{k: v.shape[-1] for k, v in c["mixer"].items()}
+                         for c in big]}
 
 
 def _rank(rank, world, meshes, np_params, batches):
@@ -180,12 +212,10 @@ def _rank(rank, world, meshes, np_params, batches):
              for k in meshes}
     for key in meshes:
         heads = MESHES[key][2]
-        for name in ARCHS:
-            cfg = _cfg(name, heads)
-            for opt in OPTIMIZERS:
-                tc = T.TrainConfig(**_tc_kwargs(name, opt))
-                out[key, name, opt] = _train(built[key], cfg, tc,
-                                             np_params[name, heads], batches)
+        for name, opt in ((n, o) for m, n, o in PLACED if m == key):
+            tc = T.TrainConfig(**_tc_kwargs(name, opt))
+            out[key, name, opt] = _train(built[key], _cfg(name, heads), tc,
+                                         np_params[name, heads], batches)
         for skey, name in SERVE:
             if skey == key:
                 out["serve", key, name] = _serve(
@@ -317,8 +347,8 @@ def jax_params():
     out = {}
     for name in ARCHS + (WHOLE,):
         for heads in ((None, 6) if name in ARCHS else (None,)):
-            jcfg = dataclasses.replace(jax_config(name).reduced(),
-                                       **_patch(heads))
+            jcfg = jax_config(name).reduced()
+            jcfg = dataclasses.replace(jcfg, **_patch(jcfg, heads))
             out[name, heads] = jax.tree.map(
                 np.asarray, jmodel.init_model(jax.random.PRNGKey(0), jcfg,
                                               max_pos=64))
@@ -343,12 +373,25 @@ def _ranks_of(spawned, key):
     return spawned[1][2 if key == "model2" else 4]
 
 
+_JAX_TRAIN = {}
+
+
 def _jax_train(name, heads, opt, jparams, batches):
+    """The reference's loss, grad norm and parameters after the steps
+    (one run per config and optimizer, shared by the meshes)."""
+    if (name, heads, opt) not in _JAX_TRAIN:
+        _JAX_TRAIN[name, heads, opt] = _run_jax_train(name, heads, opt,
+                                                      jparams, batches)
+    return _JAX_TRAIN[name, heads, opt]
+
+
+def _run_jax_train(name, heads, opt, jparams, batches):
     import jax
     import jax.numpy as jnp
     from repro.configs.registry import get_config as jax_config
     from repro.launch import train as jtrain
-    jcfg = dataclasses.replace(jax_config(name).reduced(), **_patch(heads))
+    jcfg = jax_config(name).reduced()
+    jcfg = dataclasses.replace(jcfg, **_patch(jcfg, heads))
     jtc = jtrain.TrainConfig(**_tc_kwargs(name, opt))
     state = jtrain.init_state(jax.random.PRNGKey(0), jcfg, jtc, max_pos=64)
     state["params"] = jax.tree.map(jnp.asarray, jparams)
@@ -361,9 +404,7 @@ def _jax_train(name, heads, opt, jparams, batches):
                 for l in jax.tree.leaves(state["params"])]
 
 
-@pytest.mark.parametrize("opt", OPTIMIZERS)
-@pytest.mark.parametrize("name", ARCHS)
-@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("mesh,name,opt", PLACED)
 def test_tp_placed_step_matches_live_reference(spawned, jax_params, mesh,
                                                name, opt):
     batches, _ = spawned
@@ -392,14 +433,15 @@ def _jax_serve(name, heads, jparams):
     import jax.numpy as jnp
     from repro.configs.registry import get_config as jax_config
     from repro.models import model as jmodel
-    jcfg = dataclasses.replace(jax_config(name).reduced(), **_patch(heads))
+    jcfg = jax_config(name).reduced()
+    jcfg = dataclasses.replace(jcfg, **_patch(jcfg, heads))
     p = jax.tree.map(jnp.asarray, jparams)
     prompt = jnp.asarray(_prompt())
     logits, _, pc = jmodel.apply_model(p, prompt, jcfg, mode="prefill")
     out = [np.asarray(logits)]
     cache = jmodel.init_cache(jcfg, 2, MAX_LEN)
-    cache = jax.tree.map(lambda c, q: c.at[:, :, :PROMPT].set(q), cache,
-                         pc)
+    cache = jax.tree.map(lambda c, q: q if c.shape == q.shape
+                         else c.at[:, :, :PROMPT].set(q), cache, pc)
     tok = out[0][:, -1].argmax(-1)
     for i in range(NEW):
         logits, _, cache = jmodel.apply_model(
@@ -410,6 +452,29 @@ def _jax_serve(name, heads, jparams):
     return out
 
 
+def _one_process_serve(cfg, np_params):
+    """The port's logits in one process, as ``_serve``'s first part
+    computes them on a rank's blocks."""
+    from repro_torch.models.model import (apply_model, init_cache,
+                                          params_from_jax)
+    params = params_from_jax(np_params)
+    with torch.no_grad():
+        logits, _, pc = apply_model(params, torch.from_numpy(_prompt()), cfg,
+                                    mode="prefill")
+        out = [logits.numpy().copy()]
+        cache = init_cache(cfg, 2, MAX_LEN, device="cpu")
+        for c, p in zip(cache, pc):
+            for key in c["mixer"]:
+                _fill(c["mixer"][key], p["mixer"][key])
+        for i in range(NEW):
+            tok = out[-1][:, -1].argmax(-1)
+            logits, _, _ = apply_model(
+                params, torch.from_numpy(tok[:, None].astype(np.int32)),
+                cfg, mode="decode", cache=cache, cache_index=PROMPT + i)
+            out.append(logits.numpy().copy())
+    return out
+
+
 @pytest.mark.parametrize("mesh,name", SERVE)
 def test_tp_prefill_and_decode_match_live_reference(spawned, jax_params,
                                                     mesh, name):
@@ -417,15 +482,29 @@ def test_tp_prefill_and_decode_match_live_reference(spawned, jax_params,
     want = _jax_serve(name, heads, jax_params[name, heads])
     tp = MESHES[mesh][1]
     cfg = _cfg(name, heads)
-    # head_dim over tp; MLA's latent and rope key columns over tp
-    want_cols = ({"ckv": cfg.mla.kv_lora_rank // tp,
-                  "kr": cfg.mla.qk_rope_head_dim // tp} if cfg.mla
-                 else {"k": cfg.resolved_head_dim // tp,
-                       "v": cfg.resolved_head_dim // tp})
+    tol, one = TOL, None
+    if cfg.sub_quadratic:
+        tol, one = RECURRENT_TOL, _one_process_serve(
+            cfg, jax_params[name, heads])
+    # every layer's cache: head_dim over tp; MLA's latent and rope key
+    # columns; Mamba's state h over d_state, its conv rows over di
+    def cols(kind):
+        if kind == "mamba":
+            return {"h": cfg.ssm.d_state // tp,
+                    "conv": cfg.ssm.expand * cfg.d_model // tp}
+        if cfg.mla:
+            return {"ckv": cfg.mla.kv_lora_rank // tp,
+                    "kr": cfg.mla.qk_rope_head_dim // tp}
+        return {"k": cfg.resolved_head_dim // tp,
+                "v": cfg.resolved_head_dim // tp}
+
+    want_cols = [cols(kind) for kind in cfg.layer_pattern]
     for o in _ranks_of(spawned, mesh):
         got = o["serve", mesh, name]
         assert got["cache_hd"] == want_cols
         for a, b in zip(got["logits"], want):
+            np.testing.assert_allclose(a, b, **tol)
+        for a, b in zip(got["logits"], one or ()):
             np.testing.assert_allclose(a, b, **TOL)
         toks = [w[:, -1].argmax(-1) for w in want]
         for a, b in zip(got["tokens"], toks):
@@ -514,8 +593,9 @@ def test_rank_flops_are_one_tp_th_of_the_whole_step(name, model):
     if cfg.attention != "mla":
         hd, rep = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
         kv_heads = (cfg.n_heads // model - 1) // rep + 1
+        n_attn = cfg.n_layers // cfg.period * cfg.layer_pattern.count("attn")
         kv = 3 * 2 * (2 * B * S * cfg.d_model * cfg.n_kv_heads * hd) \
-            * cfg.n_layers
+            * n_attn
         extra += kv * (kv_heads / cfg.n_kv_heads - 1 / model)
     assert rank == whole / model + extra
 
