@@ -311,12 +311,13 @@ Phases, each fatal on failure:
    one rank's greedy argmax along them (whole parameters, the same
    steps) wherever its top-2 margin exceeds ``LOGIT_TOL``; ms per decode
    step beside one rank's. 20b: data 2 x model 2 at the published
-   widths, 1 layer: 2 general cge steps (2 experts, one a rank, SGD with
-   momentum; 19's masks; the placed masked step (8 experts, 4 a rank,
-   AdamW, 16a's agents and masks) and stale, trimmed and quantized
-   counted on the meta device, run on the twins): seconds per step, the
-   last step's FLOPs and collectives equal op by op to a
-   ``RecordingMesh``'s count (all-reduces and wire bytes a rank), state
+   widths, 1 layer: the placed masked step (8 experts, 4 a rank, AdamW,
+   16a's agents and masks) and the general modes (2 experts, one a
+   rank, SGD with momentum; 19's masks) counted on the meta device
+   (FLOPs, all-reduces and wire bytes a rank, state bytes) and run on
+   the twins; where a step runs at the published widths (22b, 23b):
+   seconds per step, the last step's FLOPs and
+   collectives equal op by op to a ``RecordingMesh``'s count, state
    bytes a rank within 1% of the meta report, the most bytes allocated,
    parameters identical on every rank (placed) and per tp block over dp
    (general); the f32 twins (reduced arctic, 4 experts, 2 layers, SGD
@@ -329,17 +330,18 @@ Phases, each fatal on failure:
    code. 21a: 1 of 60 layers at every published width (MLA at latent
    rank 512, q rank 1536, 128 heads; all 160 experts, top-6, 2 shared)
    from seed 0, on data 1 x model 4 (40 experts and 32 heads a rank),
-   16 new tokens, with 20a's checks, in bf16 and then, in the same
+   8 new tokens, with 20a's checks, in bf16 and then, in the same
    ranks, in f32: in bf16 a rounding difference can flip a near tie of
    top-6 of 160 routing and move a logit past ``LOGIT_TOL``, so there
    the streams against one rank's argmax are printed; in f32 the streams
    are held to one rank's argmax at every clear margin and rank 0's
    teacher-forced logits within 1e-4 of one rank's. 21b:
-   data 2 x model 2, 1 layer: 2 general cge steps (6 experts, the fewest
-   top-6 allows, SGD with momentum) with 20b's checks; the placed masked
-   step (8 experts, AdamW) and the quantized mode, whose whole f32 rows
-   four ranks cannot hold at this vocabulary, are counted on the meta
-   device (FLOPs, all-reduces, state bytes) and run on the f32 twins
+   data 2 x model 2, 1 layer, as 20b: the general modes cge and
+   quantized (6 experts, the fewest top-6 allows, SGD with momentum;
+   quantized's whole f32 rows four ranks cannot hold at this
+   vocabulary) and the placed masked step (8 experts, AdamW) counted on
+   the meta device (FLOPs, all-reduces, state bytes) and run on the f32
+   twins
    (reduced deepseek-v2, 4 experts, 2 layers: placed, cge and quantized
    within 1e-4 of one process). No kernel lies on this path (the
    reference's MLA is ``jnp`` einsums and ``attention_math``).
@@ -349,7 +351,7 @@ Phases, each fatal on failure:
    by phase 20's code. 22a: one period (8 of 32 layers: 7 Mamba, 1 GQA
    with 32 heads over 8 KV heads, 4 MoE blocks) at every published width
    and all 16 experts, bf16 from seed 0, on data 1 x model 4 (4 experts,
-   8 heads and 2048 of di a rank), 16 new tokens, with 20a's checks and
+   8 heads and 2048 of di a rank), 8 new tokens, with 20a's checks and
    the share of the decode's wire bytes that re-lays the Mamba
    activations, then in
    the same ranks in f32 at 4 experts (one a rank): the streams held to
@@ -363,7 +365,22 @@ Phases, each fatal on failure:
    cut the same way, 4 experts: placed, cge and quantized within 1e-4 of
    one process). No kernel lies on this path (the reference's
    Mamba is ``jnp`` einsums and ``lax.associative_scan``).
-23. A JSON line with every kernel's launches (summed over the phases
+23. rwkv6-3b tensor-parallel over "model" (``models/ssm.py``'s
+   ``_apply_rwkv_time_tp`` and ``_apply_rwkv_channel_tp``: every weight
+   a column weight, the WKV scan on a head group's heads, the decode on
+   a block of every head's value columns), by phase 20's code. 23a: 2
+   of 32 layers at every published width (d 2560, 40 heads, d_ff 8960,
+   vocabulary 65,536), bf16 from seed 0, on data 1 x model 4 (10 heads
+   and 640 columns a rank), 16 new tokens, with 20a's checks (the
+   streams held to one rank's argmax at every clear margin), then in the
+   same ranks in f32 with the logits within 1e-4 of one rank's. 23b:
+   data 2 x model 2 at the same cut: 1 placed masked step (AdamW) and 2
+   general cge steps (SGD with momentum) with 20b's checks; stale,
+   trimmed and quantized counted on the meta device, cge and quantized
+   run on the f32 twins (reduced rwkv6, 2 layers: placed, cge and
+   quantized within 1e-4 of one process). No kernel lies on this path
+   (the reference's RWKV is ``jnp`` einsums and ``lax.scan``).
+24. A JSON line with every kernel's launches (summed over the phases
    that drive a path: 4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16, all
    ranks of 15), error and times, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -1186,6 +1203,7 @@ def drive_main_path(half: int):
         x_1 = srv.x.copy()
         MAIN_PATH_X[label, 1] = x_1
         srv.run(half - 1)
+        MAIN_PATH_X[label, half] = srv.x.copy()
         snap = srv.snapshot()
         streams = [r.bit_generator.state for r in grad_fn.rngs]
         srv.run(half)
@@ -2970,14 +2988,15 @@ TWIN_TOL = dict(rtol=1e-4, atol=1e-4)
 # would oversubscribe them many times over)
 SPMD_RANKS, SPMD_TIMEOUT = 4, 600
 CORES = max(len(os.sched_getaffinity(0)), SPMD_RANKS)
-SHARDED_ITERS = 10
+# 15b runs 5 iterations of each run (10 before phase 23 needed the time)
+SHARDED_ITERS = 5
 COMBINES = ("gather", "partial")
 GENERAL_MODES = ("cge", "stale", "trimmed", "quantized")
 GENERAL_LAYERS, GENERAL_STEPS = 2, 2
 # 15d: phase 6's workload cut to 8 requests, over 2 ranks
 TP_RANKS, TP_REQUESTS = 2, 8
-# phase 4's iterates (device backend) after 1 and 10 iterations of each
-# run, keyed (label, iterations): 15b's gather combine must reproduce them
+# phase 4's iterates (device backend) after 1, 5 and 10 iterations of
+# each run, keyed (label, iterations): 15b's gather combine must reproduce them
 # bit for bit. The partial combine sums in another order: one step of it
 # is held to 1e-5 * max(|x|, 1) of the device step on the same inputs
 # (after the first iteration, and on the ledger and iterate of the last).
@@ -4338,12 +4357,13 @@ def tpc_grow(cfg, prefill, rows, max_len, mesh):
     cache = place_cache(mmodel.init_cache(cfg, rows, max_len,
                                           device=mesh.device), cfg, mesh)
     for blk, pre in zip(cache, prefill):
-        for name, leaf in blk["mixer"].items():
-            src = pre["mixer"][name]
-            if leaf.shape == src.shape:         # a Mamba state, whole
-                leaf.copy_(src)
-            else:
-                leaf[:, :, :src.shape[2]] = src
+        for part, leaves in blk.items():
+            for name, leaf in leaves.items():
+                src = pre[part][name]
+                if leaf.shape == src.shape:     # a Mamba or RWKV state
+                    leaf.copy_(src)
+                else:
+                    leaf[:, :, :src.shape[2]] = src
     return cache
 
 
@@ -4899,8 +4919,9 @@ def drive_general_tp(device="cuda"):
 
 
 class MoeRun(NamedTuple):
-    """What phase 20 (arctic-480b), 21 (deepseek-v2-236b) or 22
-    (jamba-v0.1-52b) runs.
+    """What phase 20 (arctic-480b), 21 (deepseek-v2-236b), 22
+    (jamba-v0.1-52b) or 23 (rwkv6-3b, no experts: its expert counts
+    None) runs.
 
     Its a: ``layers`` layers at every published width, all experts,
     served on data 1 x model ``serve_model`` through launch.serve's
@@ -4940,7 +4961,7 @@ class MoeRun(NamedTuple):
         cfg = get_config(self.arch)
         if experts is None and dtype == "float32":
             experts = self.f32_experts
-        moe = (cfg.moe if experts is None
+        moe = (cfg.moe if experts is None or cfg.moe is None
                else dataclasses.replace(cfg.moe, num_experts=experts))
         cfg = dataclasses.replace(cfg, n_layers=self.layers, moe=moe)
         return (cfg if dtype is None else dataclasses.replace(
@@ -4981,11 +5002,11 @@ ARCTIC = MoeRun("20", "arctic-480b", 1, 4, 8, 2, ("cge",),
 # quantized modes, ~4x the row a rank at peak (arctic's 20b), would want
 # ~90 GB on 4 ranks, so at the published widths the general step runs cge
 # and the whole-row mode runs on the twin (its meta count is reported).
-# To pay for phase 22 its placed step is counted on the meta device and
-# runs on the twin, and 21a streams 16 new tokens
+# To pay for phases 22-23 its placed step is counted on the meta device
+# and runs on the twin, and 21a streams 8 new tokens
 DEEPSEEK = MoeRun("21", "deepseek-v2-236b", 1, 4, 8, 6, ("cge",),
                   ("cge", "quantized"), placed_steps=0,
-                  meta_modes=("quantized",), new_tokens=16)
+                  meta_modes=("quantized",), new_tokens=8)
 
 
 def moe_gen_tc(mode: str, twin: bool) -> TrainConfig:
@@ -5010,8 +5031,16 @@ def expert_bytes(params, cfg) -> int:
 
 
 def expert_count(params, cfg) -> int:
-    """The experts a stack holds (dimension 1 of ``w_gate``)."""
-    return params["blocks"][moe_positions(cfg)[0]]["ffn"]["w_gate"].shape[1]
+    """The experts a stack holds (dimension 1 of ``w_gate``; 0 without
+    MoE)."""
+    pos = moe_positions(cfg)
+    return params["blocks"][pos[0]]["ffn"]["w_gate"].shape[1] if pos else 0
+
+
+def experts_of(cfg) -> str:
+    """``"N experts"`` of an MoE config, ``"no experts"`` otherwise."""
+    return (f"{cfg.moe.num_experts} experts" if cfg.moe is not None
+            else "no experts")
 
 
 def moe_decode_batch(tok, cache, i):
@@ -5162,7 +5191,7 @@ def moe_serve_checks(run, device, dtype, streams_checked, prompts, res,
     a = analyze(dry)
     r0 = res[0]
     log(f"  {tag}: {run.arch} at full width ({cfg.n_layers} layer, "
-        f"{cfg.moe.num_experts} experts, {cfg.param_dtype} from seed 0), "
+        f"{experts_of(cfg)}, {cfg.param_dtype} from seed 0), "
         f"launch.serve's "
         f"prefill and decode steps on data 1 x model {run.serve_model} ("
         f"{run.serve_model} gloo ranks sharing the card, {ranks_s:.1f} s "
@@ -5171,9 +5200,10 @@ def moe_serve_checks(run, device, dtype, streams_checked, prompts, res,
         f"counted step {r0['prefill_s']:.1f} s; then one rank with whole "
         f"parameters {one_s:.1f} s)")
     for r, o in enumerate(res):
-        log(f"    rank {r}: {o['experts']} experts, expert bytes "
-            f"{o['expert_bytes']:,} of {whole:,} "
-            f"({o['expert_bytes'] / whole:.4f}), parameters held "
+        held = (f"{o['experts']} experts, expert bytes "
+                f"{o['expert_bytes']:,} of {whole:,} "
+                f"({o['expert_bytes'] / whole:.4f}), " if whole else "")
+        log(f"    rank {r}: {held}parameters held "
             f"{o['held']:,} B (drawn in {o['draw_s']:.2f} s); "
             f"{o['decode_ms']:.2f} ms per decode step, "
             f"{o['allreduce_ms']:.2f} ms per all-reduce of a step's "
@@ -5217,7 +5247,8 @@ def moe_serve_checks(run, device, dtype, streams_checked, prompts, res,
         if not np.array_equal(o["tokens"], streams):
             raise AssertionError(f"{tag} rank {r}: tokens differ from rank "
                                  "0's")
-        if (o["experts"] != cfg.moe.num_experts // run.serve_model
+        if cfg.moe is not None and (
+                o["experts"] != cfg.moe.num_experts // run.serve_model
                 or o["expert_bytes"] * run.serve_model != whole):
             raise AssertionError(f"{tag} rank {r}: {o['experts']} experts, "
                                  f"{o['expert_bytes']} of {whole} B")
@@ -5405,12 +5436,14 @@ def drive_moe_train(run: MoeRun, device="cuda"):
     p, a = r0["placed"], analyze(dry["placed"])
     if p is None:
         log(f"    placed masked step on the meta device only (not run: see "
-            f"the phase's cut), {run.placed_experts} experts, AdamW: "
+            f"the phase's cut), "
+            f"{experts_of(run.train_cfg(run.placed_experts))}, AdamW: "
             f"all-reduces a rank {a['collective_count']:.0f} "
             f"({a['collectives']['all-reduce']:.6e} wire bytes), FLOPs "
             f"{a['flops']:.6e}; state bytes a rank {moe_placed_report(run):,}")
     else:
-        log(f"    placed masked step, {run.placed_experts} experts "
+        log(f"    placed masked step, "
+            f"{experts_of(run.train_cfg(run.placed_experts))} "
             f"({p['experts']} a rank), AdamW, 4 agents with 2 masked a step: "
             f"s per step (rank 0) " + ", ".join(f"{t:.2f}" for t in p["secs"])
             + f"; losses {p['losses']}; all-reduces a rank "
@@ -5438,8 +5471,8 @@ def drive_moe_train(run: MoeRun, device="cuda"):
                        f"losses {q['losses']}")
     for mode in run.gen_modes:
         a = analyze(dry[mode, 0][0])
-        log(f"    general {mode} ({GEN_WHY[mode]}), {run.gen_experts} "
-            f"experts, SGD-momentum: s per step (rank 0) " + ", ".join(
+        log(f"    general {mode} ({GEN_WHY[mode]}), {experts_of(gcfg)}, "
+            f"SGD-momentum: s per step (rank 0) " + ", ".join(
                 f"{t:.2f}" for t in r0[mode]["secs"])
             + f"; losses {r0[mode]['losses']}; all-reduces a rank "
             f"{a['collective_count']:.0f} ({a['collectives']['all-reduce']:.6e}"
@@ -5472,7 +5505,7 @@ def drive_moe_train(run: MoeRun, device="cuda"):
     for mode in run.meta_modes:
         a = analyze(dry[mode, 0][0])
         log(f"    general {mode} on the meta device only (not run: see the "
-            f"phase's cut), {run.gen_experts} experts: all-reduces a rank "
+            f"phase's cut), {experts_of(gcfg)}: all-reduces a rank "
             f"{a['collective_count']:.0f} ({a['collectives']['all-reduce']:.6e}"
             f" wire bytes), FLOPs {a['flops']:.6e}; state bytes a rank "
             f"{dry[mode, 0][1]:,}, the agent's whole f32 row {row:,} B")
@@ -5490,7 +5523,7 @@ def drive_moe_train(run: MoeRun, device="cuda"):
                 float(np.max(np.abs(x - y)))
                 for x, y in zip(tw["params"], oracle[mode])))
     log(f"    f32 twins (reduced {run.arch}, {run.twin_cfg().n_layers} "
-        f"layers, {run.twin_cfg().moe.num_experts} experts, SGD-momentum, "
+        f"layers, {experts_of(run.twin_cfg())}, SGD-momentum, "
         f"remat): "
         f"the placed step against the one-process make_train_step "
         f"{twin_err:.3e}, identical on every rank: "
@@ -5509,7 +5542,7 @@ def drive_moe_train(run: MoeRun, device="cuda"):
 # 26.6 GB in bf16 with all 16 experts, 6.7 GB a rank at model 4; its f32
 # pass at 4 experts (one a rank; 19.4 GB whole, where 16 would be 53 GB
 # on the card beside the ranks). Its decode step is 60 gloo all-reduces
-# (~0.4 s in bf16, ~0.7 in f32), so it streams 16 new tokens, and only
+# (~0.4-0.7 s in bf16 and f32), so it streams 8 new tokens, and only
 # the f32 pass is teacher-forced on the ranks. 22b at the published
 # widths, the period cut to its positions 4-5 (a GQA layer with a dense
 # MLP, a Mamba layer with an MoE block): at 8 layers and 2 experts its
@@ -5522,7 +5555,7 @@ def drive_moe_train(run: MoeRun, device="cuda"):
 JAMBA = MoeRun("22", "jamba-v0.1-52b", 8, 4, 4, 2, ("cge",),
                ("cge", "quantized"), placed_steps=1,
                meta_modes=("quantized",), f32_experts=4,
-               train_pattern=("attn", "mamba"), new_tokens=16)
+               train_pattern=("attn", "mamba"), new_tokens=8)
 
 
 def mamba_relay_bytes(cfg, rows: int) -> int:
@@ -5537,6 +5570,18 @@ def mamba_relay_bytes(cfg, rows: int) -> int:
     per = rows * ((3 * di + rank + 2 * ssm.d_state) * es + di * 4)
     n_mamba = cfg.n_layers // cfg.period * cfg.layer_pattern.count("mamba")
     return 2 * per * n_mamba
+
+
+# rwkv6: 2 of 32 layers (0.51e9 parameters, 1.0 GB in bf16, 2.0 GB in
+# f32 whole; every layer is alike); its decode step is 2 x 10 gloo
+# all-reduces and two for the embedding and logits, so it streams 16 new
+# tokens. 23b at the same cut: the placed step (AdamW) and cge run at the
+# published widths, the other general modes are counted on the meta
+# device and quantized runs on the twins. At 4 layers the phase took
+# 89.8-115.1 s, past its share of the 1,200 s
+RWKV = MoeRun("23", "rwkv6-3b", 2, 4, None, None, ("cge",),
+              ("cge", "quantized"), placed_steps=1,
+              meta_modes=("stale", "trimmed", "quantized"), new_tokens=16)
 
 
 def drive_arctic(device="cuda"):
@@ -5575,6 +5620,17 @@ def drive_jamba(device="cuda"):
                     unchecked=(None,))
     drive_moe_train(JAMBA, device)
     log(f"  phase 22 in {time.perf_counter() - t0:.1f} s")
+
+
+def drive_rwkv(device="cuda"):
+    """23a-23b: rwkv6-3b, its time and channel mixes over "model". 23a in
+    bf16 and again in f32 in the same ranks; in both the streams are held
+    to one rank's argmax at every clear margin (no routing to flip), in
+    f32 the logits within ``F32_LOGIT_TOL`` of one rank's too."""
+    t0 = time.perf_counter()
+    drive_moe_serve(RWKV, device, dtypes=(None, "float32"))
+    drive_moe_train(RWKV, device)
+    log(f"  phase 23 in {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -5730,7 +5786,12 @@ def main() -> int:
         "placed and the general step on data 2 x model 2")
     drive_jamba()
 
-    log("== 23. result")
+    log("== 23. rwkv6-3b tensor-parallel over model, its time and channel "
+        "mixes split: launch.serve's steps on data 1 x model 4, the placed "
+        "and the general step on data 2 x model 2")
+    drive_rwkv()
+
+    log("== 24. result")
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

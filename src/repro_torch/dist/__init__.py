@@ -14,9 +14,9 @@
   points (``constrain``, ``act_policy``) and the storage -> compute
   gather (``constrain_tree``).
 - ``repro_torch.dist.tp``           tensor-parallel compute over the
-  "model" axes for the attention decoders (GQA or MLA) and the Mamba
-  hybrids: the context the layers read and Megatron's four autograd
-  Functions on all-reduces.
+  "model" axes for the attention decoders (GQA or MLA), the Mamba
+  hybrids and RWKV-6: the context the layers read and Megatron's four
+  autograd Functions on all-reduces.
 """
 from repro_torch.dist import registry  # noqa: F401
 from repro_torch.dist.registry import (AggregationRule, get_rule,  # noqa: F401

@@ -1,15 +1,15 @@
 """Tensor-parallel compute over the mesh's "model" axes: the context the
-layers of the attention decoders (GQA or MLA, dense or MoE) and of the
-Mamba hybrids (jamba) read, and Megatron's four autograd Functions on
-its axes (the port's counterpart of what GSPMD derives for the
+layers of the attention decoders (GQA or MLA, dense or MoE), of the
+Mamba hybrids (jamba) and of RWKV-6 read, and Megatron's four autograd
+Functions on its axes (the port's counterpart of what GSPMD derives for the
 reference from its compute layout,
 ``tree_specs(params, MeshRules(fsdp_axes=()))``).
 
 The placed train step, the general step and ``launch.serve``'s steps
 install a :class:`tp_context` (mesh, tp axes) for a config
 :func:`tp_compute` accepts; the layers of ``models/layers.py``,
-``models/attention.py``, ``models/ssm.py`` (Mamba) and ``models/moe.py``
-then run on this rank's blocks of the compute layout:
+``models/attention.py``, ``models/ssm.py`` (Mamba and RWKV) and
+``models/moe.py`` then run on this rank's blocks of the compute layout:
 
 - a column-parallel matmul takes ``copy_to_tp(x)`` (identity forward,
   all-reduce backward) and keeps this rank's block of the fan-out;
@@ -22,7 +22,9 @@ then run on this rank's blocks of the compute layout:
   the router's logits over the experts, MLA's latents and its
   ``w_uk`` / ``w_uv`` re-laid from a block of every head to whole heads,
   Mamba's ``xz`` re-laid from ``w_in``'s columns to a block of its inner
-  width, ``a_log`` from a block of d_state to one of that width);
+  width, ``a_log`` from a block of d_state to one of that width,
+  RWKV's column outputs gathered whole or to a head group's columns,
+  its decode's output from a block of every head's value columns);
 - an MoE block computes this rank's experts on the routing every rank
   computes alike, and sums the ranks' partial combines over tp.
 
@@ -214,13 +216,14 @@ def current_tp() -> Optional[TP]:
 
 def tp_compute(cfg) -> bool:
     """The families this layer of tensor parallelism covers: every layer
-    attention (GQA or MLA) or Mamba, with a dense MLP or an MoE block (its
-    experts over the expert-parallel axes, ``dist.sharding.MeshRules.
-    ep_axes``, which the compute layouts set equal to the tp axes): the
-    attention decoders and jamba's hybrid; no RWKV, no encoder. The one
-    predicate every caller reads; the other families compute whole on
-    every rank."""
-    return (all(k in ("attn", "mamba") for k in cfg.layer_pattern)
+    attention (GQA or MLA), Mamba or RWKV-6, with a dense MLP, an MoE
+    block (its experts over the expert-parallel axes, ``dist.sharding.
+    MeshRules.ep_axes``, which the compute layouts set equal to the tp
+    axes) or RWKV's channel mix: the attention decoders, jamba's hybrid
+    and rwkv6; no encoder. The one predicate every caller reads; the
+    other families (whisper's encoder-decoder) compute whole on every
+    rank."""
+    return (all(k in ("attn", "mamba", "rwkv") for k in cfg.layer_pattern)
             and not cfg.encoder_decoder)
 
 

@@ -5,14 +5,15 @@ and greedy generation on the paged serving engine (counterpart of
 The steps are what a dry run of ``prefill_32k`` / ``decode_32k`` reads:
 ``apply_model`` under the activation policy (``dist.act_sharding``) when
 ``dp`` is given, argmax in int32, no rematerialization. Given a
-``mesh``, an attention decoder, GQA or MLA, or a Mamba hybrid (jamba),
-dense or MoE (``dist.tp.tp_compute``), runs tensor-parallel over the
-mesh's "model" axis, as the reference's compute layout splits it: on
-this rank's blocks of the parameters (:func:`place_params`, or
+``mesh``, an attention decoder, GQA or MLA, a Mamba hybrid (jamba) or
+RWKV-6, dense or MoE (``dist.tp.tp_compute``), runs tensor-parallel over
+the mesh's "model" axis, as the reference's compute layout splits it:
+on this rank's blocks of the parameters (:func:`place_params`, or
 :func:`init_params` drawing them block by block), an MoE block's experts
 included, and of a cache whose head_dim (MLA: its latent and rope-key
-columns; Mamba: its state's d_state and its conv rows' di) is split
-over tp (:func:`place_cache`). A decode writes the cache in place and
+columns; Mamba: its state's d_state and its conv rows' di; RWKV: its
+state's value columns and its token-shift rows' d) is split over tp
+(:func:`place_cache`). A decode writes the cache in place and
 returns it, where the reference returns an updated copy.
 ``greedy_generate`` drives ``serve.ServeEngine``: one prefill, then
 ``steps - 1`` decode iterations in supersteps of ``superstep_k``, the
@@ -119,9 +120,10 @@ def _next_token(logits, cfg: ArchConfig):
 def make_prefill_step(cfg: ArchConfig, moe_groups: int = 1,
                       dp=None, tp=None, sizes=None, mesh=None) -> Callable:
     """``prefill(params, batch) -> (next token (B,) int32, cache)``. With
-    ``mesh``, an attention decoder or a Mamba hybrid runs tensor-parallel
-    over its tp axes on ``place_params``' blocks and returns the cache in
-    ``place_cache``'s layout (every rank of the mesh calls it)."""
+    ``mesh``, an attention decoder, a Mamba hybrid or RWKV runs
+    tensor-parallel over its tp axes on ``place_params``' blocks and
+    returns the cache in ``place_cache``'s layout (every rank of the mesh
+    calls it)."""
     tp_axes = _tp_axes(cfg, mesh)
 
     def prefill(params, batch):

@@ -77,6 +77,11 @@ def _stack(per_layer):
         return {k: _stack([p.pop(k) for p in per_layer]) for k in list(first)}
     if len(per_layer) == 1:
         return first[None]
+    if first.device.type == "meta":
+        # the shape alone: a first stack on the meta device loads torch's
+        # Python meta kernels, seconds in a fresh process
+        return torch.empty((len(per_layer),) + tuple(first.shape),
+                           dtype=first.dtype, device="meta")
     return torch.stack(per_layer)
 
 

@@ -19,10 +19,13 @@ general step and ``launch.serve``'s steps on a mesh) Mamba runs on this
 rank's blocks of the reference's compute layout (``_apply_mamba_tp``):
 its inner width di split over tp, ``a_log`` and the decode cache's
 state ``h`` split over d_state, ``w_out``'s fan-in block summed over
-tp. RWKV computes whole.
+tp; and RWKV-6 on its weights' column blocks (``_apply_rwkv_time_tp``,
+``_apply_rwkv_channel_tp``): its WKV scan on a head group's heads, its
+decode on a block of every head's value columns.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -380,6 +383,10 @@ def apply_rwkv_time(p, x, cfg: ArchConfig, *, cache=None,
     rw = cfg.rwkv
     b, s, d = x.shape
     h, hd = d // rw.head_dim, rw.head_dim
+    tp = current_tp()
+    if tp is not None and p["w_r"].shape[-1] != d:
+        return _apply_rwkv_time_tp(p, x, cfg, tp, cache=cache,
+                                   return_cache=return_cache)
 
     last = cache["tm_x"] if cache is not None else None
     dx = _token_shift(x, last) - x
@@ -423,6 +430,10 @@ def apply_rwkv_channel(p, x, cfg: ArchConfig, *, cache=None,
                        return_cache=False):
     """RWKV-6 channel mix (squared-ReLU FFN with a receptance gate).
     cache: {"cm_x": (B, d)}, written in place."""
+    tp = current_tp()
+    if tp is not None and p["cm_wr"].shape[-1] != x.shape[-1]:
+        return _apply_rwkv_channel_tp(p, x, tp, cache=cache,
+                                      return_cache=return_cache)
     last = cache["cm_x"] if cache is not None else None
     dx = _token_shift(x, last) - x
     xk = x + dx * p["cm_mu_k"]
@@ -437,4 +448,184 @@ def apply_rwkv_channel(p, x, cfg: ArchConfig, *, cache=None,
         new_cache = cache
     elif return_cache:
         new_cache = {"cm_x": x[:, -1]}
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 over tp
+
+
+def _gather_last(*xs, groups: int = 1):
+    """Each of ``xs`` from this rank's block of its last dimension to its
+    group's block (``groups`` = 1: the whole), all in one all-reduce in
+    their widest dtype (each cast back, exactly); the backward keeps this
+    rank's block of each."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in xs))
+    flat = gather_from_tp(torch.cat([t.reshape(1, -1).to(dt) for t in xs],
+                                    1), 0, groups)   # (ranks of the group, .)
+    out, off = [], 0
+    for t in xs:
+        part = flat[:, off:off + t.numel()].reshape(-1, *t.shape)
+        out.append(part.movedim(0, -2).reshape(*t.shape[:-1], -1)
+                   .to(t.dtype))
+        off += t.numel()
+    return out
+
+
+def _group_wkv_state(tp, s_last, h: int, groups: int):
+    """The cache's ``wkv`` in ``cache_specs``' layout (every head, this
+    rank's block of value columns) from each group's state of its heads
+    (B, H/groups, Dk, Dv): the first rank of each group writes its heads
+    into ``-0.0`` pads, one all-reduce joins them (no autograd)."""
+    b, hg, dk, dv = s_last.shape
+    buf = torch.full((b, h, dk, dv), -0.0, dtype=s_last.dtype,
+                     device=s_last.device)
+    if tp.leads(groups):
+        buf[:, tp.block(h, groups)] = s_last.detach()
+    return tp.keep(tp.all_reduce(buf), -1)
+
+
+def _apply_rwkv_time_tp(p, x, cfg: ArchConfig, tp, *, cache, return_cache):
+    """RWKV-6's time mix on this rank's blocks of the compute layout, as
+    the reference's compiled steps split it (read from their HLO): every
+    weight a column weight, ``w_o`` too, so each projection's fan-out
+    (``w_r``, ``w_k``, ``w_v``, ``w_g``, ``w_o``, ``dd_w1``, ``w_a``,
+    ``w_b``, ``dd_w2``) and ``mu``, ``mu_x`` and ``w0`` are this rank's
+    block of columns, ``u`` whole. The residual ``x`` is whole on every
+    rank, as the other families' under ``dist.tp``.
+
+    - ``mu_x`` is gathered whole (with the decode's ``tm_x``), so the
+      token shift's ``xbase`` is whole; ``dd_w1``'s columns, then
+      ``mu + dd`` (``dd_w2``'s and ``mu``'s columns), then ``tanh(xw
+      w_a)`` are gathered whole: the five mixed inputs are whole on
+      every rank.
+    - Train and prefill scan the heads of this rank's group (the heads
+      over gcd(H, tp) groups of consecutive ranks, which repeat their
+      group's scan): r, k, v and the decay gathered to the group's
+      columns in one all-reduce, ``u`` cut to the group's heads. The
+      normed output is cut back to this rank's columns for ``g``, and
+      ``y * g`` gathered whole for ``w_o``. A prefill returns ``wkv`` in
+      ``cache_specs``' layout, every head and this rank's block of value
+      columns, and ``tm_x`` this rank's columns.
+    - A decode updates its block of value columns of every head from r,
+      k, w and g gathered whole (with v, which it cuts to the block),
+      and gathers ``y`` whole for the group norm.
+    - ``w_o``'s columns are gathered whole into the residual.
+
+    Where tp does not divide ``dd_w1``'s or ``w_a``'s fan-out, that
+    leaf is whole, as the reference's ``fit`` leaves it."""
+    rw = cfg.rwkv
+    b, s, d = x.shape
+    h, hd = d // rw.head_dim, rw.head_dim
+    decode = cache is not None and s == 1
+    if cache is not None and not decode:
+        raise NotImplementedError("a prefill over a given RWKV state runs "
+                                  "whole (no tensor-parallel form)")
+    groups = math.gcd(h, tp.size)
+    cols = tp.block(d)
+
+    if decode:
+        mu_x, last = _gather_last(p["mu_x"][None], cache["tm_x"])
+        mu_x = mu_x[0]
+    else:
+        mu_x, last = gather_from_tp(p["mu_x"], -1), None
+    dx = _token_shift(x, last) - x
+    xbase = x + dx * mu_x
+    la = cfg.rwkv.ddlerp_lora
+    if p["dd_w1"].shape[-1] == 5 * la:
+        dd = xbase @ p["dd_w1"]
+    else:
+        dd = gather_from_tp(copy_to_tp(xbase) @ p["dd_w1"], -1)
+    dd = copy_to_tp(torch.tanh(dd).reshape(b, s, 5, la))
+    mix = gather_from_tp(p["mu"] + torch.einsum("bsfl,fld->bsfd", dd,
+                                                p["dd_w2"]), -1)
+    mixed = x[:, :, None] + dx[:, :, None] * mix       # (B, S, 5, d)
+    cm = copy_to_tp(mixed)
+    xw, xk, xv, xr, xg = (cm[:, :, i] for i in range(5))
+
+    r, k, v, g = (t @ p[w] for t, w in ((xr, "w_r"), (xk, "w_k"),
+                                         (xv, "w_v"), (xg, "w_g")))
+    g = F.silu(g.to(torch.float32)).to(x.dtype)        # (B, S, d/n)
+    if p["w_a"].shape[-1] == rw.decay_lora:
+        a = mixed[:, :, 0] @ p["w_a"]
+        if decode:
+            r, k, v, g = _gather_last(r, k, v, g)
+    elif decode:
+        a, r, k, v, g = _gather_last(xw @ p["w_a"], r, k, v, g)
+    else:
+        a = gather_from_tp(xw @ p["w_a"], -1)
+    wdec = torch.exp(-torch.exp(
+        p["w0"] + (copy_to_tp(torch.tanh(a)) @ p["w_b"]).to(torch.float32)))
+
+    new_cache = None
+    if decode:
+        (wdec,) = _gather_last(wdec)
+        vb = tp.block(hd)
+        r, k, w = (t.reshape(b, h, hd).to(torch.float32)
+                   for t in (r[:, 0], k[:, 0], wdec[:, 0]))
+        v = v[:, 0].reshape(b, h, hd)[..., vb].to(torch.float32)
+        kv = k[..., :, None] * v[..., None, :]          # (B, H, Dk, Dv/n)
+        st = cache["wkv"]
+        y = torch.einsum("bhk,bhkv->bhv", r,
+                         st + p["u"][:, :, None] * kv)
+        st.copy_(w[..., :, None] * st + kv)
+        cache["tm_x"].copy_(x[:, -1, cols])
+        new_cache = cache
+        (y,) = _gather_last(y.to(x.dtype))               # (B, H, Dv)
+        y = apply_group_norm(y[:, None])
+        yg = y.reshape(b, 1, d) * g
+        out = copy_to_tp(yg) @ p["w_o"]
+    else:
+        heads = tp.block(h, groups)
+        grp = ((r, k, v, wdec) if groups == tp.size
+               else _gather_last(r, k, v, wdec, groups=groups))
+        r, k, v, wdec = (constrain(t.reshape(b, s, -1, hd), "heads4")
+                         for t in grp)
+        u = copy_to_tp(p["u"], groups)[heads]
+        s0 = torch.zeros(b, r.shape[2], hd, hd, dtype=torch.float32,
+                         device=x.device)
+        f32 = [t.to(torch.float32) for t in (r, k, v)]
+        ck = rw.chunk
+        if ck and s > 1 and s % min(ck, s) == 0:
+            y, s_last = _wkv_chunked(*f32, wdec, u, s0, chunk=ck)
+        else:
+            y, s_last = _wkv_scan(*f32, wdec, u, s0)
+        y = apply_group_norm(y.to(x.dtype)).reshape(b, s, -1)
+        if groups != tp.size:
+            y = scatter_to_tp(y, -1, groups)               # (B, S, d/n)
+        (yg,) = _gather_last(y * g)
+        out = copy_to_tp(yg) @ p["w_o"]
+        if return_cache:
+            new_cache = {"wkv": _group_wkv_state(tp, s_last, h, groups),
+                         "tm_x": x[:, -1, cols].detach().contiguous()}
+    return gather_from_tp(out, -1), new_cache
+
+
+def _apply_rwkv_channel_tp(p, x, tp, *, cache, return_cache):
+    """RWKV-6's channel mix on this rank's columns of ``cm_wr``, ``cm_wk``
+    and ``cm_wv`` (a column weight: its fan-in whole) and of ``cm_mu_k``
+    and ``cm_mu_r``: the two mixes' weights gathered whole (with the
+    decode's ``cm_x``), the squared-ReLU ``k`` gathered whole for
+    ``cm_wv``, the gated output's columns gathered whole into the
+    residual. The cache's ``cm_x`` is this rank's columns."""
+    cols = tp.block(x.shape[-1])
+    mus = torch.stack([p["cm_mu_k"], p["cm_mu_r"]])
+    if cache is not None:
+        mus, last = _gather_last(mus, cache["cm_x"])
+    else:
+        (mus,), last = _gather_last(mus), None
+    dx = _token_shift(x, last) - x
+    xkr = copy_to_tp(x[:, :, None] + dx[:, :, None] * mus)  # (B, S, 2, d)
+    r = torch.sigmoid((xkr[:, :, 1] @ p["cm_wr"]).to(torch.float32)
+                      ).to(x.dtype)
+    k = constrain(xkr[:, :, 0] @ p["cm_wk"], "ffn")
+    k = torch.square(F.relu(k.to(torch.float32))).to(x.dtype)
+    (k,) = _gather_last(k)
+    out = gather_from_tp(r * (copy_to_tp(k) @ p["cm_wv"]), -1)
+    new_cache = None
+    if cache is not None:
+        cache["cm_x"].copy_(x[:, -1, cols])
+        new_cache = cache
+    elif return_cache:
+        new_cache = {"cm_x": x[:, -1, cols].detach().contiguous()}
     return out, new_cache

@@ -23,21 +23,25 @@ configs cut to 2 layers (jamba to its period of 8), f32:
   head, ``w_uq`` and ``wo`` across head boundaries);
 - reduced jamba-v0.1-52b at one period of 8 layers (7 Mamba mixers over
   tp, one GQA layer, 4 MoE blocks; remat), cge and quantized on data 4 x
-  model 2.
+  model 2;
+- reduced rwkv6-3b (every weight's columns over tp; remat), cge and
+  quantized on data 4 x model 2.
 
 For each: loss, grad norm and the gathered parameters within ``TOL`` of
 the oracle; each tp block identical on every dp rank and each whole leaf
 identical on every rank; the stale ledger row and the quantized residual
 row whole and identical on every model rank of an agent; a rank's FLOPs
-on the meta device below the same step's at model 1. A reduced rwkv6-3b
-(no tensor-parallel compute) computes whole on every rank: its rank
-FLOPs at data 2 x model 2 are those at data 2 x model 1. ``dist.tp.tp_sq_norm``
+on the meta device below the same step's at model 1. A reduced
+whisper-base (no tensor-parallel compute) computes whole on every rank:
+its rank FLOPs at data 2 x model 2 are those at data 2 x model 1. ``dist.tp.tp_sq_norm``
 and ``tp_abs_max`` are held on recording meshes (what each rank sends)
 and on the 8 ranks (the whole tree's norm and max, the same on every
 rank).
 
 TOL is 1e-5 (rtol and atol), as the one-block step's parity tests: the
-partial products are summed over ranks in another order. That order
+partial products are summed over ranks in another order (rwkv6 is held
+to 1e-4 of JAX, the bound of the one-process port's RWKV against JAX,
+and to TOL of the port's own one-process step). That order
 moves the quantizer's argument x / scale by about 1e-5 of a step, so a
 coordinate within ``TIE`` of a half-integer may round the other way than
 the oracle's (the rule does not decide such ties at f32 precision): the
@@ -56,6 +60,10 @@ from repro_torch.configs.registry import get_config
 from repro_torch.launch.mesh import RecordingMesh, run_ranks
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+# rwkv6 against the oracle: the bound the one-process port's RWKV is held
+# to against JAX (``test_torch_ssm.py``); its grad norm moves by 1.2e-5
+# of itself between orders of the partial sums (quantized, step 2)
+RECURRENT_TOL = dict(rtol=1e-4, atol=1e-4)
 TIE = 1e-3                  # |frac(x / scale) - 1/2| of a rounding tie
 MODES = ("cge", "stale", "trimmed", "quantized")
 B, S, STEPS = 8, 16, 3
@@ -72,7 +80,8 @@ CASES = ([("data4_model2", "qwen2-0.5b", m) for m in MODES]
                                                              "quantized")]
          + [("data2_model4_h6", "deepseek-v2-236b", "cge")]
          + [("data4_model2", "jamba-v0.1-52b", m) for m in ("cge",
-                                                           "quantized")])
+                                                           "quantized")]
+         + [("data4_model2", "rwkv6-3b", m) for m in ("cge", "quantized")])
 # the agent masked at each step, per agent count
 MASKED = {4: (2, 2, 0), 2: (None, 1, None)}
 
@@ -93,7 +102,8 @@ def _tc_kwargs(name, mode):
                 lr_total=10, warmup=1, f=1, tau=1,
                 remat_policy="full" if name in ("yi-6b", "arctic-480b",
                                                 "deepseek-v2-236b",
-                                                "jamba-v0.1-52b")
+                                                "jamba-v0.1-52b",
+                                                "rwkv6-3b")
                 else "none")
 
 
@@ -277,6 +287,67 @@ def _jax_reference(name, heads, mode, jparams, n, port_err=None):
                      for l in jax.tree.leaves(params)], flips
 
 
+_PORT = {}
+
+
+def _port_reference(name, heads, mode, np_params, n, port_err=None):
+    """The port's own one-process step, as ``_jax_reference`` builds the
+    reference's: each agent's gradient by the port's loss, the rule of
+    ``core.gradagg`` on the stacked flat gradients (the quantizer's ties
+    adopted from ``port_err`` as there), then clipping, the optimizer and
+    the update. Returns the metrics and the parameter leaves."""
+    from repro_torch.core import gradagg
+    from repro_torch.core.ledger import layout_of, tree_flatten, tree_map
+    from repro_torch.launch import train as T
+    from repro_torch.models.model import params_from_jax
+    from repro_torch.optim.optimizers import (apply_updates,
+                                              clip_by_global_norm)
+    key = (name, heads, mode)
+    if key in _PORT:
+        return _PORT[key]
+    cfg = _cfg(name, heads)
+    tc = T.TrainConfig(**_tc_kwargs(name, mode))
+    opt = T.make_optimizer(tc)
+    params = params_from_jax(np_params)
+    ost = opt.init(params)
+    loss_fn = T.make_loss_fn(cfg, tc, 1)
+    per = B // n
+    err = None
+    metrics = []
+    for t, (b, m) in enumerate(zip(*_data(n))):
+        losses, grads, layout = [], [], None
+        for j in range(n):
+            loss, g = T.value_and_grad(loss_fn, params, {
+                k: torch.from_numpy(v[j * per:(j + 1) * per])
+                for k, v in b.items()})
+            losses.append(float(loss))
+            layout = layout_of(g)
+            grads.append(layout.flatten(g))
+        g = torch.stack(grads)
+        rx = torch.from_numpy(m > 0)
+        lsum = float(np.sum(np.float32(losses) * m))
+        if mode == "cge":
+            keep = gradagg.cge_mask(g, rx, tc.f)
+            agg, denom = gradagg.agg_sum(g, keep), float(keep.sum())
+        else:                                   # quantized
+            x = g if err is None else g + err
+            deq = gradagg.quantize_int8(x)[0].numpy()
+            deq, _ = _adopt_ties(x.numpy(), deq, m > 0, port_err[t])
+            deq = torch.from_numpy(deq)
+            agg, denom = gradagg.agg_sum(deq, rx), float(m.sum())
+            err = torch.where(rx[:, None], x - deq, x)
+        denom = max(denom, 1.0)
+        agg = layout.unflatten(agg / np.float32(denom), dtype=torch.float32)
+        agg, gnorm = clip_by_global_norm(agg, tc.clip_norm)
+        agg = tree_map(lambda a, p: a.to(p.dtype), agg, params)
+        upd, ost = opt.update(agg, ost, params, t)
+        params = apply_updates(params, upd, T.lr_at(tc, t))
+        metrics.append((lsum / denom, float(gnorm)))
+    _PORT[key] = (metrics, [l.detach().numpy().copy()
+                            for l in tree_flatten(params)[0]])
+    return _PORT[key]
+
+
 @pytest.fixture(scope="module")
 def jax_params():
     import jax
@@ -319,13 +390,38 @@ def test_tp_general_step_matches_live_reference(spawned, jax_params, key,
     want_m, want_p, flips = _jax_reference(
         name, heads, mode, jax_params[name, heads], data, port_err)
     assert sum(flips) <= 2 * STEPS, flips       # ties are rare
+    tol = RECURRENT_TOL if name == "rwkv6-3b" else TOL
     for o in spawned:
         got = o[key, name, mode]
         assert got["tp"] == ("model",)              # the TP path ran
         np.testing.assert_allclose(np.array(got["metrics"]),
-                                   np.array(want_m), **TOL)
+                                   np.array(want_m), **tol)
         assert len(got["params"]) == len(want_p)
         for a, b in zip(got["params"], want_p):
+            np.testing.assert_allclose(a, b, **tol)
+
+
+@pytest.mark.parametrize("key,name,mode",
+                         [c for c in CASES if c[1] == "rwkv6-3b"])
+def test_tp_rwkv_general_step_matches_one_process(spawned, jax_params, key,
+                                                  name, mode):
+    """rwkv6's general step within TOL of the port's own one-process step
+    (``_port_reference``) from the same parameters, where JAX is held to
+    RECURRENT_TOL: loss, grad norm and every gathered parameter."""
+    data, model, heads = MESHES[key]
+    port_err = None
+    if mode == "quantized":
+        port_err = [np.stack([spawned[d * model][key, name, mode]
+                              ["err_rows"][t] for d in range(data)])
+                    for t in range(STEPS)]
+    one_m, one_p = _port_reference(name, heads, mode,
+                                   jax_params[name, heads], data, port_err)
+    for o in spawned:
+        got = o[key, name, mode]
+        np.testing.assert_allclose(np.array(got["metrics"]),
+                                   np.array(one_m), **TOL)
+        assert len(got["params"]) == len(one_p)
+        for a, b in zip(got["params"], one_p):
             np.testing.assert_allclose(a, b, **TOL)
 
 
@@ -471,7 +567,7 @@ def test_tp_general_rank_flops_below_model_one(key, name, mode):
 
 
 def test_non_dense_general_step_computes_whole_on_every_rank():
-    cfg = _cfg("rwkv6-3b")
+    cfg = _cfg("whisper-base")
     tp_flops, axes = _rank_flops(cfg, "cge", 2, 2)
     assert axes == ()
     assert tp_flops == _rank_flops(cfg, "cge", 2, 1)[0] > 0

@@ -249,15 +249,15 @@ def test_one_expert_a_rank_and_the_fallback_are_what_ran(spawned):
 
 @pytest.mark.parametrize("name", ["arctic-480b", "deepseek-v2-236b",
                                   "jamba-v0.1-52b", "qwen2-0.5b",
-                                  "rwkv6-3b"])
+                                  "rwkv6-3b", "whisper-base"])
 @pytest.mark.parametrize("model", [2, 4])
 def test_init_params_draws_place_params_blocks(name, model):
     """``launch.serve.init_params`` on every rank of a recording mesh:
     bit for bit ``place_params`` of the whole ``init_model`` from the
     same seed (arctic's, deepseek's and jamba's expert stacks cut to the
-    rank's experts as they are drawn, deepseek's MLA and jamba's Mamba
-    leaves to their compute blocks), the whole tree where the family has
-    no tensor-parallel compute (rwkv6)."""
+    rank's experts as they are drawn, deepseek's MLA, jamba's Mamba and
+    rwkv6's leaves to their compute blocks), the whole tree where the
+    family has no tensor-parallel compute (whisper)."""
     from repro_torch.core.ledger import tree_flatten
     from repro_torch.launch.mesh import RecordingMesh
     from repro_torch.launch.serve import init_params, place_params
@@ -276,6 +276,11 @@ def test_init_params_draws_place_params_blocks(name, model):
         assert len(got) == len(want)
         for a, b in zip(got, want):
             assert a.shape == b.shape and torch.equal(a, b)
+        if cfg.rwkv is not None:          # every weight a column weight
+            local = init_params(torch.Generator().manual_seed(0), cfg, mesh,
+                                device="meta", max_pos=64)
+            assert local["blocks"][0]["mixer"]["w_o"].shape[-1] == \
+                cfg.d_model // model
         if cfg.moe is not None:
             local = init_params(torch.Generator().manual_seed(0), cfg, mesh,
                                 device="meta", max_pos=64)
@@ -286,13 +291,13 @@ def test_init_params_draws_place_params_blocks(name, model):
 
 def test_tp_compute_covers_the_gqa_decoders():
     """The one predicate: the dense GQA decoders, arctic (GQA with MoE),
-    deepseek-v2 (MLA with MoE) and the Mamba hybrid jamba (Mamba and GQA
-    with MoE) compute tensor-parallel; RWKV and the encoder-decoder
-    (whisper) do not yet."""
+    deepseek-v2 (MLA with MoE), the Mamba hybrid jamba (Mamba and GQA
+    with MoE) and rwkv6 compute tensor-parallel; the encoder-decoder
+    (whisper) does not yet."""
     from repro_torch.configs.registry import list_configs
     from repro_torch.dist.tp import tp_compute
     got = {n: tp_compute(get_config(n)) for n in list_configs()}
     assert {n for n, ok in got.items() if ok} == {
         "arctic-480b", "deepseek-v2-236b", "jamba-v0.1-52b", "qwen1.5-4b",
-        "qwen2-0.5b", "qwen2-1.5b", "qwen2-vl-2b", "yi-6b"}
-    assert not got["rwkv6-3b"] and not got["whisper-base"]
+        "qwen2-0.5b", "qwen2-1.5b", "qwen2-vl-2b", "rwkv6-3b", "yi-6b"}
+    assert got["rwkv6-3b"] and not got["whisper-base"]

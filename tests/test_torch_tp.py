@@ -1,5 +1,5 @@
 """Tensor-parallel compute over "model" for the attention decoders, GQA
-and MLA, dense and MoE, and jamba's Mamba hybrid
+and MLA, dense and MoE, jamba's Mamba hybrid and RWKV-6
 (``repro_torch.dist.tp`` and the layers, steps
 and placement that read it), on gloo ranks of the CPU, against live
 ``repro`` run unsharded (the reference's numbers do not depend on its
@@ -14,38 +14,43 @@ layout):
   deepseek-v2-236b (MLA: its latents, ``w_uk`` / ``w_uv`` and ``wo``
   over tp; 4 experts, top-2, a shared expert; remat), 2 layers, and
   jamba-v0.1-52b (one period of 8 layers: 7 Mamba mixers over tp, one
-  GQA layer, 4 MoE blocks of 4 experts; remat), f32,
+  GQA layer, 4 MoE blocks of 4 experts; remat) and rwkv6-3b (2 layers,
+  every weight's columns over tp; remat), f32,
   SGD-momentum and AdamW, 3 steps with a mask dropping one of 4 agents,
   on data 1 x model 2 (H % tp = 0: each rank its own heads), data 2 x
   model 2, and data 1 x model 4 with 6 query heads (``wq`` split across
-  head boundaries, the heads over gcd(6, 4) = 2 groups), jamba on the
-  last two only (AdamW, then SGD-momentum): loss, grad norm
+  head boundaries, the heads over gcd(6, 4) = 2 groups), jamba and
+  rwkv6 on the last two only (AdamW, then SGD-momentum): loss, grad norm
   and the gathered parameters within ``TOL`` of the reference's
   ``make_train_step``, and identical on every rank;
 - ``launch.serve``'s prefill and decode at model 2 and 4 (arctic at
   model 4: one expert a rank; deepseek's cache holds this rank's latent
   and rope-key columns, jamba's its block of each Mamba state's d_state
-  and conv rows' di): logits within ``TOL`` of the reference's, greedy
-  tokens equal;
+  and conv rows' di, rwkv6's every head's block of value columns and its
+  token-shift rows' columns): logits within ``TOL`` of the reference's,
+  greedy tokens equal;
 - a rank's matmul FLOPs (``OpCounter`` on the meta device) are 1/tp of
   the one-process step's, but for the whole leaves ``wk`` / ``wv`` (a
   rank projects the KV heads its query heads read) and the tied
   unembedding's input gradient where many tokens gathered the weight
   (whole on every rank, as the reference's compiled step computes it),
-  arctic's and deepseek's experts and router, deepseek's MLA and
-  jamba's Mamba included: the step does not gather whole and compute
-  whole;
+  arctic's and deepseek's experts and router, deepseek's MLA, jamba's
+  Mamba and rwkv6's time and channel mixes included: the step does not
+  gather whole and compute whole;
 - at model = 1 the dense step, and at model 2 a family without
-  tensor-parallel compute (reduced rwkv6-3b, whole on every rank: its
-  rank FLOPs are the one-rank step's), are bit for bit the placed step
-  as it was before tensor-parallel compute (digests of the same runs on
-  a tree without it).
+  tensor-parallel compute (reduced whisper-base, whole on every rank:
+  its rank FLOPs are the one-rank step's), are bit for bit the placed
+  step as it was before tensor-parallel compute (digests of the same
+  runs on a tree without it).
 
 TOL is 1e-5 (rtol and atol), as the placed step's own parity tests:
 the partial products are summed over ranks in another order. jamba's
-serving logits are held within TOL of the port's one process and within
-1e-4 of JAX's, the bound ``test_torch_families.py`` holds the one
-process to (its scan and f32 state against ``lax.associative_scan``'s).
+and rwkv6's serving logits are held within TOL of the port's one process
+and within 1e-4 of JAX's, the bound ``test_torch_families.py`` holds the
+one process to (their scans and f32 states against the reference's);
+rwkv6's placed step is held to that bound against JAX too, which its
+one-process step misses TOL by, and within TOL of the port's own
+one-process step (its AdamW grad norms within ``ADAMW_NORM_TOL``).
 """
 import dataclasses
 import hashlib
@@ -60,26 +65,35 @@ from repro_torch.launch.mesh import run_ranks
 TOL = dict(rtol=1e-5, atol=1e-5)
 N_AGENTS, B, S, STEPS = 4, 8, 16, 3
 TIMEOUT = 300
-JAMBA = "jamba-v0.1-52b"
-ARCHS = ("qwen2-0.5b", "yi-6b", "arctic-480b", "deepseek-v2-236b", JAMBA)
-WHOLE = "rwkv6-3b"          # a family without tensor-parallel compute
+JAMBA, RWKV = "jamba-v0.1-52b", "rwkv6-3b"
+ARCHS = ("qwen2-0.5b", "yi-6b", "arctic-480b", "deepseek-v2-236b", JAMBA,
+         RWKV)
+WHOLE = "whisper-base"      # a family without tensor-parallel compute
 OPTIMIZERS = ("sgdm", "adamw")
 # name -> (data, model, n_heads patch)
 MESHES = {"model2": (1, 2, None), "data2_model2": (2, 2, None),
           "model4_h6": (1, 4, 6)}
 # every mesh and optimizer, but jamba's 8-layer period (about 20 s of JAX
-# compilation a step) on two: model 2 with AdamW, model 4 with SGD-momentum
-PLACED = ([(m, n, o) for m in sorted(MESHES) for n in ARCHS if n != JAMBA
-           for o in OPTIMIZERS]
-          + [("data2_model2", JAMBA, "adamw"), ("model4_h6", JAMBA, "sgdm")])
+# compilation a step) and rwkv6 on two: data 2 x model 2 with AdamW,
+# model 4 with SGD-momentum
+PLACED = ([(m, n, o) for m in sorted(MESHES) for n in ARCHS
+           if n not in (JAMBA, RWKV) for o in OPTIMIZERS]
+          + [("data2_model2", n, "adamw") for n in (JAMBA, RWKV)]
+          + [("model4_h6", n, "sgdm") for n in (JAMBA, RWKV)])
 SERVE = (("model2", "qwen2-0.5b"), ("model2", "yi-6b"),
          ("model4_h6", "qwen2-0.5b"), ("model2", "arctic-480b"),
          ("model4_h6", "arctic-480b"), ("model2", "deepseek-v2-236b"),
-         ("model4_h6", "deepseek-v2-236b"), ("model4_h6", JAMBA))
+         ("model4_h6", "deepseek-v2-236b"), ("model4_h6", JAMBA),
+         ("model2", RWKV), ("model4_h6", RWKV))
 # logits of a recurrent family against JAX's: the bound the one-process
 # port is held to (``test_torch_families.py``), the TP run within TOL of
-# the one process's
+# the one process's. rwkv6's placed step is held to it against JAX too:
+# the one-process port's own step misses TOL there (AdamW: grad norm
+# 1.545e-3 of 39.07 at step 3, parameters 3.12e-5)
 RECURRENT_TOL = dict(rtol=1e-4, atol=1e-4)
+# rwkv6's AdamW grad norms against the port's one process (measured 1.3e-5
+# of the norm at step 3; test_tp_rwkv_placed_step_matches_one_process)
+ADAMW_NORM_TOL = dict(rtol=2e-5, atol=1e-5)
 PROMPT, NEW, MAX_LEN = 6, 4, 12
 
 
@@ -100,7 +114,7 @@ def _tc_kwargs(name, optimizer):
                 lr_kind="cosine", lr_total=10, warmup=1,
                 remat_policy=("full" if name in ("yi-6b", "arctic-480b",
                                                  "deepseek-v2-236b",
-                                                 "jamba-v0.1-52b", WHOLE)
+                                                 "jamba-v0.1-52b", RWKV)
                               else "none"))
 
 
@@ -124,11 +138,21 @@ def _prompt():
 
 def _fill(buf, pre):
     """A dense decode cache's leaf (in place) from the prefill's: the
-    prompt's rows of an attention cache, a Mamba layer's whole state."""
+    prompt's rows of an attention cache, a Mamba or RWKV layer's whole
+    state."""
     if buf.shape == pre.shape:
         buf.copy_(pre)
     else:
         buf[:, :, :PROMPT] = pre
+
+
+def _fill_all(cache, pre):
+    """Every layer's mixer and FFN (RWKV's channel mix) cache from the
+    prefill's."""
+    for c, p in zip(cache, pre):
+        for part in ("mixer", "ffn"):
+            for key in c[part]:
+                _fill(c[part][key], p[part][key])
 
 
 # ---------------------------------------------------------------------------
@@ -175,9 +199,7 @@ def _serve(mesh, cfg, np_params):
         out = [whole(logits).numpy().copy()]
         cache = V.place_cache(init_cache(cfg, 2, MAX_LEN, device="cpu"),
                               cfg, mesh)
-        for c, p in zip(cache, pc):
-            for key in c["mixer"]:
-                _fill(c["mixer"][key], p["mixer"][key])
+        _fill_all(cache, pc)
         tok = out[0][:, -1].argmax(-1)
         for i in range(NEW):
             logits, _, _ = apply_model(
@@ -192,16 +214,14 @@ def _serve(mesh, cfg, np_params):
     dec = V.make_decode_step(cfg, mesh=mesh)
     big = V.place_cache(init_cache(cfg, 2, MAX_LEN, device="cpu"), cfg,
                         mesh)
-    for c, p in zip(big, cache):
-        for key in c["mixer"]:
-            _fill(c["mixer"][key], p["mixer"][key])
+    _fill_all(big, cache)
     for i in range(NEW):
         tok, _ = dec(params, {"tokens": tok[:, None], "cache": big,
                               "pos": PROMPT + i})
         steps.append(tok.numpy().copy())
     return {"logits": out, "tokens": steps,
-            "cache_hd": [{k: v.shape[-1] for k, v in c["mixer"].items()}
-                         for c in big]}
+            "cache_hd": [{k: v.shape[-1] for part in ("mixer", "ffn")
+                          for k, v in c[part].items()} for c in big]}
 
 
 def _rank(rank, world, meshes, np_params, batches):
@@ -228,9 +248,9 @@ def _rank(rank, world, meshes, np_params, batches):
                                     device="cpu"),
                                _cfg("qwen2-0.5b"), tc,
                                np_params["qwen2-0.5b", None], batches)
-        out["rwkv6"] = _train(built["data2_model2"], _cfg(WHOLE),
-                              T.TrainConfig(**_tc_kwargs(WHOLE, "adamw")),
-                              np_params[WHOLE, None], batches)
+        out["whisper"] = _train(built["data2_model2"], _cfg(WHOLE),
+                                T.TrainConfig(**_tc_kwargs(WHOLE, "adamw")),
+                                np_params[WHOLE, None], batches)
     return out
 
 
@@ -404,6 +424,33 @@ def _run_jax_train(name, heads, opt, jparams, batches):
                 for l in jax.tree.leaves(state["params"])]
 
 
+_ONE_TRAIN = {}
+
+
+def _one_process_train(name, heads, opt, np_params, batches):
+    """The port's own one-process ``make_train_step`` from the same
+    parameters: its metrics and parameters after the steps."""
+    from repro_torch.core.ledger import tree_flatten
+    from repro_torch.launch import train as T
+    from repro_torch.models.model import params_from_jax
+    key = (name, heads, opt)
+    if key not in _ONE_TRAIN:
+        cfg = _cfg(name, heads)
+        tc = T.TrainConfig(**_tc_kwargs(name, opt))
+        state = T.init_state(torch.Generator().manual_seed(0), cfg, tc,
+                             max_pos=64, device="cpu")
+        state["params"] = params_from_jax(np_params)
+        step = T.make_train_step(cfg, tc, moe_groups=N_AGENTS)
+        ms = []
+        for b in batches:
+            state, m = step(state, {k: torch.from_numpy(v)
+                                    for k, v in b.items()})
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        _ONE_TRAIN[key] = (ms, [l.numpy().copy() for l in
+                                tree_flatten(state["params"])[0]])
+    return _ONE_TRAIN[key]
+
+
 @pytest.mark.parametrize("mesh,name,opt", PLACED)
 def test_tp_placed_step_matches_live_reference(spawned, jax_params, mesh,
                                                name, opt):
@@ -412,20 +459,47 @@ def test_tp_placed_step_matches_live_reference(spawned, jax_params, mesh,
     want_m, want_p = _jax_train(name, heads, opt,
                                 jax_params[name, heads], batches)
     ranks = _ranks_of(spawned, mesh)
+    tol = RECURRENT_TOL if name == RWKV else TOL
     for o in ranks:
         got = o[mesh, name, opt]
         assert got["tp"] == ("model",)              # the TP path ran
         np.testing.assert_allclose(np.array(got["metrics"]),
-                                   np.array(want_m), **TOL)
+                                   np.array(want_m), **tol)
         assert len(got["params"]) == len(want_p)
         for a, b in zip(got["params"], want_p):
-            np.testing.assert_allclose(a, b, **TOL)
+            np.testing.assert_allclose(a, b, **tol)
     for o in ranks[1:]:                             # identical on every rank
         assert o[mesh, name, opt]["metrics"] == \
             ranks[0][mesh, name, opt]["metrics"]
         for a, b in zip(o[mesh, name, opt]["params"],
                         ranks[0][mesh, name, opt]["params"]):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mesh,name,opt",
+                         [c for c in PLACED if c[1] == RWKV])
+def test_tp_rwkv_placed_step_matches_one_process(spawned, jax_params, mesh,
+                                                 name, opt):
+    """rwkv6's placed step within TOL of the port's own one-process step
+    from the same parameters (where JAX is held to RECURRENT_TOL): every
+    parameter, the losses and, with SGD-momentum, the grad norms. With
+    AdamW the grad norm moves by 1.3e-5 of itself over 3 steps (step 1's
+    bit for bit, 5.2e-4 of 39.07 at step 3, where the one process is
+    1.5e-3 from JAX): AdamW's normalised update carries the partial sums'
+    order into the next gradient. It is held at ADAMW_NORM_TOL."""
+    batches, _ = spawned
+    heads = MESHES[mesh][2]
+    one_m, one_p = _one_process_train(name, heads, opt,
+                                      jax_params[name, heads], batches)
+    norm_tol = ADAMW_NORM_TOL if opt == "adamw" else TOL
+    for o in _ranks_of(spawned, mesh):
+        got = o[mesh, name, opt]
+        loss, norm = np.array(got["metrics"]).T
+        np.testing.assert_allclose(loss, np.array(one_m)[:, 0], **TOL)
+        np.testing.assert_allclose(norm, np.array(one_m)[:, 1], **norm_tol)
+        assert len(got["params"]) == len(one_p)
+        for a, b in zip(got["params"], one_p):
+            np.testing.assert_allclose(a, b, **TOL)
 
 
 def _jax_serve(name, heads, jparams):
@@ -463,9 +537,7 @@ def _one_process_serve(cfg, np_params):
                                     mode="prefill")
         out = [logits.numpy().copy()]
         cache = init_cache(cfg, 2, MAX_LEN, device="cpu")
-        for c, p in zip(cache, pc):
-            for key in c["mixer"]:
-                _fill(c["mixer"][key], p["mixer"][key])
+        _fill_all(cache, pc)
         for i in range(NEW):
             tok = out[-1][:, -1].argmax(-1)
             logits, _, _ = apply_model(
@@ -487,11 +559,15 @@ def test_tp_prefill_and_decode_match_live_reference(spawned, jax_params,
         tol, one = RECURRENT_TOL, _one_process_serve(
             cfg, jax_params[name, heads])
     # every layer's cache: head_dim over tp; MLA's latent and rope key
-    # columns; Mamba's state h over d_state, its conv rows over di
+    # columns; Mamba's state h over d_state, its conv rows over di;
+    # RWKV's state over its value columns, its token-shift rows over d
     def cols(kind):
         if kind == "mamba":
             return {"h": cfg.ssm.d_state // tp,
                     "conv": cfg.ssm.expand * cfg.d_model // tp}
+        if kind == "rwkv":
+            return {"wkv": cfg.rwkv.head_dim // tp,
+                    "tm_x": cfg.d_model // tp, "cm_x": cfg.d_model // tp}
         if cfg.mla:
             return {"ckv": cfg.mla.kv_lora_rank // tp,
                     "kr": cfg.mla.qk_rope_head_dim // tp}
@@ -517,8 +593,8 @@ def test_tp_prefill_and_decode_match_live_reference(spawned, jax_params,
 BEFORE_TP = {
     "model1": "65ffb24061fc2a877bfbdaaf222b22536a2c2ed2"
               "b862b605836e972f0f8c110d",
-    "rwkv6": "22e203cce99dedd8805eb9a9a2cbccbac6ef9aac"
-             "c08062e8722323e2554cc4d4",
+    "whisper": "16d1f2a47d59a282ea70137d3210736a546d5138"
+               "3a7776b59ee7e5f47b0dc65e",
 }
 
 
@@ -532,10 +608,11 @@ def _digest(run):
 @pytest.mark.parametrize("key", sorted(BEFORE_TP))
 def test_model_one_and_other_families_are_bit_for_bit_unchanged(spawned,
                                                                  key):
-    """Dense qwen2-0.5b on data 4 x model 1, and reduced rwkv6-3b (no
-    tensor-parallel compute) on data 2 x model 2 with remat: no tp axis
-    engaged, and every rank's result bit for bit the step's before this
-    layer existed."""
+    """Dense qwen2-0.5b on data 4 x model 1, and reduced whisper-base (no
+    tensor-parallel compute) on data 2 x model 2: no tp axis engaged, and
+    every rank's result bit for bit the step's before this layer existed
+    (whisper's digest from the tree before RWKV's tensor-parallel
+    compute)."""
     for o in _ranks_of(spawned, "data2_model2"):
         assert o[key]["tp"] == ()
         assert _digest(o[key]) == BEFORE_TP[key]
@@ -601,7 +678,7 @@ def test_rank_flops_are_one_tp_th_of_the_whole_step(name, model):
 
 
 def test_non_dense_rank_flops_stay_whole():
-    """A family without tensor-parallel compute (reduced rwkv6-3b)
+    """A family without tensor-parallel compute (reduced whisper-base)
     computes whole on every rank: its rank FLOPs at model 2 are model
     1's."""
     from repro_torch.dist.sharding import shard_tree
