@@ -300,7 +300,7 @@ Phases, each fatal on failure:
    calls no Pallas kernel).
 20. arctic-480b tensor- and expert-parallel over "model"
    (``models/moe.py`` under ``dist.tp``), on 4 gloo ranks sharing the
-   card. 20a: phase 11's cut (1 of 35 layers) at every published width
+   card, one spawn for a and b (``drive_moe``; so in 21-24). 20a: phase 11's cut (1 of 35 layers) at every published width
    and all 128 experts, bf16 from seed 0, on data 1 x model 4: each rank
    draws its blocks by ``launch.serve.init_params`` (one rank at a
    time), holds 32 experts, exactly a quarter of the expert bytes, and
@@ -380,7 +380,25 @@ Phases, each fatal on failure:
    run on the f32 twins (reduced rwkv6, 2 layers: placed, cge and
    quantized within 1e-4 of one process). No kernel lies on this path
    (the reference's RWKV is ``jnp`` einsums and ``lax.scan``).
-24. A JSON line with every kernel's launches (summed over the phases
+24. whisper-base tensor-parallel over "model" (``models/attention.py``'s
+   ``_apply_gqa_tp`` with cross-attention: the encoder's and the
+   decoder's heads, the cross-attention's K/V from the encoder's output
+   on the KV heads a rank reads, its decode over ``ck`` / ``cv``'s
+   head_dim block as partial dots; the MLPs' columns), by phase 20's
+   code. 24a: every published width at full depth (6 + 6 layers, d 512,
+   8 heads, 1,500 frames, vocabulary 51,865), bf16 from seed 0, on data
+   1 x model 4 (2 heads and 128 columns a rank), 16c's 4 prompts of 64
+   tokens with frame embeddings from seed 0, 8 new tokens, with 20a's
+   checks (the streams held to one rank's argmax at every clear margin),
+   then in the same ranks in f32 with the logits within 1e-4 of one
+   rank's. 24b: data 2 x model 2 at the same widths and depth: 1 placed
+   masked step (AdamW) and 2 general cge steps (SGD with momentum) with
+   20b's checks; stale, trimmed and quantized counted on the meta
+   device, cge and quantized run on the f32 twins (reduced whisper-base,
+   2 + 2 layers: placed, cge and quantized within 1e-4 of one process).
+   No kernel lies on this path (the reference's whisper decode is
+   ``plain_attention`` over a dense cache, and no engine pages it).
+25. A JSON line with every kernel's launches (summed over the phases
    that drive a path: 4, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16, all
    ranks of 15), error and times, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -3042,10 +3060,33 @@ def param_checksum(tree) -> int:
     return total
 
 
-def lm_batch(tokens, targets, weights, device):
-    return {k: torch.from_numpy(np.asarray(v)).to(device)
-            for k, v in (("tokens", tokens), ("targets", targets),
-                         ("weights", weights))}
+def lm_batch(tokens, targets, weights, device, cfg=None):
+    """A train batch on ``device``, with ``frames`` for an
+    encoder-decoder ``cfg``."""
+    out = {k: torch.from_numpy(np.asarray(v)).to(device)
+           for k, v in (("tokens", tokens), ("targets", targets),
+                        ("weights", weights))}
+    return with_frames(out, cfg, device)
+
+
+def frames(cfg, rows: int, device):
+    """Frame embeddings (rows, encoder_seq, d_model) in the compute dtype,
+    drawn from seed 0 (shapes only on the meta device)."""
+    shape = (rows, cfg.encoder_seq, cfg.d_model)
+    dt = mlayers.torch_dtype(cfg.compute_dtype)
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dt, device=META)
+    x = np.random.default_rng(0).normal(size=shape).astype(np.float32)
+    return torch.from_numpy(x).to(device=device, dtype=dt)
+
+
+def with_frames(batch: dict, cfg, device) -> dict:
+    """``batch`` with ``enc_embed`` (``frames`` for its rows) where ``cfg``
+    is an encoder-decoder; as it is otherwise."""
+    if cfg is None or not cfg.encoder_decoder:
+        return batch
+    return {**batch, "enc_embed": frames(cfg, len(batch["tokens"]),
+                                         device)}
 
 
 def train_twin(device):
@@ -4125,13 +4166,13 @@ DRY_DECODE_ROWS, DRY_DECODE_LEN, DRY_DECODE_POS = 8, 1024, 512
 META = torch.device("meta")
 
 
-def lm_batch_meta(rows: int, seq: int):
-    return {"tokens": torch.empty((rows, seq), dtype=torch.int32,
-                                  device=META),
-            "targets": torch.empty((rows, seq), dtype=torch.int32,
-                                   device=META),
-            "weights": torch.empty((rows, seq), dtype=torch.float32,
-                                   device=META)}
+def lm_batch_meta(rows: int, seq: int, cfg=None):
+    return with_frames(
+        {"tokens": torch.empty((rows, seq), dtype=torch.int32, device=META),
+         "targets": torch.empty((rows, seq), dtype=torch.int32,
+                                device=META),
+         "weights": torch.empty((rows, seq), dtype=torch.float32,
+                                device=META)}, cfg, META)
 
 
 def counted(fn, *args):
@@ -4304,7 +4345,7 @@ def twin_placed(mesh, cfg, tc, path) -> bool:
                            tp="model", param_specs=specs["params"],
                            sizes=mesh.shape, mesh=mesh)
     for x, y, w in placed_batches(cfg.vocab_size):
-        state, m = step(state, lm_batch(x, y, w, dev))
+        state, m = step(state, lm_batch(x, y, w, dev, cfg))
     params = gather_tree(state["params"], specs["params"], mesh)
     same = agreed(mesh, params)
     if mesh.rank == 0:                # the parent holds it to its reference
@@ -4321,7 +4362,7 @@ def twin_one_process(cfg, tc, device="cuda"):
                        tc, max_pos=TRAIN_SEQ + 1, device=device)
     step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS)
     for x, y, w in placed_batches(cfg.vocab_size):
-        state, _ = step(state, lm_batch(x, y, w, device))
+        state, _ = step(state, lm_batch(x, y, w, device, cfg))
     return state["params"]
 
 
@@ -4459,8 +4500,9 @@ def tpc_one_rank(prompts, device="cuda", cfg=None, new=GREEDY_NEW):
                         device=device)
     batch = torch.from_numpy(prompts).to(device)
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    prefill(params, {"tokens": batch[:, :8]})                 # warm-up
-    tok, pre = prefill(params, {"tokens": batch})
+    prefill(params, with_frames({"tokens": batch[:, :8]}, cfg,
+                                device))                      # warm-up
+    tok, pre = prefill(params, with_frames({"tokens": batch}, cfg, device))
     cache = dense_cache(cfg, pre, len(prompts), GREEDY_PROMPT_LEN + new,
                         device)
     out = [tok]
@@ -4490,8 +4532,11 @@ def tpc_teacher_forced(params, prompts, streams, device="cuda", cfg=None,
         return (gather_from_tp(lf, -1) if vocab_split(lf, cfg)
                 else lf).float()
 
+    enc = (frames(cfg, len(prompts), device) if cfg.encoder_decoder
+           else None)
     with tp_context(mesh):
-        logits, _, pre = apply_model(params, batch, cfg, mode="prefill")
+        logits, _, pre = apply_model(params, batch, cfg, mode="prefill",
+                                     enc_embed=enc)
         out = [last(logits)]
         cache = (dense_cache(cfg, pre, len(prompts),
                              GREEDY_PROMPT_LEN + GREEDY_NEW, device)
@@ -4698,7 +4743,7 @@ def gen_meta_count(mode: str, rank: int, cfg=None, tc=None):
     state = gen_state(cfg, tc, mesh, None, "meta")
     state["step"] = torch.tensor(GEN_STEPS - 1, dtype=torch.int32)
     step = make_general_step(cfg, tc, mesh)
-    _, cnt = counted(step, state, lm_batch_meta(TRAIN_BATCH, TRAIN_SEQ),
+    _, cnt = counted(step, state, lm_batch_meta(TRAIN_BATCH, TRAIN_SEQ, cfg),
                      gen_masks(mode)[-1])
     return cnt.table(), state_bytes(state)
 
@@ -4732,7 +4777,8 @@ def gen_rank_run(mesh, mode, twin, cfg=None, tc=None):
         with OpCounter() if last and not twin else \
                 contextlib.nullcontext() as cnt:
             state, met = step(state, lm_batch(
-                x, y, np.ones((TRAIN_BATCH, TRAIN_SEQ), np.float32), dev), m)
+                x, y, np.ones((TRAIN_BATCH, TRAIN_SEQ), np.float32), dev,
+                cfg), m)
             losses.append(float(met["loss"]))
         secs.append(time.perf_counter() - t0)
         if last and not twin:
@@ -4790,7 +4836,7 @@ def gen_oracle(mode: str, device="cuda", cfg=None, tc=None):
     for t, ((x, y), m) in enumerate(zip(gen_batches(cfg.vocab_size),
                                         gen_masks(mode))):
         batch = lm_batch(x, y, np.ones((TRAIN_BATCH, TRAIN_SEQ), np.float32),
-                         device)
+                         device, cfg)
         grads, layout = [], None
         for a in range(n):
             _, g = value_and_grad(loss_fn, params, {
@@ -4920,8 +4966,9 @@ def drive_general_tp(device="cuda"):
 
 class MoeRun(NamedTuple):
     """What phase 20 (arctic-480b), 21 (deepseek-v2-236b), 22
-    (jamba-v0.1-52b) or 23 (rwkv6-3b, no experts: its expert counts
-    None) runs.
+    (jamba-v0.1-52b), 23 (rwkv6-3b) or 24 (whisper-base) runs (the last
+    two without experts: their expert counts None; whisper's prefills and
+    train batches carry frame embeddings, ``with_frames``).
 
     Its a: ``layers`` layers at every published width, all experts,
     served on data 1 x model ``serve_model`` through launch.serve's
@@ -5096,7 +5143,8 @@ def moe_serve_one(mesh, run, prompts, dtype, gap):
     prefill = make_prefill_step(cfg, mesh=mesh)
     decode = make_decode_step(cfg, mesh=mesh)
     t0 = time.perf_counter()
-    tok, pre = prefill(params, {"tokens": torch.from_numpy(prompts).to(dev)})
+    tok, pre = prefill(params, with_frames(
+        {"tokens": torch.from_numpy(prompts).to(dev)}, cfg, dev))
     cache = tpc_grow(cfg, pre, len(prompts),
                      GREEDY_PROMPT_LEN + run.new_tokens, mesh)
     del pre
@@ -5135,31 +5183,11 @@ def moe_serve_one(mesh, run, prompts, dtype, gap):
     return res
 
 
-def drive_moe_serve(run: MoeRun, device="cuda", dtypes=(None,),
-                    unchecked=()):
-    """a from the parent: the ranks (one spawn for every dtype of
-    ``dtypes``), then for each the one-rank run (whole parameters) and
-    its teacher-forced argmax along the ranks' streams, held at every
-    clear margin but for the dtypes in ``unchecked``. In f32, also the
-    largest |logit| gap between rank 0's teacher-forced logits along its
-    stream and the one rank's, held within ``F32_LOGIT_TOL``."""
-    prompts = np.random.default_rng(0).integers(       # 16c's prompts
+def moe_prompts(run: MoeRun):
+    """a's prompts: 16c's, drawn over the arch's vocabulary."""
+    return np.random.default_rng(0).integers(
         0, run.cfg().vocab_size, (GREEDY_PROMPTS, GREEDY_PROMPT_LEN)
         ).astype(np.int32)
-    ex = ThreadPoolExecutor(1)
-    counting = [ex.submit(moe_meta_decode, run, dt) for dt in dtypes]
-    t0 = time.perf_counter()
-    res = run_ranks(moe_serve_rank, run.serve_model, backend="gloo",
-                    device=device, timeout=SPMD_TIMEOUT,
-                    args=(run, prompts, device, dtypes),
-                    threads=CORES // run.serve_model)
-    ranks_s = time.perf_counter() - t0
-    dry = [c.result() for c in counting]
-    ex.shutdown()
-    for dt, dry_dt in zip(dtypes, dry):
-        moe_serve_checks(run, device, dt, dt not in unchecked, prompts,
-                         [o[dt] for o in res], dry_dt, ranks_s)
-    log(f"  {run.phase}a in {time.perf_counter() - t0:.1f} s")
 
 
 def moe_serve_checks(run, device, dtype, streams_checked, prompts, res,
@@ -5190,12 +5218,14 @@ def moe_serve_checks(run, device, dtype, streams_checked, prompts, res,
     del lg, top2
     a = analyze(dry)
     r0 = res[0]
-    log(f"  {tag}: {run.arch} at full width ({cfg.n_layers} layer, "
+    enc = (f" + {cfg.encoder_layers} encoder layers, {cfg.encoder_seq} "
+           "frames" if cfg.encoder_decoder else "")
+    log(f"  {tag}: {run.arch} at full width ({cfg.n_layers} layer{enc}, "
         f"{experts_of(cfg)}, {cfg.param_dtype} from seed 0), "
         f"launch.serve's "
         f"prefill and decode steps on data 1 x model {run.serve_model} ("
-        f"{run.serve_model} gloo ranks sharing the card, {ranks_s:.1f} s "
-        f"with start-up for every dtype: rank 0 drew its blocks in "
+        f"{run.serve_model} gloo ranks sharing the card, rank 0 {ranks_s:.1f}"
+        f" s for every dtype after start-up: it drew its blocks in "
         f"{r0['make_s']:.1f} s (one rank at a time), prefill and the "
         f"counted step {r0['prefill_s']:.1f} s; then one rank with whole "
         f"parameters {one_s:.1f} s)")
@@ -5287,7 +5317,7 @@ def moe_placed_meta(run: MoeRun):
     step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS, dp="data",
                            tp="model", param_specs=specs["params"],
                            sizes=mesh.shape, mesh=mesh)
-    _, cnt = counted(step, state, lm_batch_meta(TRAIN_BATCH, TRAIN_SEQ))
+    _, cnt = counted(step, state, lm_batch_meta(TRAIN_BATCH, TRAIN_SEQ, cfg))
     return cnt.table()
 
 
@@ -5321,7 +5351,7 @@ def moe_placed_run(mesh, run: MoeRun):
         sync(dev)
         t0 = time.perf_counter()
         with OpCounter() if last else contextlib.nullcontext() as cnt:
-            state, m = step(state, lm_batch(x, y, w, dev))
+            state, m = step(state, lm_batch(x, y, w, dev, cfg))
             losses.append(float(m["loss"]))
         secs.append(time.perf_counter() - t0)
         if last:
@@ -5367,11 +5397,31 @@ def moe_train_rank(rank, world, run, ref_dir, device="cuda"):
     return out
 
 
-def drive_moe_train(run: MoeRun, device="cuda"):
-    """b from the parent: the twins' one-process references, the meta
-    counts beside the ranks, then every check."""
-    t_all = time.perf_counter()
-    tag = run.phase + "b"
+def moe_rank(rank, world, run, prompts, ref_dir, device="cuda",
+             dtypes=(None,)):
+    """A rank of a (data 1 x ``serve_model``) and then of b (data
+    ``MOE_DATA`` x ``MOE_MODEL``): one spawn of 4 ranks for the phase.
+    Returns (a's results, b's results, a's seconds)."""
+    t0 = time.perf_counter()
+    serve = moe_serve_rank(rank, world, run, prompts, device, dtypes)
+    serve_s = time.perf_counter() - t0
+    return serve, moe_train_rank(rank, world, run, ref_dir, device), serve_s
+
+
+def drive_moe(run: MoeRun, device="cuda", dtypes=(None,), unchecked=()):
+    """a and b from the parent, their ranks one spawn of 4 (a's data 1 x
+    ``serve_model`` and b's data 2 x 2 meshes over the same process
+    group): b's twins' one-process references first, the meta counts
+    beside the ranks. Then a's checks for each of ``dtypes``: the
+    one-rank run (whole parameters) and its teacher-forced argmax along
+    the ranks' streams, held at every clear margin but for the dtypes in
+    ``unchecked``, and in f32 the largest |logit| gap between rank 0's
+    teacher-forced logits along its stream and the one rank's, held
+    within ``F32_LOGIT_TOL``; then b's checks."""
+    if run.serve_model != MOE_DATA * MOE_MODEL:
+        raise ValueError(f"{run.arch}: a's {run.serve_model} ranks are not "
+                         f"b's {MOE_DATA * MOE_MODEL}")
+    prompts = moe_prompts(run)
     t0 = time.perf_counter()
     ref = twin_one_process(run.twin_cfg(), moe_placed_twin_tc(), device)
     oracle = {mode: gen_oracle(mode, device, cfg=run.twin_cfg(),
@@ -5394,10 +5444,11 @@ def drive_moe_train(run: MoeRun, device="cuda"):
     held = (torch.cuda.memory_allocated(device),
             torch.cuda.memory_reserved(device))
     free, total = torch.cuda.mem_get_info(device)
-    log(f"  {tag}: before the ranks this process holds {held[0]:,} B "
+    log(f"  {run.phase}: before the ranks this process holds {held[0]:,} B "
         f"({held[1]:,} reserved); the card has {free:,} of {total:,} B "
         f"free")
     ex = ThreadPoolExecutor(1)
+    serve_counting = [ex.submit(moe_meta_decode, run, dt) for dt in dtypes]
     counting = ex.submit(meta_counts)
     # the ranks' allocators map freed blocks back to the card: four
     # processes share it, and a rank's cached but unused blocks (3.5 GB
@@ -5407,9 +5458,10 @@ def drive_moe_train(run: MoeRun, device="cuda"):
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         t0 = time.perf_counter()
         try:
-            res = run_ranks(moe_train_rank, MOE_DATA * MOE_MODEL,
+            res = run_ranks(moe_rank, MOE_DATA * MOE_MODEL,
                             backend="gloo", device=device,
-                            timeout=SPMD_TIMEOUT, args=(run, tmp, device),
+                            timeout=SPMD_TIMEOUT,
+                            args=(run, prompts, tmp, device, dtypes),
                             threads=CORES // (MOE_DATA * MOE_MODEL))
         finally:
             if alloc is None:
@@ -5417,16 +5469,38 @@ def drive_moe_train(run: MoeRun, device="cuda"):
             else:
                 os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
         ranks_s = time.perf_counter() - t0
+        serve_dry = [c.result() for c in serve_counting]
         dry, t_meta = counting.result()
         ex.shutdown()
         twin_err = twin_gap(os.path.join(tmp, f"moe{run.phase}_twin_tp.pt"),
                             ref, device)
     del ref
+    serve_s = res[0][2]
+    log(f"  {run.phase}a-{run.phase}b: one spawn of "
+        f"{MOE_DATA * MOE_MODEL} gloo ranks, {ranks_s:.1f} s with start-up "
+        f"(rank 0's a {serve_s:.1f} s)")
+    t0 = time.perf_counter()
+    for dt, dry_dt in zip(dtypes, serve_dry):
+        moe_serve_checks(run, device, dt, dt not in unchecked, prompts,
+                         [o[0][dt] for o in res], dry_dt, serve_s)
+    log(f"  {run.phase}a checked in {time.perf_counter() - t0:.1f} s")
+    moe_train_checks(run, [o[1] for o in res], dry, t_meta,
+                     ranks_s - serve_s, twin_err, oracle, t_ref)
+
+
+def moe_train_checks(run: MoeRun, res, dry, t_meta, ranks_s, twin_err,
+                     oracle, t_ref):
+    """b's checks on the ranks' results ``res``, the meta counts ``dry``,
+    the placed twin's gap ``twin_err`` to its one-process reference and
+    the general twins' ``oracle``."""
+    t_all = time.perf_counter()
+    tag = run.phase + "b"
+    gcfg = run.train_cfg(run.gen_experts)
     r0 = res[0]
     log(f"  {tag}: {run.arch} at its published widths, {gcfg.n_layers} "
         f"layer(s) ({', '.join(gcfg.layer_pattern)}), "
         f"bf16, on data {MOE_DATA} x model {MOE_MODEL} (4 gloo ranks sharing"
-        f" the card, {ranks_s:.1f} s with start-up: rank 0's placed steps "
+        f" the card, rank 0 {ranks_s:.1f} s after a: its placed steps "
         f"{r0['placed_s']:.1f} s, general modes " + ", ".join(
             f"{m} {r0[m]['mode_s']:.1f} s" for m in run.gen_modes)
         + f", twins {r0['twin_s']:.1f} s; before the ranks, the twins' "
@@ -5535,7 +5609,7 @@ def drive_moe_train(run: MoeRun, device="cuda"):
         bad.append("placed twin: not identical on every rank")
     if bad:
         raise AssertionError(f"{tag}: " + "; ".join(bad))
-    log(f"  {tag} in {time.perf_counter() - t_all:.1f} s")
+    log(f"  {tag} checked in {time.perf_counter() - t_all:.1f} s")
 
 
 # jamba: 22a one period (8 layers: 7 Mamba, 1 GQA, 4 MoE blocks) at
@@ -5584,11 +5658,24 @@ RWKV = MoeRun("23", "rwkv6-3b", 2, 4, None, None, ("cge",),
               meta_modes=("stale", "trimmed", "quantized"), new_tokens=16)
 
 
+# whisper-base: every published width at full depth (6 encoder and 6
+# decoder layers, 114,758,656 parameters, 1,500 frames), 2 of 8 heads
+# and 128 of 512 columns a rank at model 4; its decode step is 9 gloo
+# all-reduces a layer (self- and cross-attention 4 each, the MLP 1) and
+# one for the embedding, so it streams 8 new tokens. 24b at the same
+# widths and depth: the placed step (AdamW) and cge run, stale, trimmed
+# and quantized are counted on the meta device, cge and quantized run on
+# the f32 twins (reduced whisper-base, 2 + 2 layers). Every train batch
+# and prefill carries frame embeddings drawn from seed 0
+WHISPER = MoeRun("24", "whisper-base", 6, 4, None, None, ("cge",),
+                 ("cge", "quantized"), placed_steps=1,
+                 meta_modes=("stale", "trimmed", "quantized"), new_tokens=8)
+
+
 def drive_arctic(device="cuda"):
     """20a-20b: arctic-480b."""
     t0 = time.perf_counter()
-    drive_moe_serve(ARCTIC, device)
-    drive_moe_train(ARCTIC, device)
+    drive_moe(ARCTIC, device)
     log(f"  phase 20 in {time.perf_counter() - t0:.1f} s")
 
 
@@ -5602,9 +5689,7 @@ def drive_deepseek(device="cuda"):
     within ``F32_LOGIT_TOL`` (16 new tokens, teacher-forced on the ranks
     in f32 only, to pay for phase 22)."""
     t0 = time.perf_counter()
-    drive_moe_serve(DEEPSEEK, device, dtypes=(None, "float32"),
-                    unchecked=(None,))
-    drive_moe_train(DEEPSEEK, device)
+    drive_moe(DEEPSEEK, device, dtypes=(None, "float32"), unchecked=(None,))
     log(f"  phase 21 in {time.perf_counter() - t0:.1f} s")
 
 
@@ -5616,9 +5701,7 @@ def drive_jamba(device="cuda"):
     are held to one rank's argmax at every clear margin and the logits
     within ``F32_LOGIT_TOL``."""
     t0 = time.perf_counter()
-    drive_moe_serve(JAMBA, device, dtypes=(None, "float32"),
-                    unchecked=(None,))
-    drive_moe_train(JAMBA, device)
+    drive_moe(JAMBA, device, dtypes=(None, "float32"), unchecked=(None,))
     log(f"  phase 22 in {time.perf_counter() - t0:.1f} s")
 
 
@@ -5628,9 +5711,19 @@ def drive_rwkv(device="cuda"):
     to one rank's argmax at every clear margin (no routing to flip), in
     f32 the logits within ``F32_LOGIT_TOL`` of one rank's too."""
     t0 = time.perf_counter()
-    drive_moe_serve(RWKV, device, dtypes=(None, "float32"))
-    drive_moe_train(RWKV, device)
+    drive_moe(RWKV, device, dtypes=(None, "float32"))
     log(f"  phase 23 in {time.perf_counter() - t0:.1f} s")
+
+
+def drive_whisper(device="cuda"):
+    """24a-24b: whisper-base, its encoder, self- and cross-attention and
+    MLPs over "model". 24a in bf16 and again in f32 in the same ranks; in
+    both the streams are held to one rank's argmax at every clear margin
+    (no routing to flip), in f32 the logits within ``F32_LOGIT_TOL`` of
+    one rank's too."""
+    t0 = time.perf_counter()
+    drive_moe(WHISPER, device, dtypes=(None, "float32"))
+    log(f"  phase 24 in {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -5791,7 +5884,12 @@ def main() -> int:
         "and the general step on data 2 x model 2")
     drive_rwkv()
 
-    log("== 24. result")
+    log("== 24. whisper-base tensor-parallel over model, its encoder and "
+        "cross-attention split: launch.serve's steps on data 1 x model 4, "
+        "the placed and the general step on data 2 x model 2")
+    drive_whisper()
+
+    log("== 25. result")
 
     rows = [dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                  launches=counts[k], max_abs_err=errs[k],

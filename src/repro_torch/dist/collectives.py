@@ -23,11 +23,11 @@ all-reduces one scalar per agent and reuses
 trimmed mean needs every agent's value per coordinate, so it rebuilds
 the stack, a column block at a time to bound its memory.
 
-*Tensor-parallel blocks.* On the general step of an attention decoder
-(GQA or MLA), a Mamba hybrid or RWKV over a mesh whose "model" axis is
-above 1, a rank's gradient tree holds its tp blocks of the split leaves
-and the others whole (``dist.tp``). The sums and the trimmed mean are coordinate-wise,
-so they run on the blocks as they are, over dp. The two rules that read
+*Tensor-parallel blocks.* On the general step of any registered family
+over a mesh whose "model" axis is above 1, a rank's gradient tree holds
+its tp blocks of the split leaves and the others whole (``dist.tp``).
+The sums and the trimmed mean are coordinate-wise, so they run on the
+blocks as they are, over dp. The two rules that read
 the whole gradient take ``tp=`` (a ``dist.tp.TP``) and ``groups=`` (per
 leaf, the blocks it is split into; 1: whole; None: every leaf whole):
 CGE's per-agent norm and the quantizer's per-agent scale then come from

@@ -539,12 +539,12 @@ class Placement:
     :meth:`gather` is what ``act_sharding.constrain_tree`` runs under
     ``act_sharding.placement``. It brings each storage block to its block
     of the compute layout: the storage spec less every axis but ``tp``
-    (the tensor-parallel axes the compute keeps; none: whole leaves, the
-    other families' compute). It records the squared norm of every
-    dp-reduced gradient leaf as its backward sees it (``sq_norms`` for
-    leaves whole on every rank, ``sq_norms_split`` for this rank's tp
-    block; :meth:`global_sq_norm` joins them), and the most bytes of
-    gathered leaves alive at once (``peak_bytes``)."""
+    (the tensor-parallel axes the compute keeps; none: whole leaves). It
+    records the squared norm of every dp-reduced gradient leaf as its
+    backward sees it (``sq_norms`` for leaves whole on every rank,
+    ``sq_norms_split`` for this rank's tp block; :meth:`global_sq_norm`
+    joins them), and the most bytes of gathered leaves alive at once
+    (``peak_bytes``)."""
 
     def __init__(self, mesh, dp: Tuple[str, ...], tp: Tuple[str, ...] = ()):
         self.mesh, self.dp, self.tp = mesh, tuple(dp), tuple(tp)

@@ -1,9 +1,9 @@
 """Tensor-parallel compute over the mesh's "model" axes: the context the
 layers of the attention decoders (GQA or MLA, dense or MoE), of the
-Mamba hybrids (jamba) and of RWKV-6 read, and Megatron's four autograd
-Functions on its axes (the port's counterpart of what GSPMD derives for the
-reference from its compute layout,
-``tree_specs(params, MeshRules(fsdp_axes=()))``).
+Mamba hybrids (jamba), of RWKV-6 and of whisper's encoder-decoder read,
+and Megatron's four autograd Functions on its axes (the port's
+counterpart of what GSPMD derives for the reference from its compute
+layout, ``tree_specs(params, MeshRules(fsdp_axes=()))``).
 
 The placed train step, the general step and ``launch.serve``'s steps
 install a :class:`tp_context` (mesh, tp axes) for a config
@@ -31,8 +31,8 @@ install a :class:`tp_context` (mesh, tp axes) for a config
 Every collective is an all-reduce over the tp axes (gloo's CUDA path
 has no other); a gather writes this rank's block into ``-0.0`` pads, so
 the sum returns every block exactly. With no context active, or a tp
-extent of 1, every function here is the identity, so one process and
-the other families run the code they ran before.
+extent of 1, every function here is the identity, so one process runs
+the code it ran before.
 
 *Groups.* Where a dimension of H heads does not split over all n tp
 ranks, the reference splits it over gcd(H, n) groups of consecutive
@@ -101,6 +101,11 @@ class TP:
         if inplace:                     # the sum in x itself (Mesh)
             return self.mesh.all_reduce(x, self.axes, inplace=True)
         return self.mesh.all_reduce(x, self.axes)
+
+    def group_reduce(self, x: torch.Tensor, groups: int) -> torch.Tensor:
+        """Sum of ``x`` over the ranks of this rank's group, one of
+        ``groups`` groups of consecutive tp ranks (no autograd)."""
+        return self.mesh.all_reduce(x, self.axes, parts=groups)
 
     def gather(self, x: torch.Tensor, dim: int,
                groups: int = 1) -> torch.Tensor:
@@ -219,12 +224,12 @@ def tp_compute(cfg) -> bool:
     attention (GQA or MLA), Mamba or RWKV-6, with a dense MLP, an MoE
     block (its experts over the expert-parallel axes, ``dist.sharding.
     MeshRules.ep_axes``, which the compute layouts set equal to the tp
-    axes) or RWKV's channel mix: the attention decoders, jamba's hybrid
-    and rwkv6; no encoder. The one predicate every caller reads; the
-    other families (whisper's encoder-decoder) compute whole on every
-    rank."""
-    return (all(k in ("attn", "mamba", "rwkv") for k in cfg.layer_pattern)
-            and not cfg.encoder_decoder)
+    axes) or RWKV's channel mix, and an encoder-decoder's encoder and
+    cross-attention: the attention decoders, jamba's hybrid, rwkv6 and
+    whisper, every registered family. The one predicate every caller
+    reads; a family with another layer kind would compute whole on
+    every rank."""
+    return all(k in ("attn", "mamba", "rwkv") for k in cfg.layer_pattern)
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +269,17 @@ class _Leads(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return None, None, g if ctx.keep else torch.zeros_like(g)
+
+
+class _GroupSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tp, groups, x):
+        ctx.tp, ctx.groups = tp, groups
+        return tp.group_reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, ctx.tp.group_reduce(g, ctx.groups)
 
 
 class _Gather(torch.autograd.Function):
@@ -319,6 +335,18 @@ def scatter_to_tp(x: torch.Tensor, dim: int, groups: int = 1):
     this rank's block; the backward gathers the blocks back."""
     tp = current_tp()
     return x if tp is None else _Scatter.apply(tp, dim, groups, x)
+
+
+def sum_over_group(x: torch.Tensor, groups: int):
+    """The sum of the group's partial values ``x`` over the ranks of this
+    rank's group (one of ``groups`` groups of consecutive tp ranks), the
+    same on each of them; each rank goes on to use it in its own way, so
+    the backward sums the group's gradients alike (partial dot products
+    over blocks of a head's head_dim)."""
+    tp = current_tp()
+    if tp is None or groups == tp.size:
+        return x
+    return _GroupSum.apply(tp, groups, x)
 
 
 def lead_only(x: torch.Tensor, groups: int):

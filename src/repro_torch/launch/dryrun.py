@@ -14,26 +14,27 @@ only: nothing is allocated and no card is needed) over a
   of the state (``shard_tree`` under the layout's storage rules) and the
   global batch it slices itself. Each period's blocks are gathered to
   the compute layout (``dist.sharding.compute_rules``, the reference's
-  ``param_cspecs``): an attention decoder, GQA or MLA, a Mamba hybrid
-  (jamba) or RWKV-6, dense or MoE (``dist.tp.tp_compute``), computes
+  ``param_cspecs``): every registered family, the attention decoders
+  (GQA or MLA), the Mamba hybrid (jamba), RWKV-6 and whisper's
+  encoder-decoder, dense or MoE (``dist.tp.tp_compute``), computes
   tensor-parallel over "model" (``dist.tp``; an MoE block's experts over
-  the ep axes, the layouts' tp axes); the other families gather whole
-  leaves and compute whole on every rank.
+  the ep axes, the layouts' tp axes); a layout without tp axes
+  (``dp_all``) gathers whole leaves and computes whole on every rank.
 - train, the general modes (cge, stale, trimmed, quantized):
   ``make_general_step`` on ``place_general_state``'s share of the state,
   the reference's general layout: parameters and moments in the compute
-  layout (an attention decoder's, a Mamba hybrid's or RWKV's TP blocks
-  over "model", replicated over dp; whole for the other families), this
-  agent's ledger and error rows whole, the global batch it slices itself and a host ``fresh_mask`` of
-  ones (the reference's ``(n_agents,)`` f32 argument).
+  layout (TP blocks over "model", replicated over dp; whole without tp
+  axes), this agent's ledger and error rows whole, the global batch it
+  slices itself and a host ``fresh_mask`` of ones (the reference's
+  ``(n_agents,)`` f32 argument).
 - prefill and decode: ``launch.serve``'s steps on this rank's dp block
-  of the batch and cache. An attention decoder, a Mamba hybrid or RWKV
-  runs tensor-parallel on the compute layout (``place_params``) and a cache
-  with ``cache_specs``' tp entries (head_dim, MLA's latent and rope-key
-  columns, Mamba's state over d_state and conv rows over di, RWKV's
-  state over its value columns and token-shift rows over d, over
-  "model", ``place_cache``), as the reference's cells place them; the
-  other families take whole parameters and the cache's dp entries
+  of the batch and cache. Each family runs tensor-parallel on the
+  compute layout (``place_params``) and a cache with ``cache_specs``' tp
+  entries (head_dim, whisper's cross-attention ``ck`` / ``cv`` too,
+  MLA's latent and rope-key columns, Mamba's state over d_state and conv
+  rows over di, RWKV's state over its value columns and token-shift rows
+  over d, over "model", ``place_cache``), as the reference's cells place
+  them; without tp axes, whole parameters and the cache's dp entries
   only.
 
 MoE dispatch groups keep the reference's size: the reference runs

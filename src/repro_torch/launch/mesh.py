@@ -75,7 +75,7 @@ class watch_collectives:
         return False
 
 
-def _report(kind: str, mesh, axes, x: torch.Tensor) -> None:
+def _report(kind: str, mesh, axes, x: torch.Tensor, parts: int = 1) -> None:
     with _sinks_lock:
         sinks = list(_sinks)
     if not sinks:
@@ -83,7 +83,7 @@ def _report(kind: str, mesh, axes, x: torch.Tensor) -> None:
     sub = tuple(a for a in mesh.axis_names if a in _axes(axes))
     nbytes = x.numel() * x.element_size()
     for sink in sinks:
-        sink(kind, sub, mesh.axis_size(sub), nbytes)
+        sink(kind, sub, mesh.axis_size(sub) // parts, nbytes)
 
 
 class Mesh:
@@ -136,11 +136,7 @@ class Mesh:
 
     # -- coordinates -------------------------------------------------------
     def coords(self) -> Dict[str, int]:
-        out, r = {}, self.rank
-        for a in reversed(self.axis_names):
-            out[a] = r % self.shape[a]
-            r //= self.shape[a]
-        return out
+        return self._coords_of(self.rank)
 
     def axis_size(self, axes) -> int:
         return math.prod(self.shape[a] for a in _axes(axes))
@@ -165,15 +161,61 @@ class Mesh:
                                "process groups")
         raise KeyError(f"no process group for axes {sub}")
 
+    def part_group(self, axes, parts: int):
+        """The process group of this rank among ``parts`` blocks of
+        consecutive ranks over ``axes`` (their row-major index), or None
+        where a block holds one rank. Made at first use, by every rank of
+        the world in the same order (each calls it at the same point of
+        the same program), one group for every block of every
+        coordinate of the other axes."""
+        sub = tuple(a for a in self.axis_names if a in _axes(axes))
+        n = self.axis_size(sub)
+        if parts == 1:
+            return self.group(sub)
+        if n % parts:
+            raise ValueError(f"{n} ranks over {sub} do not split into "
+                             f"{parts} blocks")
+        if n == parts:
+            return None
+        key = (sub, parts)
+        if key in self._groups:
+            return self._groups[key]
+        if not self.has_groups:
+            raise RuntimeError(f"mesh {self.shape} was built without "
+                               "process groups")
+        keep = [a for a in self.axis_names if a not in sub]
+        blocks: Dict[tuple, list] = {}
+        for r in range(self.size):
+            c = self._coords_of(r)
+            within = 0
+            for a in sub:
+                within = within * self.shape[a] + c[a]
+            blocks.setdefault((tuple(c[a] for a in keep),
+                               within // (n // parts)), []).append(r)
+        for ranks in blocks.values():        # every rank, same order
+            g = dist.new_group(ranks)
+            if self.rank in ranks:
+                self._groups[key] = g
+        return self._groups[key]
+
+    def _coords_of(self, r: int) -> Dict[str, int]:
+        out = {}
+        for a in reversed(self.axis_names):
+            out[a] = r % self.shape[a]
+            r //= self.shape[a]
+        return out
+
     def all_reduce(self, x: torch.Tensor, axes,
-                   inplace: bool = False) -> torch.Tensor:
+                   inplace: bool = False, parts: int = 1) -> torch.Tensor:
         """Sum of ``x`` over the ranks of ``axes``, as a new tensor (``x``
         itself is left alone), or with ``inplace`` in ``x`` itself (a
         contiguous buffer the caller no longer needs: no second copy of
-        it), which is returned. Every rank of the group must call it."""
-        g = self.group(axes)
+        it), which is returned. With ``parts`` the sum runs within each
+        of that many blocks of consecutive ranks over ``axes``
+        (:meth:`part_group`). Every rank of the group must call it."""
+        g = self.part_group(axes, parts)
         y = _target(x, inplace)
-        _report("all-reduce", self, axes, y)
+        _report("all-reduce", self, axes, y, parts)
         if g is not None:
             dist.all_reduce(y, op=dist.ReduceOp.SUM, group=g)
         return y
@@ -195,9 +237,9 @@ class RecordingMesh(Mesh):
         self.rank = rank
 
     def all_reduce(self, x: torch.Tensor, axes,
-                   inplace: bool = False) -> torch.Tensor:
+                   inplace: bool = False, parts: int = 1) -> torch.Tensor:
         y = _target(x, inplace)
-        _report("all-reduce", self, axes, y)
+        _report("all-reduce", self, axes, y, parts)
         return y
 
 

@@ -5,19 +5,23 @@ and greedy generation on the paged serving engine (counterpart of
 The steps are what a dry run of ``prefill_32k`` / ``decode_32k`` reads:
 ``apply_model`` under the activation policy (``dist.act_sharding``) when
 ``dp`` is given, argmax in int32, no rematerialization. Given a
-``mesh``, an attention decoder, GQA or MLA, a Mamba hybrid (jamba) or
-RWKV-6, dense or MoE (``dist.tp.tp_compute``), runs tensor-parallel over
-the mesh's "model" axis, as the reference's compute layout splits it:
-on this rank's blocks of the parameters (:func:`place_params`, or
+``mesh``, every registered family (the attention decoders, GQA or MLA,
+the Mamba hybrid jamba, RWKV-6 and whisper's encoder-decoder, dense or
+MoE: ``dist.tp.tp_compute``) runs tensor-parallel over the mesh's
+"model" axis, as the reference's compute layout splits it: on this
+rank's blocks of the parameters (:func:`place_params`, or
 :func:`init_params` drawing them block by block), an MoE block's experts
-included, and of a cache whose head_dim (MLA: its latent and rope-key
-columns; Mamba: its state's d_state and its conv rows' di; RWKV: its
-state's value columns and its token-shift rows' d) is split over tp
-(:func:`place_cache`). A decode writes the cache in place and
-returns it, where the reference returns an updated copy.
-``greedy_generate`` drives ``serve.ServeEngine``: one prefill, then
-``steps - 1`` decode iterations in supersteps of ``superstep_k``, the
-GQA decode through ``paged_flash_decode`` on the card.
+included, and of a cache whose head_dim (whisper's cross-attention
+``ck`` / ``cv`` too; MLA: its latent and rope-key columns; Mamba: its
+state's d_state and its conv rows' di; RWKV: its state's value columns
+and its token-shift rows' d) is split over tp (:func:`place_cache`). A
+whisper prefill takes the frame embeddings as ``batch["enc_embed"]``;
+its decode reads the encoder's K/V from the cache. A decode writes the
+cache in place and returns it, where the reference returns an updated
+copy. ``greedy_generate`` drives ``serve.ServeEngine``: one prefill,
+then ``steps - 1`` decode iterations in supersteps of ``superstep_k``,
+the GQA decode through ``paged_flash_decode`` on the card (decoder-only
+families: the engine pages no encoder-decoder, as the reference's).
 """
 from __future__ import annotations
 
@@ -46,8 +50,9 @@ def _ctx(dp, tp, sizes=None):
 def _tp_axes(cfg: ArchConfig, mesh) -> Tuple[str, ...]:
     """The tp axes a step on ``mesh`` computes ``cfg`` over: the compute
     rules' where the family has tensor-parallel compute
-    (``dist.tp.tp_compute``) and the mesh gives them more than one rank;
-    none otherwise (whole parameters on every rank)."""
+    (``dist.tp.tp_compute``, every registered one) and the mesh gives
+    them more than one rank; none otherwise (whole parameters on every
+    rank)."""
     if mesh is None or not tp_compute(cfg):
         return ()
     return tuple(a for a in compute_rules(mesh.shape).tp_axes
@@ -119,11 +124,11 @@ def _next_token(logits, cfg: ArchConfig):
 
 def make_prefill_step(cfg: ArchConfig, moe_groups: int = 1,
                       dp=None, tp=None, sizes=None, mesh=None) -> Callable:
-    """``prefill(params, batch) -> (next token (B,) int32, cache)``. With
-    ``mesh``, an attention decoder, a Mamba hybrid or RWKV runs
-    tensor-parallel over its tp axes on ``place_params``' blocks and
-    returns the cache in ``place_cache``'s layout (every rank of the mesh
-    calls it)."""
+    """``prefill(params, batch) -> (next token (B,) int32, cache)``, with
+    ``batch["enc_embed"]`` (B, T, d) for an encoder-decoder. With
+    ``mesh``, the model runs tensor-parallel over its tp axes on
+    ``place_params``' blocks and returns the cache in ``place_cache``'s
+    layout (every rank of the mesh calls it)."""
     tp_axes = _tp_axes(cfg, mesh)
 
     def prefill(params, batch):

@@ -12,15 +12,16 @@ Two paths:
    and moment, ``place_state``), each period's parameters gathered just
    before it runs to the reference's compute layout
    (``dist.sharding.compute_rules``), the gradients reduced back to the
-   blocks by the gather's backward. An attention decoder, GQA or MLA, a
-   Mamba hybrid (jamba) or RWKV-6, dense or MoE (``dist.tp.tp_compute``),
+   blocks by the gather's backward. Every registered family (the
+   attention decoders, GQA or MLA, the Mamba hybrid jamba, RWKV-6 and
+   whisper's encoder-decoder, dense or MoE: ``dist.tp.tp_compute``)
    computes tensor-parallel over the step's ``tp`` axes (``dist.tp``):
    column weights keep this rank's fan-out, row weights its fan-in, the
    embedding its model columns, an MoE block this rank's experts, MLA its
    latents' columns and its heads, Mamba a block of its inner width,
-   RWKV its weights' columns and a head group's WKV scan, the loss its
-   vocabulary block. The other families gather whole leaves and
-   compute whole on every rank.
+   RWKV its weights' columns and a head group's WKV scan, whisper's
+   encoder and cross-attention their heads, the loss its vocabulary
+   block where the vocabulary splits.
 
 2. ``general`` (:func:`make_general_step`, every rank of a mesh whose dp
    axes carry one agent per dp coordinate): per-agent gradients per dp
@@ -32,11 +33,11 @@ Two paths:
    - ``quantized``  int8 error-feedback compressed aggregation.
    Parameters and optimizer state are replicated over dp: every dp rank
    applies the same update to the same values. On a mesh whose other
-   ("model") axes hold more than one rank, an attention decoder, a
-   Mamba hybrid or RWKV computes tensor-parallel over them on the
-   reference's compute layout (``place_general_state``: each rank its tp blocks of the parameters
-   and moments, its agent's ledger and error rows whole); the other
-   families compute whole on every rank. The reference's "model" axis is
+   ("model") axes hold more than one rank, the step computes
+   tensor-parallel over them on the reference's compute layout
+   (``place_general_state``: each rank its tp blocks of the parameters
+   and moments, its agent's ledger and error rows whole). The
+   reference's "model" axis is
    GSPMD-automatic and leaves the numbers unchanged, and so does this
    one's.
 
@@ -204,9 +205,8 @@ def place_state(state: Dict[str, Tree], mesh) -> Tuple[Dict[str, Tree],
 def general_tp_axes(cfg: ArchConfig, mesh) -> Tuple[str, ...]:
     """The axes the general step of ``cfg`` computes tensor-parallel
     over on ``mesh``: its axes other than dp that hold more than one
-    rank, for an attention decoder, GQA or MLA, a Mamba hybrid or RWKV,
-    dense or MoE (``dist.tp.tp_compute``); none for the other families
-    (whisper), which compute whole on every rank."""
+    rank, for a family ``dist.tp.tp_compute`` admits (every registered
+    one); none for another, which would compute whole on every rank."""
     if not tp_compute(cfg):
         return ()
     dp = dp_axis_names(mesh)
@@ -229,9 +229,8 @@ def place_general_state(state: Dict[str, Tree], mesh,
     """This rank's share of a general step's state (``init_state(...,
     mesh=mesh)``: its agent's ledger and error rows) as the reference's
     dry run lays it out: parameters and optimizer moments in the compute
-    layout (:func:`general_specs`: tensor-parallel blocks over "model"
-    for an attention decoder, a Mamba hybrid or RWKV, whole for the other
-    families), ``ledger`` and ``err`` this agent's rows whole on every
+    layout (:func:`general_specs`: tensor-parallel blocks over "model"),
+    ``ledger`` and ``err`` this agent's rows whole on every
     model rank, ``step`` as it is. With model = 1 the state comes back
     as it is."""
     out = dict(state)
@@ -316,8 +315,8 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig, moe_groups: int = 1,
     partitioner, so the gather reads the storage specs and brings each
     block to its block of the compute layout, ``tree_specs(params,
     compute_rules(...))`` over the ``tp`` axes (checked at the first
-    step): tensor-parallel for an attention decoder, a Mamba hybrid or
-    RWKV, whole for the other families and where ``tp`` is None."""
+    step): tensor-parallel for every family ``dist.tp.tp_compute``
+    admits, whole where ``tp`` is None."""
     resolve_mode(tc.mode)               # fail fast on unknown modes
     opt = make_optimizer(tc)
     if param_specs is not None:
@@ -550,11 +549,10 @@ def make_general_step(cfg: ArchConfig, tc: TrainConfig, mesh,
     holds its agent's ledger and error rows (``init_state(...,
     mesh=mesh)``). The loss and metrics are the same on every rank.
 
-    Where :func:`general_tp_axes` names axes (an attention decoder, a
-    Mamba hybrid or RWKV on a mesh whose "model" axes hold more than one
-    rank), the state is ``place_general_state``'s and the step is tensor-parallel over them,
-    as the reference's GSPMD runs its general step on TP-sharded
-    parameters:
+    Where :func:`general_tp_axes` names axes (a mesh whose "model" axes
+    hold more than one rank), the state is ``place_general_state``'s and
+    the step is tensor-parallel over them, as the reference's GSPMD runs
+    its general step on TP-sharded parameters:
 
     - the loss runs under ``tp_context`` (no activation policy, as the
       reference's general loss has none), vocabulary-parallel, over the

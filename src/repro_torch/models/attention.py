@@ -28,8 +28,12 @@ replicated engine's.
 Under tensor-parallel compute (``dist.tp``, the placed train step and
 ``launch.serve``'s steps on a mesh) GQA runs on this rank's blocks of
 the reference's compute layout (``_apply_gqa_tp``): the query heads over
-gcd(H, tp) groups of ranks, ``wo``'s fan-in block summed over tp, and a
-dense decode over this rank's head_dim block of the cache. MLA does too
+gcd(H, tp) groups of ranks (a head over several ranks where H divides
+tp: ``_gqa_head_split``), ``wo``'s fan-in block summed over tp, and a
+dense decode over this rank's head_dim block of the cache. Cross-
+attention takes the same path: K/V from the encoder's output, a
+prefill's ``ck`` / ``cv`` in the cache's head_dim layout, a decode's
+partial dots over them. MLA does too
 (``_apply_mla_tp``): its latents projected on this rank's columns,
 normed by block sums of squares summed over tp and gathered whole,
 ``w_uk`` / ``w_uv`` re-laid from a block of every head to the group's
@@ -47,7 +51,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.act_sharding import constrain
 from repro_torch.dist.sharding import current_serve_tp
 from repro_torch.dist.tp import (copy_to_tp, current_tp, gather_from_tp,
-                                 lead_only, reduce_from_tp, scatter_to_tp)
+                                 lead_only, reduce_from_tp, scatter_to_tp,
+                                 sum_over_group)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_init,
                                        param_dtype, rotate)
@@ -63,13 +68,18 @@ NEG_INF = -1e30
 
 
 def plain_attention(q, k, v, *, causal: bool, q_offset=0,
-                    kv_len: Optional[torch.Tensor] = None):
+                    kv_len: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None, reduce=None):
     """q: (B, S, H, D); k, v: (B, T, H, D) (KV already repeated to H
-    heads). Returns (B, S, H, D)."""
+    heads; v may be narrower). Returns (B, S, H, Dv). ``scale`` (D^-0.5
+    by default) multiplies the scores after ``reduce`` (None: none), which
+    joins partial scores over blocks of the head dimension."""
     s, d = q.shape[1], q.shape[-1]
     t = k.shape[1]
     scores = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32)
-    scores = scores * d ** -0.5
+    if reduce is not None:
+        scores = reduce(scores)
+    scores = scores * (d ** -0.5 if scale is None else scale)
     if causal:
         qpos = torch.arange(s, device=q.device) + q_offset
         kpos = torch.arange(t, device=q.device)
@@ -82,22 +92,27 @@ def plain_attention(q, k, v, *, causal: bool, q_offset=0,
     return torch.einsum("bhst,bthd->bshd", w.to(q.dtype), v)
 
 
-def chunked_attention(q, k, v, *, causal: bool, chunk: int = CHUNK):
-    """Online softmax over key chunks. q, k: (B, S, H, D); v: (B, T, H, Dv)."""
+def chunked_attention(q, k, v, *, causal: bool, chunk: int = CHUNK,
+                      scale: Optional[float] = None, reduce=None):
+    """Online softmax over key chunks. q, k: (B, S, H, D); v: (B, T, H, Dv).
+    ``scale`` and ``reduce`` as in :func:`plain_attention`."""
     b, s, h, d = q.shape
     dv = v.shape[-1]
     t = k.shape[1]
     c = min(chunk, t)
     if t % c:
         raise ValueError(f"sequence {t} is not a multiple of chunk {c}")
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     qpos = torch.arange(s, device=q.device)
     m = torch.full((b, h, s), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, s, dv), dtype=q.dtype, device=q.device)
     for i in range(t // c):
         ki, vi = k[:, i * c:(i + 1) * c], v[:, i * c:(i + 1) * c]
-        sc = torch.einsum("bshd,bchd->bhsc", q, ki).to(torch.float32) * scale
+        sc = torch.einsum("bshd,bchd->bhsc", q, ki).to(torch.float32)
+        if reduce is not None:
+            sc = reduce(sc)
+        sc = sc * scale
         if causal:
             kpos = i * c + torch.arange(c, device=q.device)
             sc = sc.masked_fill(~(kpos[None, :] <= qpos[:, None])[None, None],
@@ -113,10 +128,13 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int = CHUNK):
     return out.transpose(1, 2)                   # (B, S, H, Dv)
 
 
-def attention_math(q, k, v, *, causal: bool, kv_len=None):
+def attention_math(q, k, v, *, causal: bool, kv_len=None, scale=None,
+                   reduce=None):
     if q.shape[1] == k.shape[1] and q.shape[1] > PLAIN_MAX_SEQ:
-        return chunked_attention(q, k, v, causal=causal)
-    return plain_attention(q, k, v, causal=causal, kv_len=kv_len)
+        return chunked_attention(q, k, v, causal=causal, scale=scale,
+                                 reduce=reduce)
+    return plain_attention(q, k, v, causal=causal, kv_len=kv_len,
+                           scale=scale, reduce=reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -203,9 +221,9 @@ def apply_gqa(p, x, cfg: ArchConfig, *, rope=None, kv_x=None, cache=None,
     g = cfg.n_heads // cfg.n_kv_heads
     tp = current_tp()
     if tp is not None and p["wq"].shape[-1] != cfg.n_heads * hd:
-        return _apply_gqa_tp(p, x, cfg, tp, rope=rope, cache=cache,
-                             cache_index=cache_index, causal=causal,
-                             return_cache=return_cache)
+        return _apply_gqa_tp(p, x, cfg, tp, rope=rope, kv_x=kv_x,
+                             cache=cache, cache_index=cache_index,
+                             causal=causal, return_cache=return_cache)
 
     def expand_kv(t, kind="heads4"):
         # KV repeated to the H query heads (the reference's TP layout)
@@ -273,12 +291,12 @@ def apply_gqa(p, x, cfg: ArchConfig, *, rope=None, kv_x=None, cache=None,
     return project_out(out), new_cache
 
 
-def _apply_gqa_tp(p, x, cfg: ArchConfig, tp, *, rope, cache, cache_index,
-                  causal, return_cache):
-    """GQA self-attention on this rank's blocks of the compute layout
-    (``wq`` split over tp on its fan-out, ``wo`` on its fan-in, ``wk`` /
-    ``wv`` and the biases whole), as the reference's compiled steps
-    split it.
+def _apply_gqa_tp(p, x, cfg: ArchConfig, tp, *, rope, kv_x, cache,
+                  cache_index, causal, return_cache):
+    """GQA self- or cross-attention on this rank's blocks of the compute
+    layout (``wq`` split over tp on its fan-out, ``wo`` on its fan-in,
+    ``wk`` / ``wv`` and the biases whole), as the reference's compiled
+    steps split it.
 
     - The query heads split over g = gcd(H, n) groups of consecutive tp
       ranks; a group's ranks compute its heads alike. Where H % n = 0
@@ -287,13 +305,19 @@ def _apply_gqa_tp(p, x, cfg: ArchConfig, tp, *, rope, cache, cache_index,
       gathered to the group's heads and K/V are projected whole, or,
       under the general step's program (``dist.tp.TP``), only the KV
       heads the group reads, their gradient kept on one rank a group.
+      K/V come from ``x``, or for cross-attention from ``kv_x`` (the
+      encoder's output, whole on every rank).
     - Train and prefill attend over the group's heads; the output's block
       of ``wo``'s fan-in is this rank's, and the partial products are
       summed over tp. A prefill returns the cache in ``cache_specs``'
-      layout: every KV head, this rank's block of head_dim.
+      layout: every KV head, this rank's block of head_dim (``k`` / ``v``,
+      or cross-attention's ``ck`` / ``cv``).
     - A dense decode reads that cache: the query gathered whole, scores
       as partial dots over the head_dim blocks summed over tp, the output
-      gathered over head_dim before ``wo``'s fan-in block is taken.
+      gathered over head_dim before ``wo``'s fan-in block is taken. A
+      self-attention decode first writes its token's block; a
+      cross-attention decode (a cache holding ``ck`` / ``cv``) reads the
+      encoder's K/V as they are and returns the cache.
     """
     if cache is not None and cache_index is not None and "k_pages" in cache:
         raise NotImplementedError("paged decode runs on the serving "
@@ -303,7 +327,8 @@ def _apply_gqa_tp(p, x, cfg: ArchConfig, tp, *, rope, cache, cache_index,
     rep = H // hkv
     groups = math.gcd(H, n)
     heads = tp.block(H, groups)                 # this group's query heads
-    decode = cache is not None and cache_index is not None
+    cross_decode = cache is not None and "ck" in cache
+    decode = cross_decode or (cache is not None and cache_index is not None)
     # project only the KV heads read
     own_kv = (groups == n or tp.program == "general") and not decode
 
@@ -311,18 +336,30 @@ def _apply_gqa_tp(p, x, cfg: ArchConfig, tp, *, rope, cache, cache_index,
     q = xc @ p["wq"]
     if cfg.qkv_bias:
         q = q + scatter_to_tp(p["bq"], -1)
+    if cross_decode:
+        q = gather_from_tp(q, -1).reshape(b, s, H, hd)
+        out = _tp_dense_attend(q, cache["ck"], cache["cv"], None, tp, rep)
+        out = scatter_to_tp(out.reshape(b, s, H * hd), -1)
+        return reduce_from_tp(out @ p["wo"]), cache
+    src = x if kv_x is None else kv_x
+    if not decode and groups == H < n:
+        return _gqa_head_split(p, q, x, src, kv_x is not None, cfg, tp,
+                               rope=rope, causal=causal,
+                               return_cache=return_cache)
     if own_kv:
+        srcc = xc if kv_x is None else copy_to_tp(kv_x)
+        t = src.shape[1]
         k0, k1 = heads.start // rep, (heads.stop - 1) // rep + 1
         cols = slice(k0 * hd, k1 * hd)
-        k, v = (xc @ copy_to_tp(p[w])[:, cols] for w in ("wk", "wv"))
+        k, v = (srcc @ copy_to_tp(p[w])[:, cols] for w in ("wk", "wv"))
         if cfg.qkv_bias:
             k = k + copy_to_tp(p["bk"])[cols]
             v = v + copy_to_tp(p["bv"])[cols]
-        k, v = (lead_only(t, groups).reshape(b, s, k1 - k0, hd)
-                for t in (k, v))
+        k, v = (lead_only(t_, groups).reshape(b, t, k1 - k0, hd)
+                for t_ in (k, v))
     else:
         k0, k1 = 0, hkv
-        k, v = _proj_kv(p, x, cfg)
+        k, v = _proj_kv(p, src, cfg)
     if rope is not None:
         k = rotate(k, *rope)
 
@@ -331,28 +368,85 @@ def _apply_gqa_tp(p, x, cfg: ArchConfig, tp, *, rope, cache, cache_index,
         if rope is not None:
             q = rotate(q, *rope)
         out = _tp_dense_decode(q, k, v, cache, cache_index, tp, rep)
-        new_cache = cache
-    else:
-        q = gather_from_tp(q, -1, groups).reshape(b, s, H // groups, hd)
-        if rope is not None:
-            q = rotate(q, *rope)
-        new_cache = None
-        if return_cache:
-            new_cache = {"k": _cache_block(tp, k, k0, H, rep, hkv),
-                         "v": _cache_block(tp, v, k0, H, rep, hkv)}
-        if not own_kv:
-            k, v = (copy_to_tp(t, groups) for t in (k, v))
-        idx = (torch.arange(heads.start, heads.stop, device=x.device) // rep
-               - k0)
-        out = attention_math(constrain(q, "heads4"),
-                             constrain(k.index_select(2, idx), "heads4"),
-                             constrain(v.index_select(2, idx), "heads4"),
-                             causal=causal)
-        out = out.reshape(b, s, H // groups * hd)
-        out = scatter_to_tp(out, -1, groups)
-        return reduce_from_tp(out @ p["wo"]), new_cache
-    out = scatter_to_tp(out.reshape(b, s, H * hd), -1)
+        out = scatter_to_tp(out.reshape(b, s, H * hd), -1)
+        return reduce_from_tp(out @ p["wo"]), cache
+    q = gather_from_tp(q, -1, groups).reshape(b, s, H // groups, hd)
+    if rope is not None:
+        q = rotate(q, *rope)
+    new_cache = None
+    if return_cache:
+        names = ("k", "v") if kv_x is None else ("ck", "cv")
+        new_cache = {nm: _cache_block(tp, t_, k0, H, rep, hkv)
+                     for nm, t_ in zip(names, (k, v))}
+    if not own_kv:
+        k, v = (copy_to_tp(t_, groups) for t_ in (k, v))
+    idx = (torch.arange(heads.start, heads.stop, device=x.device) // rep
+           - k0)
+    out = attention_math(constrain(q, "heads4"),
+                         constrain(k.index_select(2, idx), "heads4"),
+                         constrain(v.index_select(2, idx), "heads4"),
+                         causal=causal)
+    out = out.reshape(b, s, H // groups * hd)
+    out = scatter_to_tp(out, -1, groups)
     return reduce_from_tp(out @ p["wo"]), new_cache
+
+
+def _gqa_head_split(p, q, x, src, cross: bool, cfg: ArchConfig, tp, *,
+                    rope, causal, return_cache):
+    """Train and prefill where each head spans r = n / H ranks (H divides
+    n, H < n: whisper's 8 heads at model 16), as the reference's compiled
+    steps split it. This rank's block of ``wq``'s fan-out (``q``, the
+    query projected from ``copy_to_tp(x)``) and of ``wo``'s fan-in are
+    one block of hd / r columns of its group's head; the values, and so
+    the output, take only those columns, which are this rank's block of
+    ``wo``'s fan-in as they are. K/V come from ``src`` (``x``, or the
+    encoder's output).
+
+    - The masked program (the placed step and serving): the query is
+      gathered whole and the scores take the head's whole head_dim on K/V
+      projected whole. Each rank's gradients of the query, K and V are
+      its columns' part, summed over tp.
+    - The general step's program: the query, K and V all on this rank's
+      hd / r columns, the partial scores summed over the group's ranks
+      (``dist.tp.sum_over_group``); with rotary positions (their pairs
+      span the blocks) the masked program's form."""
+    b, s, _ = x.shape
+    H, hkv, hd, n = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, tp.size
+    t = src.shape[1]
+    head = tp.rank // (n // H)
+    kvh = head // (H // hkv)
+    blk = tp.block(H * hd)                  # this rank's q / wo columns
+    vcols = slice(blk.start - head * hd + kvh * hd,
+                  blk.stop - head * hd + kvh * hd)
+    new_cache, reduce = None, None
+    if tp.program == "general" and not return_cache and rope is None:
+        srcc = copy_to_tp(src)
+        k, v = (srcc @ copy_to_tp(p[w])[:, vcols] for w in ("wk", "wv"))
+        if cfg.qkv_bias:
+            k = k + copy_to_tp(p["bk"])[vcols]
+            v = v + copy_to_tp(p["bv"])[vcols]
+        q = q.reshape(b, s, 1, -1)
+        k, v = k.reshape(b, t, 1, -1), v.reshape(b, t, 1, -1)
+
+        def reduce(scores):
+            return sum_over_group(scores, H)
+    else:
+        q = copy_to_tp(gather_from_tp(q, -1)).reshape(b, s, H, hd)
+        q = q[:, :, head:head + 1]
+        k, v = _proj_kv(p, src, cfg)
+        if rope is not None:
+            q, k = rotate(q, *rope), rotate(k, *rope)
+        if return_cache:
+            names = ("ck", "cv") if cross else ("k", "v")
+            new_cache = {nm: _cache_block(tp, t_, 0, H, H // hkv, hkv)
+                         for nm, t_ in zip(names, (k, v))}
+        k = copy_to_tp(k)[:, :, kvh:kvh + 1]
+        v = copy_to_tp(v).reshape(b, t, hkv * hd)[..., vcols]
+        v = v.reshape(b, t, 1, -1)
+    out = attention_math(constrain(q, "heads4"), constrain(k, "heads4"),
+                         constrain(v, "heads4"), causal=causal,
+                         scale=hd ** -0.5, reduce=reduce)
+    return reduce_from_tp(out.reshape(b, s, -1) @ p["wo"]), new_cache
 
 
 def _cache_block(tp, kv, k0: int, H: int, rep: int, hkv: int):
@@ -375,15 +469,27 @@ def _cache_block(tp, kv, k0: int, H: int, rep: int, hkv: int):
 
 def _tp_dense_decode(q, k_new, v_new, cache, cache_index, tp, rep: int):
     """One token against a dense cache in ``cache_specs``' layout (head_dim
-    over tp where it divides): the query whole (B, 1, H, hd); returns the
-    output whole (B, 1, H, hd)."""
+    over tp where it divides), its K/V written first: the query whole
+    (B, 1, H, hd); returns the output whole (B, 1, H, hd)."""
     b, s, _, hd = q.shape
     kc, vc = cache["k"], cache["v"]
+    if kc.shape[-1] != hd:
+        blk = tp.block(hd)
+        k_new, v_new = k_new[..., blk], v_new[..., blk]
+    kv_len = _write_decode(cache_index, b, s, (kc, k_new), (vc, v_new))
+    return _tp_dense_attend(q, kc, vc, kv_len, tp, rep)
+
+
+def _tp_dense_attend(q, kc, vc, kv_len, tp, rep: int):
+    """The whole query (B, S, H, hd) against dense K/V (B, T, Hkv, hd or
+    this rank's head_dim block): where the cache holds a block, the scores
+    are partial dots over it summed over tp and the output is gathered
+    over head_dim. ``kv_len`` (B,) masks a valid prefix (None: every
+    position). Returns the output whole (B, S, H, hd)."""
+    hd = q.shape[-1]
     split = kc.shape[-1] != hd
     if split:
-        blk = tp.block(hd)
-        q, k_new, v_new = q[..., blk], k_new[..., blk], v_new[..., blk]
-    kv_len = _write_decode(cache_index, b, s, (kc, k_new), (vc, v_new))
+        q = q[..., tp.block(hd)]
     kr = torch.repeat_interleave(kc, rep, dim=2) if rep > 1 else kc
     vr = torch.repeat_interleave(vc, rep, dim=2) if rep > 1 else vc
     q, kr, vr = (constrain(t, "hd_tp") for t in (q, kr, vr))
@@ -391,9 +497,10 @@ def _tp_dense_decode(q, k_new, v_new, cache, cache_index, tp, rep: int):
     if split:
         scores = reduce_from_tp(scores)
     scores = scores * hd ** -0.5
-    mask = (torch.arange(kc.shape[1], device=q.device)[None, :]
-            < kv_len[:, None])
-    scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+    if kv_len is not None:
+        mask = (torch.arange(kc.shape[1], device=q.device)[None, :]
+                < kv_len[:, None])
+        scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", w.to(q.dtype), vr)
     return gather_from_tp(out, -1) if split else out

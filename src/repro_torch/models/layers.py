@@ -223,12 +223,23 @@ def unembed(p, x, cfg: ArchConfig):
     the reference's ``logits`` layout, this rank's block of the vocabulary
     (:func:`vocab_split` says whether they are): an untied ``unembed``
     split over the vocabulary is column-parallel; tied weights split over
-    the model columns go through :class:`_TiedUnembed`."""
+    the model columns go through :class:`_TiedUnembed`. An untied
+    ``unembed`` left whole (a vocabulary tp does not divide) gives whole
+    logits: computed whole on every rank, or under the general step's
+    program (``dist.tp.TP``) row-parallel over the model columns, as the
+    reference's general step computes them."""
     tp = current_tp()
     if not cfg.tie_embeddings:
         w = p["unembed"]
         if tp is not None and w.shape[-1] != cfg.vocab_size:
             return copy_to_tp(x) @ w
+        if (tp is not None and tp.program == "general"
+                and x.shape[-1] % tp.size == 0):
+            # a whole unembedding (its vocabulary does not split) under
+            # the general step's program: the contraction over this
+            # rank's model columns, the partial logits summed over tp
+            return reduce_from_tp(scatter_to_tp(x, -1)
+                                  @ scatter_to_tp(w, 0))
         return x @ w
     tok = p["tok"]
     if tp is not None and tok.shape[-1] != cfg.d_model:

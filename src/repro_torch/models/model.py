@@ -278,7 +278,11 @@ def _apply_layer(p, x, kind, cfg, *, layer_idx, positions, rope,
 
 def _apply_encoder(params, enc_embed, cfg: ArchConfig):
     """Bidirectional encoder over frame embeddings (B, T, d) with learned
-    positions; the stacked encoder layers' cross leaves (none) unused."""
+    positions; the stacked encoder layers' cross leaves (none) unused.
+    Under a tensor-parallel context each layer's attention and MLP run on
+    the rank's blocks (``apply_gqa`` and ``apply_mlp`` read them from
+    the leaves' shapes); ``enc_pos`` and the norms are whole, and so is
+    the output, which every decoder layer's cross-attention reads."""
     x = enc_embed.to(L.torch_dtype(cfg.compute_dtype))
     x = x + params["enc_pos"][None, :x.shape[1]].to(x.dtype)
     for lp in _unstack(params["encoder"], cfg.encoder_layers):

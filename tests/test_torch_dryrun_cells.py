@@ -2,9 +2,9 @@
 the meta device: the 32 (arch x shape) cells of ``live_cells()`` on the
 single-pod mesh at one period of depth (full width), a cell of each
 layout on the multi-pod mesh, and the general train modes on the
-production meshes' model axis of 16: tensor-parallel for a dense
-decoder (each mode on one pod, cge on two), whole on every rank for the
-other families.
+production meshes' model axis of 16: tensor-parallel for every family
+(a dense decoder each mode on one pod, cge on two; whisper's
+encoder-decoder cge on one).
 
 The numbers are held against the reference in ``test_torch_dryrun.py``;
 here every record must carry them: finite FLOPs above zero, HBM bytes,
@@ -21,7 +21,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.ledger import tree_flatten
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import train as T
-from repro_torch.launch.specs import max_pos_for
+from repro_torch.launch.specs import max_pos_for, train_batch_specs
 
 
 def _check(rec):
@@ -83,18 +83,21 @@ def test_general_multi_pod_cell_builds(tmp_path):
 
 
 def test_general_non_dense_cell_computes_whole(tmp_path):
-    """whisper-base (an encoder-decoder, without tensor-parallel compute)
-    at one period: recorded ``ok``, every parameter and moment whole in
-    the rank's arguments."""
+    """whisper-base (the encoder-decoder, once computed whole on every rank;
+    the name is kept from then) at one period: recorded ``ok`` and
+    tensor-parallel, the rank's arguments short of the whole parameters
+    and moments with the global batch."""
     cfg = get_config("whisper-base")
     patch = {"n_layers": cfg.period}
     rec = D.run_cell("whisper-base", "train_4k", False, mode="cge",
                      out_dir=str(tmp_path), cfg_patch=patch)
     _check(rec)
-    assert "whole parameters" in rec["compute"]
+    assert "tensor-parallel" in rec["compute"]
     state = T.abstract_state(D._apply_cfg_patch(cfg, patch),
                              T.TrainConfig(mode="cge"),
                              max_pos=max_pos_for(get_shape("train_4k")))
     whole = sum(l.numel() * l.element_size() for k in ("params", "opt")
                 for l in tree_flatten(state[k])[0])
-    assert rec["memory"]["argument_size_in_bytes"] > whole
+    batch = sum(l.numel() * l.element_size() for l in train_batch_specs(
+        cfg, get_shape("train_4k"), rec["n_agents"]).values())
+    assert 0 < rec["memory"]["argument_size_in_bytes"] < whole + batch

@@ -256,8 +256,8 @@ def test_init_params_draws_place_params_blocks(name, model):
     bit for bit ``place_params`` of the whole ``init_model`` from the
     same seed (arctic's, deepseek's and jamba's expert stacks cut to the
     rank's experts as they are drawn, deepseek's MLA, jamba's Mamba and
-    rwkv6's leaves to their compute blocks), the whole tree where the
-    family has no tensor-parallel compute (whisper)."""
+    rwkv6's and whisper's leaves, its encoder and cross-attention
+    included, to their compute blocks)."""
     from repro_torch.core.ledger import tree_flatten
     from repro_torch.launch.mesh import RecordingMesh
     from repro_torch.launch.serve import init_params, place_params
@@ -290,14 +290,14 @@ def test_init_params_draws_place_params_blocks(name, model):
 
 
 def test_tp_compute_covers_the_gqa_decoders():
-    """The one predicate: the dense GQA decoders, arctic (GQA with MoE),
-    deepseek-v2 (MLA with MoE), the Mamba hybrid jamba (Mamba and GQA
-    with MoE) and rwkv6 compute tensor-parallel; the encoder-decoder
-    (whisper) does not yet."""
+    """The one predicate admits every registered config: the dense GQA
+    decoders, arctic (GQA with MoE), deepseek-v2 (MLA with MoE), the
+    Mamba hybrid jamba (Mamba and GQA with MoE), rwkv6 and the
+    encoder-decoder whisper."""
     from repro_torch.configs.registry import list_configs
     from repro_torch.dist.tp import tp_compute
     got = {n: tp_compute(get_config(n)) for n in list_configs()}
     assert {n for n, ok in got.items() if ok} == {
         "arctic-480b", "deepseek-v2-236b", "jamba-v0.1-52b", "qwen1.5-4b",
-        "qwen2-0.5b", "qwen2-1.5b", "qwen2-vl-2b", "rwkv6-3b", "yi-6b"}
-    assert got["rwkv6-3b"] and not got["whisper-base"]
+        "qwen2-0.5b", "qwen2-1.5b", "qwen2-vl-2b", "rwkv6-3b", "whisper-base",
+        "yi-6b"} == set(got)
