@@ -371,9 +371,19 @@ Phases, each fatal on failure:
    a block of every head's value columns), by phase 20's code. 23a: 2
    of 32 layers at every published width (d 2560, 40 heads, d_ff 8960,
    vocabulary 65,536), bf16 from seed 0, on data 1 x model 4 (10 heads
-   and 640 columns a rank), 16 new tokens, with 20a's checks (the
+   and 640 columns a rank), 8 new tokens, with 20a's checks (the
    streams held to one rank's argmax at every clear margin), then in the
-   same ranks in f32 with the logits within 1e-4 of one rank's. 23b:
+   same ranks in f32 with the logits within 1e-4 of one rank's. 23c, in
+   the same spawn: 23a's prompt 0 alone on data 2 x model 2 at 23a's
+   widths and depth, 8 new tokens, in bf16 and then in f32:
+   ``make_decode_step(..., dp=())``, whose batch of one leaves "data"
+   idle, so every projection's fan-in splits over it as the reference's
+   compiled decode splits it (``dist.tp.fan_in_dot``; rwkv6's
+   long_500k); the stream held to one rank's argmax at every clear
+   margin, the f32 logits within 1e-4 of one rank's, a step's FLOPs and
+   all-reduces (axes, group, bytes) on every rank equal to a
+   ``RecordingMesh``'s count on the meta device; ms a step beside the
+   same steps unsplit (``dp`` None). 23b:
    data 2 x model 2 at the same cut: 1 placed masked step (AdamW) and 2
    general cge steps (SGD with momentum) with 20b's checks; stale,
    trimmed and quantized counted on the meta device, cge and quantized
@@ -4519,11 +4529,13 @@ def tpc_one_rank(prompts, device="cuda", cfg=None, new=GREEDY_NEW):
 
 @torch.no_grad()
 def tpc_teacher_forced(params, prompts, streams, device="cuda", cfg=None,
-                       mesh=None):
+                       mesh=None, idle=()):
     """One rank's logits along ``streams`` (the prefill's last position,
     then each decode fed the stream's previous token): (B, T, V) f32.
     With ``mesh``, the tensor-parallel ranks' (``params`` this rank's
-    blocks, every rank of the mesh calling), the vocabulary gathered."""
+    blocks, every rank of the mesh calling), the vocabulary gathered;
+    ``idle``: the dp axes the decode's batch leaves idle, as
+    ``make_decode_step(..., dp=())`` names them."""
     cfg = cfg or spmd_cfg()
     batch = torch.from_numpy(prompts).to(device)
 
@@ -4534,7 +4546,7 @@ def tpc_teacher_forced(params, prompts, streams, device="cuda", cfg=None,
 
     enc = (frames(cfg, len(prompts), device) if cfg.encoder_decoder
            else None)
-    with tp_context(mesh):
+    with tp_context(mesh, idle=idle):
         logits, _, pre = apply_model(params, batch, cfg, mode="prefill",
                                      enc_embed=enc)
         out = [last(logits)]
@@ -4985,7 +4997,12 @@ class MoeRun(NamedTuple):
     ``placed_steps`` placed steps, the last counted (0: counted on the
     meta device only). ``meta_modes``: general modes counted on the meta
     device at ``gen_experts`` (FLOPs, all-reduces, state bytes) but not
-    run."""
+    run.
+    Its c, where ``one_tokens`` is given: a's prompt 0 alone on b's mesh
+    at a's widths and depth, ``one_tokens`` new, in each of a's dtypes:
+    ``make_decode_step(..., dp=())``, whose batch of one leaves "data"
+    idle and splits each projection's fan-in over it, beside the same
+    steps unsplit (``dp`` None)."""
     phase: str
     arch: str
     layers: int
@@ -5000,6 +5017,7 @@ class MoeRun(NamedTuple):
     f32_experts: Optional[int] = None
     train_pattern: tuple = ()
     new_tokens: int = GREEDY_NEW
+    one_tokens: int = 0
 
     def cfg(self, experts=None, dtype=None):
         """The arch cut to ``layers`` (and ``experts`` experts; in f32,
@@ -5292,6 +5310,148 @@ def moe_serve_checks(run, device, dtype, streams_checked, prompts, res,
 MOE_DATA, MOE_MODEL = 2, 2
 
 
+def one_meta_decode(run: MoeRun, dtype=None):
+    """c's split decode step (a batch of one, ``dp=()``) on rank 0 of a
+    recording mesh data 2 x model 2, on the meta device: its op
+    table."""
+    cfg = run.cfg(dtype=dtype)
+    mesh = RecordingMesh((MOE_DATA, MOE_MODEL), ("data", "model"))
+    params = place_params(init_model(None, cfg, device=META), cfg, mesh)
+    cache = place_cache(mmodel.init_cache(
+        cfg, 1, GREEDY_PROMPT_LEN + run.one_tokens, device=META), cfg, mesh)
+    tok = torch.zeros((1,), dtype=torch.int32, device=META)
+    _, cnt = counted(make_decode_step(cfg, mesh=mesh, dp=()), params,
+                     moe_decode_batch(tok, cache, 0))
+    return cnt.table()
+
+
+@torch.no_grad()
+def one_decode_run(mesh, run, prompts, dtype, gap):
+    """c in ``dtype`` on this rank (data 2 x model 2): its blocks by
+    ``init_params``, the prefill of a's prompt 0, then ``one_tokens - 1``
+    decode steps with "data" idle (``dp=()``: each fan-in split over it)
+    and as many unsplit (``dp`` None), each from the prefill's cache, the
+    first step of each counted, the others timed; with ``gap``, the
+    rank's teacher-forced logits along the split stream, as the split
+    step computes them (rank 0 keeps them)."""
+    dev = mesh.device
+    cfg = run.cfg(dtype=dtype)
+    n = run.one_tokens
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         mesh, device=dev)
+    prompt = prompts[:1]
+    tok0, pre = make_prefill_step(cfg, mesh=mesh)(
+        params, {"tokens": torch.from_numpy(prompt).to(dev)})
+    out = {}
+    for name, dp in (("split", ()), ("unsplit", None)):
+        cache = tpc_grow(cfg, pre, 1, GREEDY_PROMPT_LEN + n, mesh)
+        decode = make_decode_step(cfg, mesh=mesh, dp=dp)
+        (tok, _), cnt = counted(decode, params,
+                                moe_decode_batch(tok0, cache, 0))
+        toks = [tok0, tok]
+        sync(dev)
+        t0 = time.perf_counter()
+        for i in range(1, n - 1):
+            tok, _ = decode(params, moe_decode_batch(tok, cache, i))
+            toks.append(tok)
+        sync(dev)
+        out[name] = dict(tokens=torch.stack(toks, 1).cpu().numpy(),
+                         ms=(time.perf_counter() - t0) / (n - 2) * 1e3,
+                         table=cnt.table())
+        del cache
+    forced = None
+    if gap:
+        forced = tpc_teacher_forced(params, prompt, out["split"]["tokens"],
+                                    dev, cfg, mesh=mesh, idle=("data",))
+    out["forced"] = (forced.cpu() if forced is not None and mesh.rank == 0
+                     else None)
+    del params, pre
+    torch.cuda.empty_cache()
+    return out
+
+
+def one_decode_rank(rank, world, run, prompts, device="cuda",
+                    dtypes=(None,)):
+    """c on one rank (gloo, data 2 x model 2), once for each of
+    ``dtypes``."""
+    mesh = make_test_mesh(data=MOE_DATA, model=MOE_MODEL, device=device)
+    return {dt: one_decode_run(mesh, run, prompts, dt, dt == "float32")
+            for dt in dtypes}
+
+
+def one_checks(run, device, dtype, prompts, res, dry, ranks_s):
+    """c's checks in ``dtype`` on the ranks' results ``res`` and the meta
+    count ``dry`` of the split step: the split stream at one rank's
+    greedy argmax (whole parameters, teacher-forced along it) at every
+    clear margin, in f32 rank 0's teacher-forced logits within
+    ``F32_LOGIT_TOL`` of one rank's, every rank's FLOPs and collectives
+    the meta count's op by op, the same tokens on every rank."""
+    tag = run.phase + "c" + ("" if dtype is None else f" ({dtype})")
+    cfg = run.cfg(dtype=dtype)
+    r0 = res[0]
+    stream = r0["split"]["tokens"]
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=device).manual_seed(0), cfg,
+                        device=device)
+    lg = tpc_teacher_forced(params, prompts[:1], stream, device, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    top2 = lg.topk(2, dim=-1).values
+    clear = ((top2[..., 0] - top2[..., 1]) > LOGIT_TOL).cpu().numpy()
+    agree = lg.argmax(-1).cpu().numpy() == stream
+    finite = bool(torch.isfinite(lg).all())
+    gaps = None
+    if r0["forced"] is not None:
+        gaps = (r0["forced"].to(lg.device) - lg).abs().amax(-1).cpu().numpy()
+    del lg, top2
+    a, u = analyze(dry), analyze(r0["unsplit"]["table"])
+    log(f"  {tag}: {run.arch} ({cfg.n_layers} layers, {cfg.param_dtype}), "
+        f"a batch of one ({run.phase}a's prompt 0) on data {MOE_DATA} x "
+        f"model {MOE_MODEL}, {run.one_tokens} new tokens: "
+        f"make_decode_step(dp=()) leaves data idle and splits each "
+        f"projection's fan-in over it (rank 0 {ranks_s:.1f} s for every "
+        f"dtype; one rank's teacher-forced logits {one_s:.1f} s)")
+    log(f"    a decode step's rank FLOPs: card "
+        f"{analyze(r0['split']['table'])['flops']:.6e}, recording mesh "
+        f"(meta) {a['flops']:.6e}, unsplit {u['flops']:.6e} "
+        f"({a['flops'] / u['flops']:.4f}); all-reduces "
+        f"{a['collective_count']:.0f} ({a['collectives']['all-reduce']:.6e}"
+        f" wire bytes), unsplit {u['collective_count']:.0f} "
+        f"({u['collectives']['all-reduce']:.6e})")
+    for r, o in enumerate(res):
+        log(f"    rank {r}: {o['split']['ms']:.2f} ms per decode step split "
+            f"over data against {o['unsplit']['ms']:.2f} unsplit")
+    same = np.array_equal(r0["unsplit"]["tokens"], stream)
+    log(f"    the split stream equal to the unsplit one: {same}; at one "
+        f"rank's greedy argmax at {int(agree.sum())} of {agree.size} "
+        f"positions, {int((~clear).sum())} within the {LOGIT_TOL} margin; "
+        f"logits finite: {finite}")
+    if gaps is not None:
+        log(f"    rank 0's teacher-forced logits along its stream against "
+            f"one rank's: the largest |gap| a position, median "
+            f"{np.median(gaps):.4g}, max {gaps.max():.4g}")
+        if gaps.max() > F32_LOGIT_TOL:
+            raise AssertionError(f"{tag}: logits {gaps.max()} from one "
+                                 f"rank's, past {F32_LOGIT_TOL}")
+    for r, o in enumerate(res):
+        require_same_ops(f"{tag} rank {r}", dry, o["split"]["table"],
+                         keys=("flops",))
+        if o["split"]["table"]["collectives"] != dry["collectives"]:
+            raise AssertionError(f"{tag} rank {r}: collectives "
+                                 f"{o['split']['table']['collectives']}, "
+                                 f"recorded {dry['collectives']}")
+        if not np.array_equal(o["split"]["tokens"], stream):
+            raise AssertionError(f"{tag} rank {r}: tokens differ from rank "
+                                 "0's")
+    if not (finite and stream.shape == (1, run.one_tokens)
+            and agree[clear].all()):
+        raise AssertionError(f"{tag}: the stream leaves one rank's greedy "
+                             "argmax at a clear margin, or the logits are "
+                             "not finite")
+
+
 def moe_placed_state(cfg, tc, mesh):
     """b's placed state on this rank: the whole parameters from seed 0,
     cut to this rank's storage blocks, and the optimizer state of the
@@ -5399,13 +5559,19 @@ def moe_train_rank(rank, world, run, ref_dir, device="cuda"):
 
 def moe_rank(rank, world, run, prompts, ref_dir, device="cuda",
              dtypes=(None,)):
-    """A rank of a (data 1 x ``serve_model``) and then of b (data
-    ``MOE_DATA`` x ``MOE_MODEL``): one spawn of 4 ranks for the phase.
-    Returns (a's results, b's results, a's seconds)."""
+    """A rank of a (data 1 x ``serve_model``), of c where the run has one
+    and then of b (data ``MOE_DATA`` x ``MOE_MODEL``): one spawn of 4
+    ranks for the phase. Returns (a's results, b's results, a's seconds,
+    c's results or None, c's seconds)."""
     t0 = time.perf_counter()
     serve = moe_serve_rank(rank, world, run, prompts, device, dtypes)
     serve_s = time.perf_counter() - t0
-    return serve, moe_train_rank(rank, world, run, ref_dir, device), serve_s
+    t0 = time.perf_counter()
+    one = (one_decode_rank(rank, world, run, prompts, device, dtypes)
+           if run.one_tokens else None)
+    one_s = time.perf_counter() - t0
+    return (serve, moe_train_rank(rank, world, run, ref_dir, device),
+            serve_s, one, one_s)
 
 
 def drive_moe(run: MoeRun, device="cuda", dtypes=(None,), unchecked=()):
@@ -5449,6 +5615,8 @@ def drive_moe(run: MoeRun, device="cuda", dtypes=(None,), unchecked=()):
         f"free")
     ex = ThreadPoolExecutor(1)
     serve_counting = [ex.submit(moe_meta_decode, run, dt) for dt in dtypes]
+    one_counting = [ex.submit(one_meta_decode, run, dt) for dt in dtypes
+                    if run.one_tokens]
     counting = ex.submit(meta_counts)
     # the ranks' allocators map freed blocks back to the card: four
     # processes share it, and a rank's cached but unused blocks (3.5 GB
@@ -5470,22 +5638,29 @@ def drive_moe(run: MoeRun, device="cuda", dtypes=(None,), unchecked=()):
                 os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
         ranks_s = time.perf_counter() - t0
         serve_dry = [c.result() for c in serve_counting]
+        one_dry = [c.result() for c in one_counting]
         dry, t_meta = counting.result()
         ex.shutdown()
         twin_err = twin_gap(os.path.join(tmp, f"moe{run.phase}_twin_tp.pt"),
                             ref, device)
     del ref
-    serve_s = res[0][2]
+    serve_s, one_s = res[0][2], res[0][4]
     log(f"  {run.phase}a-{run.phase}b: one spawn of "
         f"{MOE_DATA * MOE_MODEL} gloo ranks, {ranks_s:.1f} s with start-up "
-        f"(rank 0's a {serve_s:.1f} s)")
+        f"(rank 0's a {serve_s:.1f} s" + (f", c {one_s:.1f} s"
+                                         if run.one_tokens else "") + ")")
     t0 = time.perf_counter()
     for dt, dry_dt in zip(dtypes, serve_dry):
         moe_serve_checks(run, device, dt, dt not in unchecked, prompts,
                          [o[0][dt] for o in res], dry_dt, serve_s)
     log(f"  {run.phase}a checked in {time.perf_counter() - t0:.1f} s")
+    for dt, dry_dt in zip(dtypes, one_dry):
+        t0 = time.perf_counter()
+        one_checks(run, device, dt, prompts, [o[3][dt] for o in res],
+                   dry_dt, one_s)
+        log(f"  {run.phase}c checked in {time.perf_counter() - t0:.1f} s")
     moe_train_checks(run, [o[1] for o in res], dry, t_meta,
-                     ranks_s - serve_s, twin_err, oracle, t_ref)
+                     ranks_s - serve_s - one_s, twin_err, oracle, t_ref)
 
 
 def moe_train_checks(run: MoeRun, res, dry, t_meta, ranks_s, twin_err,
@@ -5648,14 +5823,16 @@ def mamba_relay_bytes(cfg, rows: int) -> int:
 
 # rwkv6: 2 of 32 layers (0.51e9 parameters, 1.0 GB in bf16, 2.0 GB in
 # f32 whole; every layer is alike); its decode step is 2 x 10 gloo
-# all-reduces and two for the embedding and logits, so it streams 16 new
-# tokens. 23b at the same cut: the placed step (AdamW) and cge run at the
-# published widths, the other general modes are counted on the meta
-# device and quantized runs on the twins. At 4 layers the phase took
-# 89.8-115.1 s, past its share of the 1,200 s
+# all-reduces and two for the embedding and logits, so it streams 8 new
+# tokens (16 before 23c) and 23c decodes a batch of one 8 tokens, split
+# and unsplit. 23b at the same cut: the placed step (AdamW) and cge run
+# at the published widths, the other general modes are counted on the
+# meta device and quantized runs on the twins. At 4 layers the phase
+# took 89.8-115.1 s, past its share of the 1,200 s
 RWKV = MoeRun("23", "rwkv6-3b", 2, 4, None, None, ("cge",),
               ("cge", "quantized"), placed_steps=1,
-              meta_modes=("stale", "trimmed", "quantized"), new_tokens=16)
+              meta_modes=("stale", "trimmed", "quantized"), new_tokens=8,
+              one_tokens=8)
 
 
 # whisper-base: every published width at full depth (6 encoder and 6

@@ -31,8 +31,8 @@ install a :class:`tp_context` (mesh, tp axes) for a config
 Every collective is an all-reduce over the tp axes (gloo's CUDA path
 has no other); a gather writes this rank's block into ``-0.0`` pads, so
 the sum returns every block exactly. With no context active, or a tp
-extent of 1, every function here is the identity, so one process runs
-the code it ran before.
+extent of 1 and no idle dp axes, every function here is the identity, so
+one process runs the code it ran before.
 
 *Groups.* Where a dimension of H heads does not split over all n tp
 ranks, the reference splits it over gcd(H, n) groups of consecutive
@@ -42,6 +42,18 @@ ranks and computes each group's block on all of the group's ranks. The
 ``scatter_to_tp(x, dim, groups=g)`` takes it, and ``copy_to_tp(x,
 groups=g)`` feeds a computation that the ranks of a group repeat, so
 its backward sums one rank of each group.
+
+*Idle dp axes.* A decode whose batch splits over fewer dp axes than
+the mesh has (rwkv6's long_500k: a batch of one) leaves the others
+idle, and the reference's compiled program splits a dot's fan-in over
+them where it holds the dot's input as a block of that fan-in over
+"model" (RWKV's projections). ``tp_context(..., idle=)`` names those
+axes: :func:`fan_in_dot` takes this rank's block of a weight's fan-in
+over them, and a gather with ``partial=True`` sums the partial products
+over them in the same ``-0.0``-padded all-reduce that gathers them over
+tp (one all-reduce over the idle and the tp axes where the reference
+runs an all-reduce over data and a gather over model: the same sums).
+With no idle axes both are what they were.
 
 *Norms over blocks.* :func:`tp_sq_norm` and :func:`tp_abs_max` give the
 squared L2 norm and the max |x| of a whole tree from this rank's blocks
@@ -72,15 +84,17 @@ class TP:
     where the heads split over fewer groups than ranks, and takes the
     tied unembedding's input gradient from this rank's model columns."""
 
-    __slots__ = ("mesh", "axes", "size", "rank", "program")
+    __slots__ = ("mesh", "axes", "size", "rank", "program", "idle")
 
-    def __init__(self, mesh, axes: Tuple[str, ...], program: str = "masked"):
+    def __init__(self, mesh, axes: Tuple[str, ...], program: str = "masked",
+                 idle: Tuple[str, ...] = ()):
         if program not in PROGRAMS:
             raise ValueError(f"program must be one of {PROGRAMS}, got "
                              f"{program!r}")
         self.mesh, self.axes, self.program = mesh, tuple(axes), program
         self.size = mesh.axis_size(self.axes)
         self.rank = mesh.axis_index(self.axes)
+        self.idle = tuple(a for a in idle if mesh.axis_size(a) > 1)
 
     def block(self, dim: int, parts: Optional[int] = None) -> slice:
         """This rank's block of a dimension of ``dim`` split into
@@ -96,6 +110,16 @@ class TP:
         """Whether this rank is the first of its group of ``n / groups``."""
         return self.rank % (self.size // groups) == 0
 
+    def fan_in(self, n: int) -> slice:
+        """This rank's block of a fan-in of ``n`` over the idle dp axes
+        (the whole where there are none)."""
+        parts = self.mesh.axis_size(self.idle)
+        if n % parts:
+            raise ValueError(f"a fan-in of {n} does not split over "
+                             f"{parts} idle dp ranks")
+        b, r = n // parts, self.mesh.axis_index(self.idle)
+        return slice(r * b, (r + 1) * b)
+
     def all_reduce(self, x: torch.Tensor,
                    inplace: bool = False) -> torch.Tensor:
         if inplace:                     # the sum in x itself (Mesh)
@@ -107,18 +131,24 @@ class TP:
         ``groups`` groups of consecutive tp ranks (no autograd)."""
         return self.mesh.all_reduce(x, self.axes, parts=groups)
 
-    def gather(self, x: torch.Tensor, dim: int,
-               groups: int = 1) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, dim: int, groups: int = 1,
+               partial: bool = False) -> torch.Tensor:
         """Every rank's block along ``dim`` -> the ``groups``-way block of
         this rank's group (1: the whole dimension), through one
-        ``-0.0``-padded all-reduce (no autograd)."""
+        ``-0.0``-padded all-reduce (no autograd). With ``partial``, ``x``
+        is this rank's partial product over its block of a fan-in split
+        over the idle dp axes (:func:`fan_in_dot`): the all-reduce runs
+        over those axes too, and so sums the products."""
+        axes = self.axes + (self.idle if partial else ())
+        if self.mesh.axis_size(axes) == 1:
+            return x
         dim = dim % x.dim()
         n = x.shape[dim]
         shape = list(x.shape)
         shape[dim] = n * self.size
         buf = torch.full(shape, -0.0, dtype=x.dtype, device=x.device)
         buf.narrow(dim, self.rank * n, n).copy_(x)
-        full = self.all_reduce(buf)
+        full = self.mesh.all_reduce(buf, axes)
         g = self.block(shape[dim], groups)
         return full.narrow(dim, g.start, g.stop - g.start)
 
@@ -187,12 +217,15 @@ def tp_abs_max(leaves: Sequence[torch.Tensor],
 
 class tp_context:
     """Context manager installing tensor-parallel compute over
-    ``tp_axes`` of ``mesh`` (None: none, an explicit off)."""
+    ``tp_axes`` of ``mesh`` (None: none, an explicit off), and the dp
+    axes ``idle`` a decode's batch leaves idle (:func:`fan_in_dot`): a
+    context where either holds more than one rank."""
 
     def __init__(self, mesh, tp_axes: Tuple[str, ...] = ("model",),
-                 program: str = "masked"):
-        self._val = (None if mesh is None or mesh.axis_size(tuple(tp_axes))
-                     == 1 else TP(mesh, tp_axes, program))
+                 program: str = "masked", idle: Tuple[str, ...] = ()):
+        self._val = (None if mesh is None or mesh.axis_size(
+            tuple(tp_axes) + tuple(idle)) == 1
+            else TP(mesh, tp_axes, program, idle))
 
     @classmethod
     def of(cls, tp: Optional[TP]) -> "tp_context":
@@ -284,13 +317,13 @@ class _GroupSum(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tp, dim, groups, x):
+    def forward(ctx, tp, dim, groups, partial, x):
         ctx.tp, ctx.dim, ctx.groups = tp, dim, groups
-        return tp.gather(x, dim, groups)
+        return tp.gather(x, dim, groups, partial)
 
     @staticmethod
     def backward(ctx, g):
-        return None, None, None, ctx.tp.keep(g, ctx.dim, ctx.groups)
+        return None, None, None, None, ctx.tp.keep(g, ctx.dim, ctx.groups)
 
 
 class _Scatter(torch.autograd.Function):
@@ -322,12 +355,27 @@ def reduce_from_tp(x: torch.Tensor):
     return x if tp is None else _Reduce.apply(tp, x)
 
 
-def gather_from_tp(x: torch.Tensor, dim: int, groups: int = 1):
+def gather_from_tp(x: torch.Tensor, dim: int, groups: int = 1,
+                   partial: bool = False):
     """This rank's block along ``dim`` -> its group's block (``groups``
     = 1: the whole dimension) by a ``-0.0``-padded all-reduce; the
-    backward keeps this rank's block."""
+    backward keeps this rank's block. ``partial``: ``x`` is a
+    :func:`fan_in_dot` product, summed over the idle dp axes too."""
     tp = current_tp()
-    return x if tp is None else _Gather.apply(tp, dim, groups, x)
+    return x if tp is None else _Gather.apply(tp, dim, groups, partial, x)
+
+
+def fan_in_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a weight ``w`` (fan-in, fan-out) whose fan-in is
+    whole on this rank: where the context names idle dp axes, the
+    partial product of this rank's block of the fan-in over them (``x``'s
+    last dimension and ``w``'s rows), which a ``partial`` gather
+    (:func:`gather_from_tp`) sums; with none, ``x @ w``."""
+    tp = current_tp()
+    if tp is None or not tp.idle:
+        return x @ w
+    b = tp.fan_in(w.shape[-2])
+    return x[..., b] @ w[b]
 
 
 def scatter_to_tp(x: torch.Tensor, dim: int, groups: int = 1):

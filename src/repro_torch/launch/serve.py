@@ -59,6 +59,18 @@ def _tp_axes(cfg: ArchConfig, mesh) -> Tuple[str, ...]:
                  if mesh.shape.get(a, 1) > 1)
 
 
+def _idle_axes(mesh, dp) -> Tuple[str, ...]:
+    """The dp axes of ``mesh`` (the compute rules') of more than one rank
+    that a step's batch leaves idle, given ``dp``, the axes it splits
+    over; none where ``dp`` is None (the caller's ranks may hold
+    different batches) or there is no mesh."""
+    if mesh is None or dp is None:
+        return ()
+    dp = (dp,) if isinstance(dp, str) else tuple(dp)
+    return tuple(a for a in compute_rules(mesh.shape).dp
+                 if a not in dp and mesh.shape.get(a, 1) > 1)
+
+
 def place_params(params, cfg: ArchConfig, mesh):
     """This rank's block of ``params`` in the compute layout the steps of
     a ``mesh`` run on: ``shard_tree`` under the reference's compute specs
@@ -150,13 +162,18 @@ def make_decode_step(cfg: ArchConfig, moe_groups: int = 1,
     ``batch`` = {"tokens" (B, 1), "cache", "pos"}: greedy, as the
     reference's (``temperature`` is accepted and unused there too). With
     ``mesh``, as :func:`make_prefill_step`: ``place_params``' blocks and
-    ``place_cache``'s cache."""
+    ``place_cache``'s cache. With ``mesh`` and ``dp``, the axes the batch
+    splits over, the mesh's other dp axes are idle (a batch of one on
+    every data rank alike): ``dist.tp``'s context names them, and RWKV's
+    decode splits its projections' fan-in over them, as the reference's
+    compiled decode does (``models.ssm``)."""
     del temperature
     tp_axes = _tp_axes(cfg, mesh)
+    idle = _idle_axes(mesh, dp)
 
     def decode(params, batch):
         with _ctx(dp, tp, sizes), torch.no_grad(), tp_context(
-                mesh if tp_axes else None, tp_axes):
+                mesh if tp_axes or idle else None, tp_axes, idle=idle):
             logits, _, cache = apply_model(
                 params, batch["tokens"], cfg, mode="decode",
                 cache=batch["cache"], cache_index=batch["pos"],

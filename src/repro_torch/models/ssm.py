@@ -33,8 +33,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.act_sharding import constrain
-from repro_torch.dist.tp import (copy_to_tp, current_tp, gather_from_tp,
-                                 reduce_from_tp, scatter_to_tp)
+from repro_torch.dist.tp import (copy_to_tp, current_tp, fan_in_dot,
+                                 gather_from_tp, reduce_from_tp,
+                                 scatter_to_tp)
 from repro_torch.models.layers import (_normal, apply_group_norm,
                                        dense_init, param_dtype)
 
@@ -384,7 +385,8 @@ def apply_rwkv_time(p, x, cfg: ArchConfig, *, cache=None,
     b, s, d = x.shape
     h, hd = d // rw.head_dim, rw.head_dim
     tp = current_tp()
-    if tp is not None and p["w_r"].shape[-1] != d:
+    if tp is not None and (p["w_r"].shape[-1] != d
+                           or tp.idle and cache is not None):
         return _apply_rwkv_time_tp(p, x, cfg, tp, cache=cache,
                                    return_cache=return_cache)
 
@@ -431,7 +433,8 @@ def apply_rwkv_channel(p, x, cfg: ArchConfig, *, cache=None,
     """RWKV-6 channel mix (squared-ReLU FFN with a receptance gate).
     cache: {"cm_x": (B, d)}, written in place."""
     tp = current_tp()
-    if tp is not None and p["cm_wr"].shape[-1] != x.shape[-1]:
+    if tp is not None and (p["cm_wr"].shape[-1] != x.shape[-1]
+                           or tp.idle and cache is not None):
         return _apply_rwkv_channel_tp(p, x, tp, cache=cache,
                                       return_cache=return_cache)
     last = cache["cm_x"] if cache is not None else None
@@ -455,14 +458,16 @@ def apply_rwkv_channel(p, x, cfg: ArchConfig, *, cache=None,
 # RWKV-6 over tp
 
 
-def _gather_last(*xs, groups: int = 1):
+def _gather_last(*xs, groups: int = 1, partial: bool = False):
     """Each of ``xs`` from this rank's block of its last dimension to its
     group's block (``groups`` = 1: the whole), all in one all-reduce in
     their widest dtype (each cast back, exactly); the backward keeps this
-    rank's block of each."""
+    rank's block of each. ``partial``: each is a ``dist.tp.fan_in_dot``
+    product, summed over the idle dp axes in the same all-reduce."""
     dt = functools.reduce(torch.promote_types, (t.dtype for t in xs))
     flat = gather_from_tp(torch.cat([t.reshape(1, -1).to(dt) for t in xs],
-                                    1), 0, groups)   # (ranks of the group, .)
+                                    1), 0, groups,
+                          partial)                   # (ranks of the group, .)
     out, off = [], 0
     for t in xs:
         part = flat[:, off:off + t.numel()].reshape(-1, *t.shape)
@@ -511,9 +516,17 @@ def _apply_rwkv_time_tp(p, x, cfg: ArchConfig, tp, *, cache, return_cache):
       k, w and g gathered whole (with v, which it cuts to the block),
       and gathers ``y`` whole for the group norm.
     - ``w_o``'s columns are gathered whole into the residual.
+    - Where the decode's batch leaves dp axes idle (``tp.idle``), each
+      projection with a fan-in of d (``dd_w1``, ``w_a``, ``w_r``,
+      ``w_k``, ``w_v``, ``w_g``, ``w_o``) takes this rank's block of it
+      over them (``dist.tp.fan_in_dot``) and its gather sums the partial
+      products (the reference's HLO at a batch of one; ``dd_w2`` and
+      ``w_b``, fan-ins of the LoRA widths, stay whole). A tp extent of
+      one takes this form too, its gathers over tp none.
 
     Where tp does not divide ``dd_w1``'s or ``w_a``'s fan-out, that
-    leaf is whole, as the reference's ``fit`` leaves it."""
+    leaf is whole, as the reference's ``fit`` leaves it, and computes
+    whole."""
     rw = cfg.rwkv
     b, s, d = x.shape
     h, hd = d // rw.head_dim, rw.head_dim
@@ -532,10 +545,12 @@ def _apply_rwkv_time_tp(p, x, cfg: ArchConfig, tp, *, cache, return_cache):
     dx = _token_shift(x, last) - x
     xbase = x + dx * mu_x
     la = cfg.rwkv.ddlerp_lora
-    if p["dd_w1"].shape[-1] == 5 * la:
+    dot = fan_in_dot if decode else torch.matmul
+    if p["dd_w1"].shape[-1] * tp.size != 5 * la:        # whole
         dd = xbase @ p["dd_w1"]
     else:
-        dd = gather_from_tp(copy_to_tp(xbase) @ p["dd_w1"], -1)
+        dd = gather_from_tp(dot(copy_to_tp(xbase), p["dd_w1"]), -1,
+                            partial=decode)
     dd = copy_to_tp(torch.tanh(dd).reshape(b, s, 5, la))
     mix = gather_from_tp(p["mu"] + torch.einsum("bsfl,fld->bsfd", dd,
                                                 p["dd_w2"]), -1)
@@ -543,17 +558,18 @@ def _apply_rwkv_time_tp(p, x, cfg: ArchConfig, tp, *, cache, return_cache):
     cm = copy_to_tp(mixed)
     xw, xk, xv, xr, xg = (cm[:, :, i] for i in range(5))
 
-    r, k, v, g = (t @ p[w] for t, w in ((xr, "w_r"), (xk, "w_k"),
-                                         (xv, "w_v"), (xg, "w_g")))
-    g = F.silu(g.to(torch.float32)).to(x.dtype)        # (B, S, d/n)
-    if p["w_a"].shape[-1] == rw.decay_lora:
+    r, k, v, g = (dot(t, p[w]) for t, w in ((xr, "w_r"), (xk, "w_k"),
+                                             (xv, "w_v"), (xg, "w_g")))
+    if p["w_a"].shape[-1] * tp.size != rw.decay_lora:   # whole
         a = mixed[:, :, 0] @ p["w_a"]
         if decode:
-            r, k, v, g = _gather_last(r, k, v, g)
+            r, k, v, g = _gather_last(r, k, v, g, partial=True)
     elif decode:
-        a, r, k, v, g = _gather_last(xw @ p["w_a"], r, k, v, g)
+        a, r, k, v, g = _gather_last(dot(xw, p["w_a"]), r, k, v, g,
+                                     partial=True)
     else:
         a = gather_from_tp(xw @ p["w_a"], -1)
+    g = F.silu(g.to(torch.float32)).to(x.dtype)        # (B, S, d/n)
     wdec = torch.exp(-torch.exp(
         p["w0"] + (copy_to_tp(torch.tanh(a)) @ p["w_b"]).to(torch.float32)))
 
@@ -574,7 +590,7 @@ def _apply_rwkv_time_tp(p, x, cfg: ArchConfig, tp, *, cache, return_cache):
         (y,) = _gather_last(y.to(x.dtype))               # (B, H, Dv)
         y = apply_group_norm(y[:, None])
         yg = y.reshape(b, 1, d) * g
-        out = copy_to_tp(yg) @ p["w_o"]
+        out = fan_in_dot(copy_to_tp(yg), p["w_o"])
     else:
         heads = tp.block(h, groups)
         grp = ((r, k, v, wdec) if groups == tp.size
@@ -598,7 +614,7 @@ def _apply_rwkv_time_tp(p, x, cfg: ArchConfig, tp, *, cache, return_cache):
         if return_cache:
             new_cache = {"wkv": _group_wkv_state(tp, s_last, h, groups),
                          "tm_x": x[:, -1, cols].detach().contiguous()}
-    return gather_from_tp(out, -1), new_cache
+    return gather_from_tp(out, -1, partial=decode), new_cache
 
 
 def _apply_rwkv_channel_tp(p, x, tp, *, cache, return_cache):
@@ -607,8 +623,14 @@ def _apply_rwkv_channel_tp(p, x, tp, *, cache, return_cache):
     and ``cm_mu_r``: the two mixes' weights gathered whole (with the
     decode's ``cm_x``), the squared-ReLU ``k`` gathered whole for
     ``cm_wv``, the gated output's columns gathered whole into the
-    residual. The cache's ``cm_x`` is this rank's columns."""
+    residual. The cache's ``cm_x`` is this rank's columns. Where the
+    decode's batch leaves dp axes idle (``tp.idle``), the three dots take
+    this rank's block of their fan-in over them: ``cm_wr``'s and
+    ``cm_wk``'s partial products summed and gathered whole in one
+    all-reduce (``r`` then cut to this rank's columns), ``cm_wv``'s with
+    the output's."""
     cols = tp.block(x.shape[-1])
+    split = bool(tp.idle) and cache is not None
     mus = torch.stack([p["cm_mu_k"], p["cm_mu_r"]])
     if cache is not None:
         mus, last = _gather_last(mus, cache["cm_x"])
@@ -616,12 +638,21 @@ def _apply_rwkv_channel_tp(p, x, tp, *, cache, return_cache):
         (mus,), last = _gather_last(mus), None
     dx = _token_shift(x, last) - x
     xkr = copy_to_tp(x[:, :, None] + dx[:, :, None] * mus)  # (B, S, 2, d)
-    r = torch.sigmoid((xkr[:, :, 1] @ p["cm_wr"]).to(torch.float32)
-                      ).to(x.dtype)
-    k = constrain(xkr[:, :, 0] @ p["cm_wk"], "ffn")
+    if split:
+        r, k = _gather_last(fan_in_dot(xkr[:, :, 1], p["cm_wr"]),
+                            fan_in_dot(xkr[:, :, 0], p["cm_wk"]),
+                            partial=True)
+        r = r[..., cols]
+    else:
+        r, k = xkr[:, :, 1] @ p["cm_wr"], xkr[:, :, 0] @ p["cm_wk"]
+    k = constrain(k, "ffn")
+    r = torch.sigmoid(r.to(torch.float32)).to(x.dtype)
     k = torch.square(F.relu(k.to(torch.float32))).to(x.dtype)
-    (k,) = _gather_last(k)
-    out = gather_from_tp(r * (copy_to_tp(k) @ p["cm_wv"]), -1)
+    if not split:
+        (k,) = _gather_last(k)
+    dot = fan_in_dot if split else torch.matmul
+    out = gather_from_tp(r * dot(copy_to_tp(k), p["cm_wv"]), -1,
+                         partial=split)
     new_cache = None
     if cache is not None:
         cache["cm_x"].copy_(x[:, -1, cols])

@@ -278,6 +278,13 @@ class PagedKVCache:
             n += self.prefix.reclaimable
         return n
 
+    def can_admit(self, total_len: int) -> bool:
+        """Whether a sequence of ``total_len`` positions fits: its pages
+        within the table's width and within :attr:`available_pages`."""
+        need = pages_needed(total_len, self.ccfg.page_size)
+        return (need <= self.ccfg.max_pages_per_seq
+                and need <= self.available_pages)
+
     def _alloc_pages(self, n: int) -> List[int]:
         """``alloc`` that first reclaims refcount-0 cached pages (oldest
         first) when the free list is short."""

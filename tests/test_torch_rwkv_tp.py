@@ -31,7 +31,19 @@ Three calls of each layer:
 
 On every rank each is within ``TOL`` of JAX's and of the one process's
 (cut to the rank's block), and the outputs have the same bits on every
-rank. TOL is 1e-5 (rtol and atol): the partial products are summed over
+rank.
+
+Then the decode of a batch of one, which leaves the "data" axis idle:
+reduced rwkv6-3b at 2 layers through ``launch.serve``'s
+``make_prefill_step`` and ``make_decode_step(..., dp=())`` on data 2 x
+model 2 and data 4 x model 1 (every projection's fan-in split over
+"data", ``dist.tp.fan_in_dot``), ``NEW`` tokens after a
+``PROMPT``-token prefill: the tokens equal JAX's ``make_decode_step``'s,
+the logits (gathered whole) and the cache within ``TOL`` of the port's
+one process, and that within ``TOL`` of JAX's; the collectives of a
+decode step on a ``RecordingMesh`` of each rank equal the real mesh's,
+op by op (10 all-reduces a layer over data x model, or 5 over data at
+model 1). TOL is 1e-5 (rtol and atol): the partial products are summed over
 tp in another order. A parameter gradient's atol is 1e-5 of its leaf's
 largest entry where that is above 1: ``u``'s gradient sums the group
 norm's backward over every token and value, its entries reach 11.4 at
@@ -56,6 +68,9 @@ MESHES = {"data2_model2": (2, 2, None), "model4": (1, 4, None),
 VARIANTS = {None: ({}, {}), "d96": ({"d_model": 96, "n_heads": 6}, {}),
             "lora6": ({}, {"ddlerp_lora": 6, "decay_lora": 6})}
 CALLS = ("train", "prefill", "decode")
+# the batch-of-one decode: name -> (data, model)
+ONE_MESHES = {"one_data2_model2": (2, 2), "one_data4_model1": (4, 1)}
+ONE_LAYERS, PROMPT, NEW = 2, 6, 4
 
 
 def _patched(cfg, variant):
@@ -144,11 +159,97 @@ def _port(p, cfg, x, c, mesh=None):
     return out
 
 
-def _rank(rank, world, np_params):
+def _one_cfg():
+    return dataclasses.replace(get_config("rwkv6-3b").reduced(),
+                               n_layers=ONE_LAYERS)
+
+
+def _one_prompt():
+    return np.random.default_rng(7).integers(
+        0, _one_cfg().vocab_size, (1, PROMPT)).astype(np.int32)
+
+
+@torch.no_grad()
+def _one_decode(params, cfg, mesh=None, dp=None):
+    """A batch of one on ``launch.serve``'s steps (``params`` whole, or
+    this rank's ``place_params`` blocks): the prefill, then ``NEW`` decode
+    steps fed their own tokens. Each step's logits come from the decode
+    step's own body (``apply_model`` under the context it installs) on a
+    copy of the cache. Returns (tokens, logits (NEW, V), cache)."""
+    from repro_torch.dist.tp import gather_from_tp, tp_context
+    from repro_torch.launch import serve as V
+    from repro_torch.models.layers import vocab_split
+    from repro_torch.models.model import apply_model
+    from repro_torch.core.ledger import tree_flatten
+    tok, cache = V.make_prefill_step(cfg, mesh=mesh)(
+        params, {"tokens": torch.from_numpy(_one_prompt())})
+    decode = V.make_decode_step(cfg, mesh=mesh, dp=dp)
+    toks, logits = [tok], []
+    for i in range(NEW):
+        copy = [{m: {k: v.clone() for k, v in q.items()} for m, q in blk.items()}
+                for blk in cache]
+        with tp_context(mesh, V._tp_axes(cfg, mesh),
+                        idle=V._idle_axes(mesh, dp)):
+            lg, _, _ = apply_model(params, tok[:, None], cfg, mode="decode",
+                                   cache=copy, cache_index=PROMPT + i,
+                                   remat_policy="none")
+            lg = lg[:, -1]
+            if vocab_split(lg, cfg):
+                lg = gather_from_tp(lg, -1)
+        tok, cache = decode(params, {"tokens": tok[:, None], "cache": cache,
+                                     "pos": PROMPT + i})
+        for a, b in zip(tree_flatten(copy)[0], tree_flatten(cache)[0]):
+            assert torch.equal(a, b)      # the step's body, bit for bit
+        assert torch.equal(tok, torch.argmax(lg, -1).to(torch.int32))
+        toks.append(tok)
+        logits.append(lg[0].numpy().copy())
+    return (torch.stack(toks, 1).numpy(), np.stack(logits),
+            [{m: _numpy(q) for m, q in blk.items()} for blk in cache])
+
+
+def _one_collectives(params, cfg, mesh, cache, tok):
+    """The collectives ``(kind, axes, group size, bytes)`` of one decode
+    step of a batch of one on ``mesh``, in order."""
+    from repro_torch.launch import serve as V
+    from repro_torch.launch.mesh import watch_collectives
+    seen = []
+    with watch_collectives(lambda *c: seen.append(c)):
+        V.make_decode_step(cfg, mesh=mesh, dp=())(
+            params, {"tokens": tok, "cache": cache, "pos": PROMPT})
+    return seen
+
+
+def _one_rank(rank, np_model):
+    """The batch-of-one decode on each of ``ONE_MESHES``: its results,
+    and one step's collectives on the real mesh and on a recording mesh
+    of this rank."""
+    from repro_torch.launch import serve as V
+    from repro_torch.launch.mesh import Mesh, RecordingMesh
+    from repro_torch.models.model import params_from_jax
+    cfg, out = _one_cfg(), {}
+    for key, (data, model) in ONE_MESHES.items():
+        mesh = Mesh((data, model), ("data", "model"), device="cpu")
+        params = V.place_params(params_from_jax(np_model), cfg, mesh)
+        toks, logits, cache = _one_decode(params, cfg, mesh, dp=())
+        tok = torch.from_numpy(toks[:, -1:])
+        _, pre = V.make_prefill_step(cfg, mesh=mesh)(
+            params, {"tokens": torch.from_numpy(_one_prompt())})
+        real = _one_collectives(params, cfg, mesh, pre, tok)
+        rec = RecordingMesh((data, model), ("data", "model"), rank=rank,
+                            device="cpu")
+        _, pre = V.make_prefill_step(cfg, mesh=mesh)(
+            params, {"tokens": torch.from_numpy(_one_prompt())})
+        recorded = _one_collectives(params, cfg, rec, pre, tok)
+        out[key] = dict(tokens=toks, logits=logits, cache=cache, real=real,
+                        recorded=recorded)
+    return out
+
+
+def _rank(rank, world, np_params, np_model):
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.model import params_from_jax
     torch.manual_seed(0)
-    out = {}
+    out = {"one": _one_rank(rank, np_model)}
     for key, (data, model, variant) in MESHES.items():
         cfg = _cfg(variant)
         x, c = _inputs(cfg.d_model)
@@ -180,9 +281,22 @@ def jax_params():
 
 
 @pytest.fixture(scope="module")
-def spawned(jax_params, tmp_path_factory):
+def one_model():
+    """Reduced rwkv6-3b at ``ONE_LAYERS`` layers, JAX's parameters."""
+    import jax
+    from repro.configs.registry import get_config as jax_config
+    from repro.models.model import init_model
+    jcfg = dataclasses.replace(jax_config("rwkv6-3b").reduced(),
+                               n_layers=ONE_LAYERS)
+    return jax.tree.map(np.asarray,
+                        init_model(jax.random.PRNGKey(3), jcfg, max_pos=64))
+
+
+@pytest.fixture(scope="module")
+def spawned(jax_params, one_model, tmp_path_factory):
     return run_ranks(_rank, 4, backend="gloo", device="cpu",
-                     timeout=TIMEOUT, threads=1, args=(jax_params,),
+                     timeout=TIMEOUT, threads=1,
+                     args=(jax_params, one_model),
                      store_dir=str(tmp_path_factory.mktemp("store")))
 
 
@@ -322,3 +436,100 @@ def test_prefill_over_a_state_under_tp_compute_raises():
     cache = {"wkv": torch.zeros(B, 4, 16, 8), "tm_x": torch.zeros(B, 32)}
     with tp_context(mesh), pytest.raises(NotImplementedError):
         apply_rwkv_time(p, torch.zeros(B, 4, 64), cfg, cache=cache)
+
+
+# ---------------------------------------------------------------------------
+# the batch-of-one decode, its fan-in split over the idle "data" axis
+
+
+@pytest.fixture(scope="module")
+def one_references(one_model):
+    """(JAX's, the port's one process's) tokens, logits (NEW, V) and
+    cache of the batch-of-one decode."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.registry import get_config as jax_config
+    from repro.launch import serve as jserve
+    from repro.models import model as jmodel
+    from repro_torch.models.model import params_from_jax
+    jcfg = dataclasses.replace(jax_config("rwkv6-3b").reduced(),
+                               n_layers=ONE_LAYERS)
+    jp = jax.tree.map(jnp.asarray, one_model)
+    tok, cache = jserve.make_prefill_step(jcfg)(
+        jp, {"tokens": jnp.asarray(_one_prompt())})
+    decode = jax.jit(jserve.make_decode_step(jcfg))
+    body = jax.jit(lambda p, t, c, i: jmodel.apply_model(
+        p, t, jcfg, mode="decode", cache=c, cache_index=i,
+        remat_policy="none")[0][:, -1])
+    toks, logits = [np.asarray(tok)], []
+    for i in range(NEW):
+        logits.append(np.asarray(body(jp, tok[:, None], cache,
+                                      jnp.asarray(PROMPT + i, jnp.int32)))[0])
+        tok, cache = decode(jp, {"tokens": tok[:, None], "cache": cache,
+                                 "pos": jnp.asarray(PROMPT + i, jnp.int32)})
+        toks.append(np.asarray(tok))
+    ref = (np.stack(toks, 1), np.stack(logits),
+           [{m: {k: np.asarray(v) for k, v in q.items()}
+             for m, q in blk.items()} for blk in cache])
+    return ref, _one_decode(params_from_jax(one_model), _one_cfg())
+
+
+def _same_cache(got, want, rank, model):
+    for blk, ref_blk in zip(got, want):
+        for m, tree in blk.items():
+            for name, g in tree.items():
+                np.testing.assert_allclose(
+                    g, _cut(np.asarray(ref_blk[m][name]), g.shape, rank,
+                            model), **TOL, err_msg=f"{m}/{name}")
+
+
+def test_one_process_decode_of_one_matches_jax(one_references):
+    """The port's one process against JAX's ``make_decode_step``: the
+    same tokens, logits and cache within ``TOL``."""
+    (jt, jl, jc), (tt, tl, tc) = one_references
+    np.testing.assert_array_equal(tt, jt)
+    np.testing.assert_allclose(tl, jl, **TOL)
+    _same_cache(tc, jc, 0, 1)
+
+
+@pytest.mark.parametrize("key", sorted(ONE_MESHES))
+def test_decode_of_one_splits_fan_in_over_data(spawned, one_references,
+                                               key):
+    """Every rank's batch-of-one decode, its fan-ins split over the idle
+    "data" axis: the tokens equal the one process's (and JAX's), the
+    logits and this rank's block of the cache within ``TOL`` of the one
+    process's, the logits' bits the same on every rank."""
+    data, model = ONE_MESHES[key]
+    (jt, _, _), (tt, tl, tc) = one_references
+    for r, o in enumerate(spawned):
+        got = o["one"][key]
+        np.testing.assert_array_equal(got["tokens"], tt)
+        np.testing.assert_array_equal(got["tokens"], jt)
+        np.testing.assert_allclose(got["logits"], tl, **TOL)
+        _same_cache(got["cache"], tc, r % model, model)
+        np.testing.assert_array_equal(got["logits"],
+                                      spawned[0]["one"][key]["logits"])
+
+
+@pytest.mark.parametrize("key", sorted(ONE_MESHES))
+def test_decode_of_one_collectives_on_a_recording_mesh(spawned, key):
+    """A decode step's all-reduces on a ``RecordingMesh`` of each rank
+    equal the real mesh's op by op (axes, group size, bytes): at model 2
+    the 10 a layer over data x model (the partial products summed and
+    gathered in one) and the embedding's and the logits' gathers over
+    model; at model 1 the 5 a layer that sum partial products, over
+    data."""
+    data, model = ONE_MESHES[key]
+    layers = _one_cfg().n_layers
+    for o in spawned:
+        got = o["one"][key]
+        assert got["recorded"] == got["real"]
+        kinds = [(c[0], c[1], c[2]) for c in got["real"]]
+        if model == 1:
+            assert kinds == [("all-reduce", ("data",), data)] * 5 * layers
+        else:
+            assert len(kinds) == 10 * layers + 2
+            assert kinds.count(("all-reduce", ("data", "model"),
+                                data * model)) == 5 * layers
+            assert kinds.count(("all-reduce", ("model",), model)) == \
+                5 * layers + 2

@@ -88,6 +88,32 @@ def test_allocator_matches_reference():
     assert ours._free == ref._free
 
 
+@pytest.mark.parametrize("width", [3, 8])
+def test_can_admit_matches_reference(width):
+    """``PagedKVCache.can_admit`` against the reference's, as
+    ``tests/test_serve_cache.py`` checks its own: a sequence past the
+    table's ``width`` pages refused, one within it admitted while the pool
+    has the pages, and pool pressure (pages taken from the allocator)
+    counted, on reduced qwen2-0.5b's pools of 7 usable pages of 4."""
+    from repro_torch.serve import PagedKVCache
+    kw = dict(num_slots=1, page_size=4, num_pages=8, max_pages_per_seq=width)
+    ours = PagedKVCache(get_config("qwen2-0.5b").reduced(),
+                        PagedCacheConfig(**kw), device="cpu")
+    ref = jkv.PagedKVCache(jax_config("qwen2-0.5b").reduced(),
+                           jkv.PagedCacheConfig(**kw))
+    assert not ours.can_admit(4 * width + 1)     # past the table's width
+    assert ours.can_admit(4 * min(width, 7))     # within it and the pool
+    for taken in (0, 2, 5, 7):
+        for kv in (ours, ref):
+            kv.alloc.alloc(taken - (kv.alloc.num_pages - 1
+                                    - kv.alloc.n_free))
+        assert ours.available_pages == ref.available_pages == 7 - taken
+        got = [ours.can_admit(n) for n in range(0, 4 * 8 + 2)]
+        assert got == [ref.can_admit(n) for n in range(0, 4 * 8 + 2)]
+        assert got[4 * (7 - taken)] == (7 - taken <= width)
+        assert not got[4 * (7 - taken) + 1]
+
+
 @pytest.mark.parametrize("policy", ["fifo", "sla"])
 def test_scheduler_matches_reference(policy):
     ccfg = dict(num_slots=2, page_size=4, num_pages=12, max_pages_per_seq=6)
