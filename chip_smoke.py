@@ -237,7 +237,17 @@ Phases, each fatal on failure:
    their own ``act_policy``, their argmax equal to the policy-free
    calls', their constraint points reaching an enclosing recorder (the
    kinds of a dense model, the batch over "data").
-   16d: ``examples/torch_quickstart.py``, ``torch_byzantine_cge.py`` and
+   16d: microbatch accumulation in the placed step, in 16a-16b's spawn.
+   16a's ranks take a 4th step at ``accum_steps = 2`` from 16a's state:
+   its parameters equal bit for bit the mirror's arithmetic extended to
+   microbatches (each rank's bf16 gradient of its block of a microbatch,
+   the four summed in f32 and cast, the two microbatches' summed in f32,
+   halved and cast) and lie within ``PLACED_UPDATE_REL`` of the
+   one-process ``make_train_step(accum_steps=2)``; 16b's twin takes a
+   4th step at ``accum_steps = 2`` too, card and CPU ranks within 1e-4.
+   Prints s per step, the peak bytes of gathered weights and
+   ``max_memory_allocated``'s growth over a step at k = 1 and k = 2.
+   16e: ``examples/torch_quickstart.py``, ``torch_byzantine_cge.py`` and
    ``torch_serve_lm.py`` run in process on the card at their defaults,
    then the Byzantine one with ``--agg-backend device``, its 9 runs held
    to the host backend's (the same events, ||x - x*|| within rtol 1e-3
@@ -663,7 +673,7 @@ def check_kernels():
     errs = {k: [] for k in ("masked_cge_reduce", "trimmed_mean_tiled",
                             "dequant_accum")}
     # (n, P, received, f); (12, 6, 10, 2) is examples/
-    # torch_byzantine_cge.py's shape on its device backend (phase 16d)
+    # torch_byzantine_cge.py's shape on its device backend (phase 16e)
     shapes = [(N_AGENTS, P_LENET, N_AGENTS - 3, 1), (7, 4097, 5, 1),
               (N_AGENTS, 1_000_003, N_AGENTS, 2), (3, 1, 3, 0),
               (64, P_LENET, 45, 2), (4097, 20_000, 2868, 1), (12, 6, 10, 2)]
@@ -3679,13 +3689,15 @@ def drive_tp_decode(device="cuda"):
 # 3 steps. PLACED_UPDATE_REL is about three times that: an unchanged
 # state reads 1 and a sign-flipped update 2
 PLACED_STEPS, PLACED_AGENTS, PLACED_MASKED = 3, 4, 2
+# 16d: one more step, at accum_steps = 2, from 16a's and 16b's state
+PLACED_ACCUM = 2
 SPMD_LAYERS = 4                     # of qwen2-0.5b's 24 (spmd_cfg)
 PLACED_UPDATE_REL = 0.2
 PLACED_METRIC_TOL = dict(rtol=1e-6, atol=0.0)   # loss and grad norm sums
 # the meta-device report against memory_allocated's growth over the
 # placement: the allocator rounds each block up to 512 bytes
 PLACED_BYTES_REL = 0.01
-# 16d: the Byzantine example's device backend against its host backend,
+# 16e: the Byzantine example's device backend against its host backend,
 # as tests/test_torch_examples.py holds them on the CPU (f32 rules that
 # reduce in another order over 2,000 rounds)
 EXAMPLE_DIST_TOL = dict(rtol=1e-3, atol=1e-6)
@@ -3708,26 +3720,31 @@ def placed_tc(remat: str) -> TrainConfig:
                        remat_policy=remat)
 
 
-def placed_batches(vocab: int):
-    """16a's batches: 15a's data, 2 of 4 agents masked per step."""
+def placed_batches(vocab: int, steps: int = PLACED_STEPS):
+    """16a's batches: 15a's data, 2 of 4 agents masked per step (16d's
+    is the one after 16a's)."""
     data = lm_batches(markov_tokens(200_000, vocab=vocab, seed=0),
                       TRAIN_BATCH, TRAIN_SEQ, seed=1)
     oracle = StragglerOracle(PLACED_AGENTS, PLACED_MASKED, seed=2)
     out = []
-    for _ in range(PLACED_STEPS):
+    for _ in range(steps):
         x, y = next(data)
         mask, _, _ = oracle.next_mask()
         out.append((x, y, mask_to_weights(mask, TRAIN_BATCH, TRAIN_SEQ)))
     return out
 
 
-def mirror_step(cfg, tc):
+def mirror_step(cfg, tc, accum: int = 1):
     """16a's second reference: the placed step's arithmetic in one
     process. Each agent's block of the batch alone through the loss over
     the global weight sum, its gradient in the parameters' dtype (bf16),
     the blocks' gradients summed in f32 and rounded to that dtype, as the
     placed step's dp all-reduce sums its ranks'; then
-    ``make_train_step``'s clipping, AdamW and update."""
+    ``make_train_step``'s clipping, AdamW and update. With ``accum`` > 1
+    (16d) that for each microbatch (the batch's rows in ``accum`` slices,
+    each rank a block of a slice, over the slice's weight sum), the
+    microbatches' rounded gradients summed in f32, divided by ``accum``
+    and rounded."""
     opt = make_optimizer(tc)
 
     def loss_fn(params, batch, denom):
@@ -3736,8 +3753,7 @@ def mirror_step(cfg, tc):
         return lm_loss(logits, batch["targets"], batch["weights"], aux,
                        aux_coef=tc.aux_coef, denom=denom)
 
-    def step(state, batch):
-        params = state["params"]
+    def rank_sum(params, batch):
         per = batch["tokens"].shape[0] // PLACED_AGENTS
         denom = torch.clamp(batch["weights"].to(torch.float32).sum(),
                             min=1.0)
@@ -3749,7 +3765,24 @@ def mirror_step(cfg, tc):
             g = tree_map(lambda t: t.to(torch.float32), g)
             total = g if total is None else tree_map(torch.add, total, g)
             loss += float(l)
-        grads = tree_map(lambda t, p: t.to(p.dtype), total, params)
+        return loss, tree_map(lambda t, p: t.to(p.dtype), total, params)
+
+    def step(state, batch):
+        params = state["params"]
+        if accum == 1:
+            loss, grads = rank_sum(params, batch)
+        else:
+            rows = batch["tokens"].shape[0] // accum
+            loss, acc = 0.0, tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), params)
+            for i in range(accum):
+                l, g = rank_sum(params, {k: v[i * rows:(i + 1) * rows]
+                                         for k, v in batch.items()})
+                acc = tree_map(lambda a, t: a + t.to(torch.float32), acc, g)
+                loss += l / accum
+            grads = tree_map(lambda a, p: (a / accum).to(p.dtype), acc,
+                             params)
         grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
         s = int(state["step"])
         updates, new_opt = opt.update(grads, state["opt"], params, s)
@@ -3765,12 +3798,14 @@ def placed_reference(tmp, device="cuda"):
     batches: ``make_train_step`` in one process (15a's step) and the
     mirror of the placed step's arithmetic. The initial parameters and
     each reference's after every step are saved under ``tmp``. Returns
-    {name: (losses, grad norms, seconds per step)}."""
+    {name: (losses, grad norms, seconds per step)}, 16d's step last, at
+    ``accum_steps = PLACED_ACCUM``."""
     cfg = spmd_cfg()
     tc = placed_tc("none")
-    makers = {"one": lambda: make_train_step(cfg, tc,
-                                             moe_groups=PLACED_AGENTS),
-              "mirror": lambda: mirror_step(cfg, tc)}
+    tc_accum = dataclasses.replace(tc, accum_steps=PLACED_ACCUM)
+    makers = {"one": lambda t: make_train_step(cfg, t,
+                                               moe_groups=PLACED_AGENTS),
+              "mirror": lambda t: mirror_step(cfg, t, t.accum_steps)}
     out = {}
     for name, make in makers.items():
         state = init_state(torch.Generator(device=device).manual_seed(0),
@@ -3778,9 +3813,11 @@ def placed_reference(tmp, device="cuda"):
         if name == "one":
             torch.save(mmodel.tree_to(state["params"], "cpu"),
                        os.path.join(tmp, "p0.pt"))
-        step = make()
+        steps = (make(tc), make(tc_accum))
         losses, norms, secs = [], [], []
-        for i, (x, y, w) in enumerate(placed_batches(cfg.vocab_size)):
+        for i, (x, y, w) in enumerate(placed_batches(cfg.vocab_size,
+                                                     PLACED_STEPS + 1)):
+            step = steps[i == PLACED_STEPS]
             sync(device)
             t0 = time.perf_counter()
             state, m = step(state, lm_batch(x, y, w, device))
@@ -3790,7 +3827,7 @@ def placed_reference(tmp, device="cuda"):
             torch.save(mmodel.tree_to(state["params"], "cpu"),
                        os.path.join(tmp, f"{name}{i}.pt"))
         out[name] = (losses, norms, secs)
-        del state, step
+        del state, step, steps
         torch.cuda.empty_cache()
     return out
 
@@ -3843,23 +3880,31 @@ def placed_full_width(mesh, ref_dir):
     torch.cuda.empty_cache()
     report = state_bytes_per_rank(cfg, tc, mesh.shape,
                                   max_pos=TRAIN_SEQ + 1)
-    step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS, dp="data",
-                           tp="model", param_specs=specs["params"],
-                           sizes=mesh.shape, mesh=mesh)
-    losses, norms, secs, gaps = [], [], [], {}
+    steps = [make_train_step(cfg, t, moe_groups=PLACED_AGENTS, dp="data",
+                             tp="model", param_specs=specs["params"],
+                             sizes=mesh.shape, mesh=mesh)
+             for t in (tc, dataclasses.replace(
+                 tc, accum_steps=PLACED_ACCUM))]
+    losses, norms, secs, grew, gaps = [], [], [], [], {}
     p0 = torch.load(os.path.join(ref_dir, "p0.pt")) if mesh.rank == 0 \
         else None
-    for i, (x, y, w) in enumerate(placed_batches(cfg.vocab_size)):
+    for i, (x, y, w) in enumerate(placed_batches(cfg.vocab_size,
+                                                 PLACED_STEPS + 1)):
+        step = steps[i == PLACED_STEPS]           # 16d: the last
+        batch = lm_batch(x, y, w, dev)
         sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         # step 1's collectives as the real mesh reports them (phase 17b)
         with OpCounter() if i == 0 else contextlib.nullcontext() as cnt:
-            state, m = step(state, lm_batch(x, y, w, dev))
+            state, m = step(state, batch)
         if i == 0:
             collectives = cnt.table()["collectives"]
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         secs.append(time.perf_counter() - t0)
+        grew.append(torch.cuda.max_memory_allocated(dev) - before)
         params = gather_tree(state["params"], specs["params"], mesh)
         if mesh.rank == 0:
             for ref in ("one", "mirror"):
@@ -3867,17 +3912,19 @@ def placed_full_width(mesh, ref_dir):
                     os.path.join(ref_dir, f"{ref}{i}.pt")), p0, dev)
     same = agreed(mesh, params)
     out = dict(placed=placed, whole=whole, report=report, losses=losses,
-               norms=norms, secs=secs, peak=step.placement.peak_bytes,
-               same=same, gaps=gaps, collectives=collectives)
-    del state, params, step
+               norms=norms, secs=secs, grew=grew,
+               peak=[s.placement.peak_bytes for s in steps], same=same,
+               gaps=gaps, collectives=collectives)
+    del state, params, step, steps
     torch.cuda.empty_cache()
     return out
 
 
 def placed_twin(mesh):
     """16b on one rank: reduced qwen2-0.5b (2 layers, f32, SGD with
-    momentum, remat) from CPU-drawn weights, placed on ``mesh``, 3 steps;
-    (losses, the gathered parameter leaves, agreed by all ranks)."""
+    momentum, remat) from CPU-drawn weights, placed on ``mesh``, 3 steps
+    and 16d's 4th at ``accum_steps = PLACED_ACCUM``; (losses, the
+    gathered parameter leaves, agreed by all ranks)."""
     dev = mesh.device
     cfg = dataclasses.replace(get_config(SERVE_ARCH).reduced(),
                               n_layers=GENERAL_LAYERS)
@@ -3888,12 +3935,15 @@ def placed_twin(mesh):
     state = {k: mmodel.tree_to(v, dev) if k != "step" else v
              for k, v in state.items()}
     state, specs = place_state(state, mesh)
-    step = make_train_step(cfg, tc, moe_groups=PLACED_AGENTS, dp="data",
-                           tp="model", param_specs=specs["params"],
-                           sizes=mesh.shape, mesh=mesh)
+    steps = [make_train_step(cfg, t, moe_groups=PLACED_AGENTS, dp="data",
+                             tp="model", param_specs=specs["params"],
+                             sizes=mesh.shape, mesh=mesh)
+             for t in (tc, dataclasses.replace(
+                 tc, accum_steps=PLACED_ACCUM))]
     losses = []
-    for x, y, w in placed_batches(cfg.vocab_size):
-        state, m = step(state, lm_batch(x, y, w, dev))
+    for i, (x, y, w) in enumerate(placed_batches(cfg.vocab_size,
+                                                 PLACED_STEPS + 1)):
+        state, m = steps[i == PLACED_STEPS](state, lm_batch(x, y, w, dev))
         losses.append(float(m["loss"]))
     params = gather_tree(state["params"], specs["params"], mesh)
     if not agreed(mesh, params):
@@ -3917,8 +3967,8 @@ def placed_cpu_rank(rank, world):
 
 
 def drive_placed(device="cuda"):
-    """16a-16b from the parent. Returns each rank's collectives of its
-    first placed step, as its real mesh reported them (phase 17b)."""
+    """16a-16b and 16d from the parent. Returns each rank's collectives of
+    its first placed step, as its real mesh reported them (phase 17b)."""
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         refs = placed_reference(tmp, device)
         t0 = time.perf_counter()
@@ -3929,23 +3979,25 @@ def drive_placed(device="cuda"):
     r0 = res[0]
     log(f"  16a: {SERVE_ARCH} at full width, {SPMD_LAYERS} layers, on "
         f"{SPMD_RANKS} gloo ranks sharing the card (data = {SPMD_RANKS}), "
-        f"{card_s:.1f} s with start-up and 16b")
+        f"{card_s:.1f} s with start-up, 16b and 16d")
     for r, o in enumerate(res):
         log(f"    rank {r}: parameters and moments {o['placed']:,} B after "
             f"placement (memory_allocated), meta-device report "
             f"{o['report']['total']:,} B (params {o['report']['params']:,}, "
             f"moments {o['report']['opt']:,}), replicated state "
             f"{o['whole']:,} B: {o['placed'] / o['whole']:.4f} of it; peak "
-            f"gathered weights {o['peak']:,} B")
+            f"gathered weights {o['peak'][0]:,} B")
     log(f"    placed: losses {r0['losses']}, grad norms {r0['norms']}, s "
-        f"per step " + ", ".join(f"{s:.2f}" for s in r0["secs"]))
+        f"per step " + ", ".join(f"{s:.2f}" for s in r0["secs"])
+        + f" (the last 16d's, accum_steps = {PLACED_ACCUM})")
     for name, (losses, norms, secs) in refs.items():
         log(f"    {name:6s}: losses {losses}, grad norms {norms}, ms per "
             f"step " + ", ".join(f"{s * 1e3:.1f}" for s in secs))
     log(f"    gathered parameters identical on every rank: "
         f"{all(o['same'] for o in res)}")
     for (ref, i), (mx, eq, rel) in sorted(r0["gaps"].items()):
-        log(f"    after step {i + 1}, placed vs {ref:6s}: max |diff| "
+        log(f"    after step {i + 1}{' (16d)' if i == PLACED_STEPS else ''}"
+            f", placed vs {ref:6s}: max |diff| "
             f"{mx:.3e}, {eq:.4f} bit-identical, ||diff|| / ||update|| "
             f"{rel:.3e}" + (f" (bound {PLACED_UPDATE_REL})" if ref == "one"
                             else ""))
@@ -3960,12 +4012,15 @@ def drive_placed(device="cuda"):
     if not all(o["same"] for o in res):
         raise AssertionError("16a: gathered parameters differ across ranks")
     for (ref, i), (mx, eq, rel) in r0["gaps"].items():
+        phase = "16d" if i == PLACED_STEPS else "16a"
         if ref == "mirror" and not (mx == 0.0 and eq == 1.0):
-            raise AssertionError(f"16a step {i + 1}: the placed step is not "
-                                 f"the mirror's arithmetic (max |diff| {mx})")
+            raise AssertionError(f"{phase} step {i + 1}: the placed step is "
+                                 f"not the mirror's arithmetic (max |diff| "
+                                 f"{mx})")
         if ref == "one" and not rel <= PLACED_UPDATE_REL:
-            raise AssertionError(f"16a step {i + 1}: ||diff|| / ||update|| "
-                                 f"{rel} against the one-process step")
+            raise AssertionError(f"{phase} step {i + 1}: ||diff|| / "
+                                 f"||update|| {rel} against the "
+                                 f"one-process step")
     if not np.isfinite(r0["losses"]).all():
         raise AssertionError(f"16a: losses {r0['losses']}")
     np.testing.assert_allclose(r0["losses"], refs["mirror"][0],
@@ -3989,10 +4044,23 @@ def drive_placed(device="cuda"):
         for a, b in zip(o["twin"][1], card_p):
             np.testing.assert_array_equal(a, b)
     log(f"  16b: reduced {SERVE_ARCH} (f32, {GENERAL_LAYERS} layers, remat) "
-        f"placed on data 2 x model 2, {PLACED_STEPS} steps: losses "
+        f"placed on data 2 x model 2, {PLACED_STEPS} steps and 16d's at "
+        f"accum_steps = {PLACED_ACCUM}: losses "
         f"{[round(l, 5) for l in card_l]}; card vs {SPMD_RANKS} CPU ranks "
         f"({cpu_s:.1f} s) max |param diff| {err:.2e} (tolerance "
         f"{TWIN_TOL['atol']:.0e})")
+    k1 = slice(0, PLACED_STEPS)
+    log(f"  16d: 16a's ranks at accum_steps = {PLACED_ACCUM} (step "
+        f"{PLACED_STEPS + 1}) against accum_steps = 1 (steps 1-"
+        f"{PLACED_STEPS}): s per step {r0['secs'][-1]:.2f} against "
+        + ", ".join(f"{s:.2f}" for s in r0["secs"][k1]))
+    for r, o in enumerate(res):
+        log(f"    rank {r}: peak gathered weights {o['peak'][1]:,} B at "
+            f"accum_steps = {PLACED_ACCUM} (gathered once, held over the "
+            f"microbatches), {o['peak'][0]:,} B at 1; max_memory_allocated "
+            f"above the step's start {o['grew'][-1]:,} B at "
+            f"{PLACED_ACCUM}, " + ", ".join(f"{g:,}" for g in o["grew"][k1])
+            + " B at 1")
     return [o["collectives"] for o in res]
 
 
@@ -4119,7 +4187,7 @@ def caught_runs():
 
 
 def drive_examples():
-    """16d: the three example twins on the card at their defaults; the
+    """16e: the three example twins on the card at their defaults; the
     Byzantine one again on the device backend, its 9 runs held to the
     host backend's (the same events, ||x - x*|| within
     ``EXAMPLE_DIST_TOL`` at every iteration); the serving one again on
@@ -4138,12 +4206,12 @@ def drive_examples():
     worst = 0.0
     for h, d in zip(host, dev, strict=True):
         if d.n_rx != h.n_rx or d.comm_time != h.comm_time:
-            raise AssertionError("16d: the device backend's events differ "
+            raise AssertionError("16e: the device backend's events differ "
                                  "from the host backend's")
         np.testing.assert_allclose(d.dist, h.dist, **EXAMPLE_DIST_TOL)
         worst = max(worst, float(np.max(np.abs(np.subtract(d.dist,
                                                            h.dist)))))
-    log(f"  16d: the device backend's {len(dev)} runs against the host "
+    log(f"  16e: the device backend's {len(dev)} runs against the host "
         f"backend's: the same events, max | ||x - x*|| diff | {worst:.3e} "
         f"over every iteration (tolerance {EXAMPLE_DIST_TOL})")
     dattn.reset_launches()
@@ -4153,14 +4221,14 @@ def drive_examples():
     # every line but the first, which times the run: stats and streams
     same = card[1:] == cpu[1:]
     streams = [l for l in card if l.lstrip().startswith("req ")]
-    log(f"  16d: torch_serve_lm's engine stats and {len(streams)} streams "
+    log(f"  16e: torch_serve_lm's engine stats and {len(streams)} streams "
         f"on the card equal the CPU's: {same}")
-    log(f"  16d launches: {counts}")
+    log(f"  16e launches: {counts}")
     if not (same and streams):
-        raise AssertionError("16d: torch_serve_lm's streams differ between "
+        raise AssertionError("16e: torch_serve_lm's streams differ between "
                              "the card and the CPU")
     if not all(counts.values()):
-        raise AssertionError(f"16d: a kernel was not launched: {counts}")
+        raise AssertionError(f"16e: a kernel was not launched: {counts}")
     return counts
 
 
@@ -6015,11 +6083,12 @@ def main() -> int:
         f"{c15}")
 
     t16 = time.perf_counter()
-    log(f"== 16a-16b. the placed (FSDP) masked step on {SPMD_RANKS} ranks")
+    log(f"== 16a-16b, 16d. the placed (FSDP) masked step on {SPMD_RANKS} "
+        f"ranks")
     placed_collectives = drive_placed()
     log("== 16c. launch.serve: greedy_generate and the serving steps")
     c16 = {"paged_flash_decode": drive_launch_serve()}
-    log("== 16d. the example twins on the card")
+    log("== 16e. the example twins on the card")
     for k, c in drive_examples().items():
         c16[k] = c16.get(k, 0) + c
     for k, c in c16.items():

@@ -514,24 +514,32 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         plc, mesh = ctx.plc, ctx.plc.mesh
-        shapes = [block_shape(t, s, mesh)
-                  for t, s in zip(ctx.targets, ctx.full)]
-        blocks = [torch.zeros(s, dtype=torch.float32, device=ctx.device)
-                  if g is None else g.to(torch.float32)
-                  for g, s in zip(grads, shapes)]
-        sizes = [math.prod(s) for s in shapes]
-        flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in blocks]),
-                               plc.dp)
         out = []
-        for g, s, full, sp, t, dtype in zip(
-                torch.split(flat, sizes), shapes, ctx.full, ctx.specs,
-                ctx.targets, ctx.dtypes):
-            g = g.view(s).to(dtype)
+        for g, full, sp, t in zip(
+                _dp_reduce(plc, grads, ctx.targets, ctx.full, ctx.dtypes,
+                           ctx.device),
+                ctx.full, ctx.specs, ctx.targets):
             sq = torch.sum(torch.square(g.to(torch.float32)))
             (plc.sq_norms_split if _spec_axes(t, mesh)
              else plc.sq_norms).append(sq)
             out.append(g[_within(sp, t, full, mesh)].contiguous())
         return (None, None) + tuple(out)
+
+
+def _dp_reduce(plc, grads, targets, full, dtypes, device
+               ) -> List[torch.Tensor]:
+    """Compute-block gradients ``grads`` (None: zeros) of leaves of whole
+    shapes ``full`` under ``targets``, summed over ``plc``'s dp axes in
+    f32 in one all-reduce, each cast to its leaf's dtype."""
+    mesh = plc.mesh
+    shapes = [block_shape(t, s, mesh) for t, s in zip(targets, full)]
+    blocks = [torch.zeros(s, dtype=torch.float32, device=device)
+              if g is None else g.to(torch.float32)
+              for g, s in zip(grads, shapes)]
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in blocks]),
+                           plc.dp)
+    return [g.view(s).to(dtype) for g, s, dtype in zip(
+        torch.split(flat, [math.prod(s) for s in shapes]), shapes, dtypes)]
 
 
 class Placement:
@@ -544,7 +552,9 @@ class Placement:
     backward sees it (``sq_norms`` for leaves whole on every rank,
     ``sq_norms_split`` for this rank's tp block; :meth:`global_sq_norm`
     joins them), and the most bytes of gathered leaves alive at once
-    (``peak_bytes``)."""
+    (``peak_bytes``). A step that accumulates microbatches gathers once
+    outside autograd and takes each microbatch's gradient to the storage
+    blocks with :meth:`reduce`, its norm with :meth:`storage_sq_norm`."""
 
     def __init__(self, mesh, dp: Tuple[str, ...], tp: Tuple[str, ...] = ()):
         self.mesh, self.dp, self.tp = mesh, tuple(dp), tuple(tp)
@@ -589,3 +599,34 @@ class Placement:
         out = _Gather.apply(self, tuple(s for _, s in pairs),
                             *(l for l, _ in pairs))
         return _rebuild(tree, iter(out))
+
+    def reduce(self, grads: Tree, specs: Tree) -> Tree:
+        """This rank's storage blocks (``specs``) of the gradient whose
+        compute blocks ``grads`` are, as the gather's backward makes them:
+        summed over dp in f32 (one all-reduce), cast to each leaf's dtype,
+        sliced to the block. For gradients taken at leaves that
+        :meth:`gather` gave outside autograd."""
+        pairs = list(_zip_specs(grads, specs))
+        targets = [self.target(sp) for _, sp in pairs]
+        full = [full_shape(t, g.shape, self.mesh)
+                for (g, _), t in zip(pairs, targets)]
+        red = _dp_reduce(self, [g for g, _ in pairs], targets, full,
+                         [g.dtype for g, _ in pairs], pairs[0][0].device)
+        return _rebuild(grads, iter(
+            g[_within(sp, t, f, self.mesh)].contiguous()
+            for g, (_, sp), t, f in zip(red, pairs, targets, full)))
+
+    def storage_sq_norm(self, blocks: Tree, specs: Tree) -> torch.Tensor:
+        """The squared norm of the whole tree of which ``blocks`` are this
+        rank's storage blocks (``specs``): each block's squares added by
+        the first of the ranks that hold it, one all-reduce over the
+        mesh."""
+        mesh, c = self.mesh, self.mesh.coords()
+        pairs = list(_zip_specs(blocks, specs))
+        total = torch.zeros((), dtype=torch.float32,
+                            device=pairs[0][0].device)
+        for b, sp in pairs:
+            used = _spec_axes(sp, mesh)
+            if all(c[a] == 0 for a in mesh.axis_names if a not in used):
+                total = total + torch.sum(torch.square(b.to(torch.float32)))
+        return mesh.all_reduce(total, mesh.axis_names)

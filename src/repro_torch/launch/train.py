@@ -293,6 +293,22 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), tree_unflatten(spec, gs)
 
 
+def _microbatch(batch, i: int, k: int):
+    """Microbatch ``i`` of ``k``: every batched leaf's rows [i n/k, (i+1)
+    n/k) of its n, as the reference's scan slices them."""
+    return {key: (x[i * (x.shape[0] // k):(i + 1) * (x.shape[0] // k)]
+                  if x.dim() else x) for key, x in batch.items()}
+
+
+def _f32_zeros(tree):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), tree)
+
+
+def _device_of(tree) -> torch.device:
+    return tree_flatten(tree)[0][0].device
+
+
 # ---------------------------------------------------------------------------
 # masked fast path
 
@@ -329,17 +345,15 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig, moe_groups: int = 1,
             # microbatch accumulation: the batch splits along dim 0 into
             # accum_steps slices run in turn; gradients average
             k = tc.accum_steps
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device),
-                            state["params"])
-            lsum = torch.zeros((), dtype=torch.float32)
+            gsum = _f32_zeros(state["params"])
+            lsum = torch.zeros((), dtype=torch.float32,
+                               device=_device_of(state["params"]))
             for i in range(k):
-                mb = {key: (x[i * (x.shape[0] // k):(i + 1) * (x.shape[0] // k)]
-                            if x.dim() else x) for key, x in batch.items()}
-                l, g = value_and_grad(loss_fn, state["params"], mb)
+                l, g = value_and_grad(loss_fn, state["params"],
+                                      _microbatch(batch, i, k))
                 gsum = tree_map(lambda a, gg: a + gg.to(torch.float32),
                                 gsum, g)
-                lsum = lsum + l.to(lsum.device)
+                lsum = lsum + l
             grads = tree_map(lambda g, p: (g / k).to(p.dtype), gsum,
                              state["params"])
             loss = lsum / k
@@ -378,14 +392,22 @@ def _make_placed_step(cfg, tc, moe_groups, opt, dp, tp, param_specs, sizes,
       all-reduce), the same on every rank (on a one-rank mesh, where the
       blocks are whole, from the blocks as ``make_train_step`` takes
       it).
+    - With ``accum_steps`` k > 1 the step runs the reference's
+      microbatch scan as its compiled program does: the parameters are
+      gathered once, outside autograd, before the k microbatches; each
+      microbatch (the global rows [i B/k, (i+1) B/k), this rank its dp
+      block of them, which must split over dp) has its own weight sum,
+      loss all-reduce and MoE groups, and its gradient is reduced over dp
+      in one all-reduce (``Placement.reduce``) to the storage blocks, in
+      the parameters' dtype. The blocks' gradients sum in f32 (an
+      accumulator of f32 storage blocks: 4 bytes a parameter over the
+      ranks that split it), divide by k and cast; the global norm is
+      then the accumulated blocks' (``Placement.storage_sq_norm``: one
+      scalar all-reduce over the mesh).
     - The optimizer and ``apply_updates`` are elementwise, so they run on
       the blocks as they are."""
     if mesh is None:
         raise ValueError("param_specs places the step on a mesh: pass mesh=")
-    if tc.accum_steps > 1:
-        raise NotImplementedError(
-            "the placed step takes its global norm from one backward; "
-            "microbatch accumulation (accum_steps > 1) is not placed")
     dp_axes = _norm_axes(dp) if dp is not None else dp_axis_names(mesh)
     n_dp = mesh.axis_size(dp_axes)
     if cfg.moe is not None and moe_groups % n_dp:
@@ -423,43 +445,84 @@ def _make_placed_step(cfg, tc, moe_groups, opt, dp, tp, param_specs, sizes,
                                  f"the compute spec {cs}")
         checked.append(True)
 
-    def loss_fn(params, batch, denom):
+    def loss_fn(params, batch, denom, specs=param_specs):
         with act_policy(policy_dp, tp, sizes), tp_context(
                 mesh if tp_axes else None, tp_axes):
             logits, aux, _ = apply_model(
                 params, batch["tokens"], cfg, mode="train",
                 enc_embed=batch.get("enc_embed"), moe_groups=groups,
-                remat_policy=tc.remat_policy, param_specs=param_specs)
+                remat_policy=tc.remat_policy, param_specs=specs)
             return lm_loss(logits, batch["targets"], batch["weights"],
                            aux * aux_share, aux_coef=tc.aux_coef,
                            denom=denom, vocab_size=cfg.vocab_size)
 
-    def step(state, batch):
+    def dp_block(batch, what):
+        """This rank's dp block of ``batch`` (dim 0 over the dp axes)."""
         local = {}
         for key, x in batch.items():
             spec = batch_specs(rules, {key: x})[key]
             if x.dim() and {a for a in _norm_axes(spec[0])
                             if mesh.shape.get(a, 1) > 1} != split:
-                raise ValueError(f"batch[{key!r}] dim 0 ({x.shape[0]}) does "
-                                 f"not split over the dp axes {dp_axes}")
+                raise ValueError(f"{what}[{key!r}] dim 0 ({x.shape[0]}) "
+                                 f"does not split over the dp axes "
+                                 f"{dp_axes}")
             local[key] = x[block_slices(spec, x.shape, mesh)] if x.dim() \
                 else x
-        w_all = mesh.all_reduce(local["weights"].to(torch.float32).sum(),
-                                dp_axes)
-        denom = torch.clamp(w_all, min=1.0)
-        check_layout(state["params"])
-        plc.clear()
-        with placement(plc.gather):
+        return local
+
+    def denominator(local):
+        """max(the weight sum over dp, 1)."""
+        return torch.clamp(mesh.all_reduce(
+            local["weights"].to(torch.float32).sum(), dp_axes), min=1.0)
+
+    def accumulate(params, batch):
+        """(loss, this rank's storage blocks of the gradient) over the
+        ``accum_steps`` microbatches, in the reference's order."""
+        k = tc.accum_steps
+        locals_ = [dp_block(_microbatch(batch, i, k),
+                            f"microbatch {i} of accum_steps={k}: batch")
+                   for i in range(k)]
+        with torch.no_grad():
+            gathered = plc.gather(params, param_specs)
+        acc = _f32_zeros(params)
+        lsum = torch.zeros((), dtype=torch.float32,
+                           device=_device_of(params))
+        for local in locals_:
+            denom = denominator(local)
             loss, grads = value_and_grad(
-                lambda p, b: loss_fn(p, b, denom), state["params"], local)
-        loss = mesh.all_reduce(loss.to(w_all.device), dp_axes)
+                lambda p, b: loss_fn(p, b, denom, None), gathered, local)
+            lsum = lsum + mesh.all_reduce(loss.to(denom.device), dp_axes)
+            acc = tree_map(lambda a, g: a + g.to(torch.float32), acc,
+                           plc.reduce(grads, param_specs))
+            del grads
+        del gathered
+        return lsum / k, tree_map(lambda a, p: (a / k).to(p.dtype), acc,
+                                  params)
+
+    def step(state, batch):
+        if tc.accum_steps > 1:
+            check_layout(state["params"])
+            plc.clear()
+            loss, grads = accumulate(state["params"], batch)
+        else:
+            local = dp_block(batch, "batch")
+            denom = denominator(local)
+            check_layout(state["params"])
+            plc.clear()
+            with placement(plc.gather):
+                loss, grads = value_and_grad(
+                    lambda p, b: loss_fn(p, b, denom), state["params"],
+                    local)
+            loss = mesh.all_reduce(loss.to(denom.device), dp_axes)
         if whole:
             if tc.clip_norm:
                 grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
             else:
                 gnorm = torch.sqrt(C.tree_sq_norm(grads))
         else:
-            gnorm = torch.sqrt(plc.global_sq_norm())
+            gnorm = torch.sqrt(
+                plc.storage_sq_norm(grads, param_specs)
+                if tc.accum_steps > 1 else plc.global_sq_norm())
             if tc.clip_norm:
                 grads = clip_to_norm(grads, tc.clip_norm, gnorm)
         s = int(state["step"])

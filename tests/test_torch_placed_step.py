@@ -11,8 +11,16 @@ data 2 x model 2:
   SGD-momentum and AdamW, a mask dropping one of 4 agents: the gathered
   parameters are identical on every rank and within ``TOL`` of live
   JAX's unsharded ``make_train_step``;
+- with ``accum_steps = 2`` (AdamW for qwen2-0.5b, SGD-momentum for
+  arctic-480b), 3 steps, one of which masks both agents of the first
+  microbatch (its denominator ``max(sum w, 1)`` is 1): the gathered
+  parameters, losses and gradient norms within ``TOL`` of live JAX's
+  ``make_train_step(accum_steps=2)`` and identical on every rank, the
+  parameters gathered once a step (the reference's program gathers them
+  before its microbatch loop) so the peak of gathered bytes is at least
+  the one-microbatch step's;
 - on a one-rank mesh (dp = 1) the placed step is bit-identical to
-  ``make_train_step``.
+  ``make_train_step``, at ``accum_steps`` 1 and 2.
 
 TOL is 1e-5 (rtol and atol): the gradients are summed over ranks in
 another order than one process sums them; AdamW runs at lr 1e-4, where
@@ -32,6 +40,12 @@ N_AGENTS, B, S, STEPS = 4, 8, 16, 3
 TIMEOUT = 300
 ARCHS = ("qwen2-0.5b", "arctic-480b")
 OPTIMIZERS = ("sgdm", "adamw")
+ACCUM = 2
+ACCUM_OPT = {"qwen2-0.5b": "adamw", "arctic-480b": "sgdm"}
+# agents masked a step (one-microbatch runs; the accumulating runs, whose
+# second step masks agents 0 and 1, the whole first microbatch)
+MASKED = ((1,), (3,), (0,))
+ACCUM_MASKED = ((1,), (0, 1), (3,))
 MESHES = {"data4": (4, 1), "data2_model2": (2, 2)}
 
 
@@ -46,14 +60,14 @@ def _tc_kwargs(name, optimizer):
                 remat_policy="full" if name == "arctic-480b" else "none")
 
 
-def _batches():
+def _batches(masked=MASKED):
     from repro_torch.data.partition import mask_to_weights
     rng = np.random.default_rng(0)
     out = []
     for t in range(STEPS):
         x = rng.integers(0, 256, size=(B, S + 1)).astype(np.int32)
         mask = np.ones(N_AGENTS, bool)
-        mask[[1, 3, 0][t]] = False
+        mask[list(masked[t])] = False
         out.append({"tokens": x[:, :-1], "targets": x[:, 1:],
                     "weights": mask_to_weights(mask, B, S)})
     return out
@@ -86,7 +100,7 @@ def _bits(t):
                   [t.dtype]).numpy().copy()
 
 
-def _rank(rank, world, data, model, np_params, batches):
+def _rank(rank, world, data, model, np_params, batches, accum_batches):
     from repro_torch.core.ledger import tree_flatten
     from repro_torch.dist.sharding import gather_tree, shard_tree, tree_specs
     from repro_torch.launch import train as T
@@ -127,16 +141,36 @@ def _rank(rank, world, data, model, np_params, batches):
                 "whole_params": sum(l.numel() * l.element_size()
                                     for l in tree_flatten(whole)[0]),
                 "params": [l.numpy().copy() for l in tree_flatten(whole)[0]]}
+    for name, opt in ACCUM_OPT.items():
+        cfg = _cfg(name)
+        tc = T.TrainConfig(**_tc_kwargs(name, opt), accum_steps=ACCUM)
+        state = T.init_state(torch.Generator().manual_seed(0), cfg, tc,
+                             max_pos=64, device="cpu")
+        state["params"] = params_from_jax(np_params[name])
+        state, st_specs = T.place_state(state, mesh)
+        step = T.make_train_step(cfg, tc, moe_groups=N_AGENTS, dp="data",
+                                 tp="model", param_specs=st_specs["params"],
+                                 sizes=mesh.shape, mesh=mesh)
+        ms = []
+        for b in accum_batches:
+            state, m = step(state, {k: torch.from_numpy(v)
+                                    for k, v in b.items()})
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        whole = gather_tree(state["params"], st_specs["params"], mesh)
+        out[name, "accum"] = {
+            "metrics": ms, "peak": step.placement.peak_bytes,
+            "params": [l.numpy().copy() for l in tree_flatten(whole)[0]]}
     return out
 
 
-def _jax_reference(name, opt, jparams, batches):
+def _jax_reference(name, opt, jparams, batches, accum_steps=1):
     import jax
     import jax.numpy as jnp
     from repro.configs.registry import get_config as jax_config
     from repro.launch import train as jtrain
     jcfg = dataclasses.replace(jax_config(name).reduced(), n_layers=2)
-    jtc = jtrain.TrainConfig(**_tc_kwargs(name, opt))
+    jtc = jtrain.TrainConfig(**_tc_kwargs(name, opt),
+                             accum_steps=accum_steps)
     state = jtrain.init_state(jax.random.PRNGKey(0), jcfg, jtc, max_pos=64)
     state["params"] = jparams
     step = jax.jit(jtrain.make_train_step(jcfg, jtc, moe_groups=N_AGENTS))
@@ -169,7 +203,8 @@ def spawned(request, jax_params, tmp_path_factory):
                  for k, v in jax_params.items()}
     res = run_ranks(_rank, data * model, backend="gloo", device="cpu",
                     timeout=TIMEOUT, threads=1,
-                    args=(data, model, np_params, batches),
+                    args=(data, model, np_params, batches,
+                          _batches(ACCUM_MASKED)),
                     store_dir=str(tmp_path_factory.mktemp("store")))
     return request.param, batches, res
 
@@ -228,15 +263,66 @@ def test_placed_params_identical_across_ranks(spawned, name, opt):
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.fixture(scope="module")
+def jax_accum(jax_params):
+    """Live JAX's accumulating steps, shared by both meshes."""
+    batches = _batches(ACCUM_MASKED)
+    return {name: _jax_reference(name, opt, jax_params[name], batches,
+                                 accum_steps=ACCUM)
+            for name, opt in ACCUM_OPT.items()}
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_accumulating_placed_step_matches_live_reference(spawned, jax_accum,
+                                                         name):
+    *_, res = spawned
+    want_m, want_p = jax_accum[name]
+    # the masked microbatch really is empty: its loss adds nothing
+    w = _batches(ACCUM_MASKED)[1]["weights"]
+    assert not w[:B // ACCUM].any() and w[B // ACCUM:].all()
+    for o in res:
+        got = o[name, "accum"]
+        np.testing.assert_allclose(np.array(got["metrics"]),
+                                   np.array(want_m), **TOL)
+        assert len(got["params"]) == len(want_p)
+        for a, b in zip(got["params"], want_p):
+            np.testing.assert_allclose(a, b, **TOL)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_accumulating_params_identical_across_ranks(spawned, name):
+    *_, res = spawned
+    for o in res[1:]:
+        assert o[name, "accum"]["metrics"] == res[0][name, "accum"]["metrics"]
+        for a, b in zip(o[name, "accum"]["params"],
+                        res[0][name, "accum"]["params"]):
+            np.testing.assert_array_equal(a, b)
+    # gathered once a step and held across its microbatches: at least the
+    # one-microbatch step's peak, at most the whole parameters
+    for o in res:
+        one = o[name, ACCUM_OPT[name]]
+        assert one["peak"] <= o[name, "accum"]["peak"] <= one["whole_params"]
+
+
 @pytest.mark.parametrize("remat", ["none", "full"])
 @pytest.mark.parametrize("name", ARCHS)
 def test_one_rank_placed_step_is_make_train_step(name, remat):
+    _one_rank_against_make_train_step(name, remat, 1)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("name", ARCHS)
+def test_one_rank_accumulating_placed_step_is_make_train_step(name, remat):
+    _one_rank_against_make_train_step(name, remat, ACCUM)
+
+
+def _one_rank_against_make_train_step(name, remat, accum):
     from repro_torch.core.ledger import tree_flatten
     from repro_torch.launch import train as T
     from repro_torch.launch.mesh import Mesh
     cfg = _cfg(name)
     tc = T.TrainConfig(**{**_tc_kwargs(name, "adamw"),
-                          "remat_policy": remat})
+                          "remat_policy": remat, "accum_steps": accum})
     mesh = Mesh((1, 1), ("data", "model"), device="cpu")
     plain = T.init_state(torch.Generator().manual_seed(0), cfg, tc,
                          max_pos=64, device="cpu")
@@ -245,7 +331,7 @@ def test_one_rank_placed_step_is_make_train_step(name, remat):
     pstep = T.make_train_step(cfg, tc, moe_groups=N_AGENTS, dp="data",
                               tp="model", param_specs=specs["params"],
                               sizes=mesh.shape, mesh=mesh)
-    for b in _batches():
+    for b in _batches(MASKED if accum == 1 else ACCUM_MASKED):
         b = {k: torch.from_numpy(v) for k, v in b.items()}
         plain, m = step(plain, b)
         placed, pm = pstep(placed, b)
@@ -265,9 +351,13 @@ def test_placed_step_refuses_what_it_cannot_place():
     mesh = Mesh((4, 1), ("data", "model"), device="cpu", groups=False)
     with pytest.raises(ValueError, match="mesh="):
         T.make_train_step(cfg, T.TrainConfig(), param_specs={})
-    with pytest.raises(NotImplementedError, match="accum"):
-        T.make_train_step(cfg, T.TrainConfig(accum_steps=2), param_specs={},
-                          mesh=mesh)
+    # microbatch accumulation is placed, but each microbatch must split
+    # over the dp ranks: 8 rows in 4 microbatches of 2 do not over 4
+    step = T.make_train_step(cfg, T.TrainConfig(accum_steps=4),
+                             moe_groups=4, param_specs={}, mesh=mesh)
+    batch = {k: torch.from_numpy(v) for k, v in _batches()[0].items()}
+    with pytest.raises(ValueError, match="microbatch 0 of accum_steps=4"):
+        step({"params": {}}, batch)
     with pytest.raises(ValueError, match="moe_groups"):
         T.make_train_step(cfg, T.TrainConfig(), moe_groups=2, param_specs={},
                           mesh=mesh)
