@@ -451,6 +451,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import spans  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import gradagg  # noqa: E402
 from repro_torch.core.async_engine import (AsyncEngine,  # noqa: E402
@@ -1422,23 +1423,39 @@ F32_LOGIT_TOL = 1e-4          # f32 tensor-parallel logits vs one rank's
 
 
 class TimedEngine(ServeEngine):
-    """ServeEngine with host-clock totals of its prefills and of whole
-    steps. Both end in a host sync, so the clock covers the device work;
-    decode time is step time minus prefill time."""
+    """ServeEngine whose host-clock totals come from its own spans
+    (``repro_torch.spans``), recorded while it is driven inside
+    ``with eng.timed():``: ``step_s`` the ``serve.step`` spans,
+    ``prefill_s`` the ``serve.prefill`` ones. Both end in a host sync, so
+    the clock covers the device work; decode time is step time minus
+    prefill time."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        self.prefill_s = self.step_s = 0.0
+        self.spans = []
 
-    def _admit_grouped(self, admitted):
-        t0 = time.perf_counter()
-        super()._admit_grouped(admitted)
-        self.prefill_s += time.perf_counter() - t0
+    @contextlib.contextmanager
+    def timed(self):
+        spans.clear()
+        spans.start()
+        try:
+            yield self
+        finally:
+            spans.stop()
+            self.spans += spans.recorded()
+            spans.clear()
 
-    def step(self):
-        t0 = time.perf_counter()
-        super().step()
-        self.step_s += time.perf_counter() - t0
+    def host_s(self, *names) -> float:
+        return sum(s.t1_ns - s.t0_ns for s in self.spans
+                   if s.name in names) * 1e-9
+
+    @property
+    def step_s(self) -> float:
+        return self.host_s("serve.step")
+
+    @property
+    def prefill_s(self) -> float:
+        return self.host_s("serve.prefill")
 
 
 def serve_requests(cfg, n: int = 24, seed: int = 0):
@@ -1475,8 +1492,9 @@ def teacher_forced_logits(params, cfg, prompts, streams, impl,
 
 def run_engine(params, cfg, reqs, k, ccfg=SERVE_CCFG):
     eng = TimedEngine(params, cfg, ccfg, superstep_k=k)
-    rids = [eng.submit(p, n) for p, n in reqs]
-    out = eng.run()
+    with eng.timed():
+        rids = [eng.submit(p, n) for p, n in reqs]
+        out = eng.run()
     torch.cuda.synchronize()
     return eng, rids, out
 
@@ -2369,33 +2387,45 @@ def prefix_requests(vocab: int, seed: int = 0):
 
 class PrefixTimedEngine(TimedEngine):
     """TimedEngine that with the prefix cache on also bills each
-    admission (a cold prefill, or a shared hit and its suffix feed; each
-    ends in a host sync) to ``prefill_s``, and its suffix feeds to
-    ``suffix_s`` as well; per request it keeps the admission's time to
-    the first token and its cached tokens, and it counts the pages that
-    resumes re-shared from the index."""
+    admission (a cold prefill, or a shared hit's suffix feed; each ends
+    in a host sync) to ``prefill_s``, and its suffix feeds to
+    ``suffix_s`` as well; per request it gives the admission's time to
+    the first token and its cached tokens (``admit_ms``), and it counts
+    the pages that resumes re-shared from the index."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        self.suffix_s = 0.0
         self.reshared = 0
-        self.admit_ms = {}                   # rid -> (ms, cached tokens)
 
-    def _feed_suffix(self, slot, suffix):
-        t0 = time.perf_counter()
-        out = super()._feed_suffix(slot, suffix)
-        self.suffix_s += time.perf_counter() - t0
+    @property
+    def prefill_s(self) -> float:
+        return self.host_s("serve.prefill", "serve.suffix")
+
+    @property
+    def suffix_s(self) -> float:
+        return self.host_s("serve.suffix")
+
+    @property
+    def admit_ms(self):
+        """rid -> (ms, cached tokens) of each prefix-cache admission: from
+        its start, where its ``serve.queued`` span ends, to its first
+        token (``ttft`` less the wait, both on the span clock): the whole
+        ``_admit_prefix`` call, a cold prefill or a hit's plan, sharing
+        and suffix feed; the cached tokens are the prompt less the
+        suffix its ``serve.suffix`` span fed."""
+        if self.kv.prefix is None:
+            return {}
+        fed = {s.rid: s.counts["tokens"] for s in self.spans
+               if s.name == "serve.suffix"}
+        out = {}
+        for s in self.spans:
+            if s.name != "serve.queued":
+                continue
+            st = self.sched.finished[s.rid]
+            ms = st.ttft * 1e3 - (s.t1_ns - s.t0_ns) * 1e-6
+            out[s.rid] = (ms, st.req.prompt_len - fed[s.rid]
+                          if s.rid in fed else 0)
         return out
-
-    def _admit_prefix(self, st):
-        hits = self.stats["cache_hit_tokens"]
-        t0 = time.perf_counter()
-        super()._admit_prefix(st)
-        dt = time.perf_counter() - t0
-        self.prefill_s += dt
-        if st.generated:
-            self.admit_ms[st.req.rid] = (
-                dt * 1e3, self.stats["cache_hit_tokens"] - hits)
 
     def _resume(self, st):
         swap_in = self.kv.swap_in
@@ -2507,18 +2537,19 @@ def serve_prefix(params, cfg, reqs, ccfg, prefix, policy="fifo",
                             device=params["embed"]["tok"].device)
     dattn.reset_launches()
     rids = {}
-    if split is None:
-        for i, (p, n, _) in enumerate(reqs):
-            rids[i] = eng.submit(p, n)
-    else:
-        for i in split:
-            rids[i] = eng.submit(reqs[i][0], reqs[i][1], priority=0)
-        eng.step()
-        eng.step()
-        for i in range(len(reqs)):
-            if i not in rids:
-                rids[i] = eng.submit(reqs[i][0], reqs[i][1], priority=1)
-    out = checked_drain(eng, after_step=probe)
+    with eng.timed():
+        if split is None:
+            for i, (p, n, _) in enumerate(reqs):
+                rids[i] = eng.submit(p, n)
+        else:
+            for i in split:
+                rids[i] = eng.submit(reqs[i][0], reqs[i][1], priority=0)
+            eng.step()
+            eng.step()
+            for i in range(len(reqs)):
+                if i not in rids:
+                    rids[i] = eng.submit(reqs[i][0], reqs[i][1], priority=1)
+        out = checked_drain(eng, after_step=probe)
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     launches = dattn.LAUNCHES["paged_flash_decode"]
@@ -3568,8 +3599,10 @@ def tp_engine_run(params, cfg, reqs, mesh=None, ccfg=SERVE_CCFG, k=8,
                   device="cuda", probe=None):
     eng = TimedEngine(params, cfg, ccfg, superstep_k=k, mesh=mesh,
                       device=device)
-    rids = [eng.submit(p, n) for p, n in reqs]
-    out = eng.run() if probe is None else checked_drain(eng, after_step=probe)
+    with eng.timed():
+        rids = [eng.submit(p, n) for p, n in reqs]
+        out = (eng.run() if probe is None
+               else checked_drain(eng, after_step=probe))
     sync(eng.device)
     ms = (eng.step_s - eng.prefill_s) / max(eng.stats["decode_steps"], 1) * 1e3
     return [out[r] for r in rids], dict(eng.stats), ms, eng.infer_cfg

@@ -15,6 +15,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.async_engine import LatencyModel, default_latency
@@ -99,30 +100,37 @@ class TrainLoop:
 
     def run(self, steps: int, log_every: int = 0) -> LoopHistory:
         for i in range(steps):
-            tokens, targets = next(self.data_iter)
-            mask, rt, full_rt = self.oracle.next_mask()
-            weights = mask_to_weights(mask, tokens.shape[0],
-                                      tokens.shape[1])
-            batch = {k: torch.from_numpy(np.asarray(v)).to(self.device)
-                     for k, v in (("tokens", tokens), ("targets", targets),
-                                  ("weights", weights))}
-            self.state, metrics = self.step_fn(self.state, batch)
-            self.hist.loss.append(float(metrics["loss"]))
-            self.hist.grad_norm.append(float(metrics["grad_norm"]))
-            self.hist.round_time.append(rt)
-            self.hist.sync_round_time.append(full_rt)
-            step = int(self.state["step"])
-            if self.ckpt and self.ckpt_every and step % self.ckpt_every == 0:
-                self.ckpt.save(self.state, step)     # async, atomic
-            if log_every and (i + 1) % log_every == 0:
-                print(f"[loop] step {step:5d} loss "
-                      f"{float(metrics['loss']):.4f} "
-                      f"gnorm {float(metrics['grad_norm']):.3f} "
-                      f"round {rt:.2f}s (sync {full_rt:.2f}s)", flush=True)
+            with spans.span("train.step"):
+                self._step(i, log_every)
         if self.ckpt:
             step = int(self.state["step"])
             if steps and self.ckpt_every and step % self.ckpt_every == 0:
                 self.ckpt.wait()        # this very state is being saved
             else:
-                self.ckpt.save(self.state, step, blocking=True)
+                with spans.span("train.ckpt"):
+                    self.ckpt.save(self.state, step, blocking=True)
         return self.hist
+
+    def _step(self, i: int, log_every: int) -> None:
+        with spans.span("train.feed"):
+            tokens, targets = next(self.data_iter)
+            mask, rt, full_rt = self.oracle.next_mask()
+            weights = mask_to_weights(mask, tokens.shape[0], tokens.shape[1])
+            batch = {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                     for k, v in (("tokens", tokens), ("targets", targets),
+                                  ("weights", weights))}
+        self.state, metrics = self.step_fn(self.state, batch)
+        with spans.span("train.sync"):
+            loss = float(metrics["loss"])
+            gnorm = float(metrics["grad_norm"])
+            step = int(self.state["step"])
+        self.hist.loss.append(loss)
+        self.hist.grad_norm.append(gnorm)
+        self.hist.round_time.append(rt)
+        self.hist.sync_round_time.append(full_rt)
+        if self.ckpt and self.ckpt_every and step % self.ckpt_every == 0:
+            with spans.span("train.ckpt"):
+                self.ckpt.save(self.state, step)     # async, atomic
+        if log_every and (i + 1) % log_every == 0:
+            print(f"[loop] step {step:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
+                  f"round {rt:.2f}s (sync {full_rt:.2f}s)", flush=True)

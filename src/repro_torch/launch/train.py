@@ -57,6 +57,7 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.ledger import (layout_of, ledger_dim, ledger_zeros,
                                      tree_flatten, tree_map, tree_unflatten)
@@ -341,31 +342,34 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig, moe_groups: int = 1,
     loss_fn = make_loss_fn(cfg, tc, moe_groups, dp=dp, tp=tp, sizes=sizes)
 
     def step(state, batch):
-        if tc.accum_steps > 1:
-            # microbatch accumulation: the batch splits along dim 0 into
-            # accum_steps slices run in turn; gradients average
-            k = tc.accum_steps
-            gsum = _f32_zeros(state["params"])
-            lsum = torch.zeros((), dtype=torch.float32,
-                               device=_device_of(state["params"]))
-            for i in range(k):
-                l, g = value_and_grad(loss_fn, state["params"],
-                                      _microbatch(batch, i, k))
-                gsum = tree_map(lambda a, gg: a + gg.to(torch.float32),
-                                gsum, g)
-                lsum = lsum + l
-            grads = tree_map(lambda g, p: (g / k).to(p.dtype), gsum,
-                             state["params"])
-            loss = lsum / k
-        else:
-            loss, grads = value_and_grad(loss_fn, state["params"], batch)
-        if tc.clip_norm:
-            grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
-        else:
-            gnorm = torch.sqrt(C.tree_sq_norm(grads))
-        s = int(state["step"])
-        updates, new_opt = opt.update(grads, state["opt"], state["params"], s)
-        params = apply_updates(state["params"], updates, lr_at(tc, s))
+        with spans.span("train.grad"):
+            if tc.accum_steps > 1:
+                # microbatch accumulation: the batch splits along dim 0
+                # into accum_steps slices run in turn; gradients average
+                k = tc.accum_steps
+                gsum = _f32_zeros(state["params"])
+                lsum = torch.zeros((), dtype=torch.float32,
+                                   device=_device_of(state["params"]))
+                for i in range(k):
+                    l, g = value_and_grad(loss_fn, state["params"],
+                                          _microbatch(batch, i, k))
+                    gsum = tree_map(lambda a, gg: a + gg.to(torch.float32),
+                                    gsum, g)
+                    lsum = lsum + l
+                grads = tree_map(lambda g, p: (g / k).to(p.dtype), gsum,
+                                 state["params"])
+                loss = lsum / k
+            else:
+                loss, grads = value_and_grad(loss_fn, state["params"], batch)
+        with spans.span("train.update", device=batch["tokens"].is_cuda):
+            if tc.clip_norm:
+                grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
+            else:
+                gnorm = torch.sqrt(C.tree_sq_norm(grads))
+            s = int(state["step"])
+            updates, new_opt = opt.update(grads, state["opt"],
+                                          state["params"], s)
+            params = apply_updates(state["params"], updates, lr_at(tc, s))
         new_state = {"params": params, "opt": new_opt,
                      "step": state["step"] + 1}
         for key in ("ledger", "err"):

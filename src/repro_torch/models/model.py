@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve as resolve_device
 from repro_torch.dist.act_sharding import (constrain, constrain_tree,
@@ -400,10 +401,15 @@ def apply_model(params, tokens, cfg: ArchConfig, *, enc_embed=None,
               else [_unstack(c, cfg.n_periods) for c in cache])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = [[] for _ in pattern]
+    # a span a period, named after the caller's phase: a trace's reader
+    # names a gap of the device by the host range in flight, looking a
+    # few hundred host events back at most, and a forward launches
+    # thousands
     for pi in range(cfg.n_periods):
-        x, aux, ncs = run(
-            x, aux, [bp[pi] for bp in blocks],
-            None if caches is None else [c[pi] for c in caches])
+        with spans.span_under("period"):
+            x, aux, ncs = run(
+                x, aux, [bp[pi] for bp in blocks],
+                None if caches is None else [c[pi] for c in caches])
         for pos, nc in enumerate(ncs):
             new_caches[pos].append(nc)
     new_cache = None

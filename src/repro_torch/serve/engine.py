@@ -45,12 +45,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve as resolve_device
 from repro_torch.dist.sharding import MeshRules, kv_head_block, serve_tp
@@ -241,26 +241,34 @@ class ServeEngine:
         return pages_needed(st.req.total_len, self.ccfg.page_size)
 
     def _admit(self) -> None:
-        admitted = self.sched.admissions(self.kv.available_pages,
-                                         need_pages=self._need_pages)
-        if not admitted:
-            if not self.sched.active and self.sched.waiting:
-                raise RuntimeError(
-                    "head request can never be admitted (page pool too "
-                    "small even when idle)")
-            return
-        fresh = [st for st in admitted if st.swap is None]
-        for st in admitted:
-            if st.swap is not None:
-                self._resume(st)
-        self.stats["admitted"] += len(fresh)
-        if fresh:
-            if self.kv.prefix is None:
-                self._admit_grouped(fresh)
-            else:
-                for st in fresh:
-                    self._admit_prefix(st)
-        self.stats["table_uploads"] = self.kv.table_uploads
+        with spans.span("serve.admit"):
+            admitted = self.sched.admissions(self.kv.available_pages,
+                                             need_pages=self._need_pages)
+            if not admitted:
+                if not self.sched.active and self.sched.waiting:
+                    raise RuntimeError(
+                        "head request can never be admitted (page pool too "
+                        "small even when idle)")
+                return
+            fresh = [st for st in admitted if st.swap is None]
+            for st in admitted:
+                if st.swap is not None:
+                    self._resume(st)
+            self.stats["admitted"] += len(fresh)
+            if fresh:
+                if self.kv.prefix is None:
+                    self._admit_grouped(fresh)
+                else:
+                    for st in fresh:
+                        self._admit_prefix(st)
+            self.stats["table_uploads"] = self.kv.table_uploads
+
+    @staticmethod
+    def _queued(st: RequestState, t_ns: int) -> None:
+        """The request's wait (span ``serve.queued``): from its submit to
+        the start of its own admission, its group's prefill or its prefix
+        admission, so that with that admission it makes up its TTFT."""
+        spans.emit("serve.queued", st.t_submit_ns, t_ns, rid=st.req.rid)
 
     def _admit_grouped(self, admitted: List[RequestState]) -> None:
         """Batched prefill per prompt-length group, page-padded for
@@ -274,21 +282,27 @@ class ServeEngine:
             bucket = -(-s0 // ps) * ps if self._pad_buckets else s0
             groups.setdefault(bucket, []).append(st)
         for bucket, group in sorted(groups.items()):
+            t_adm = spans.now_ns()
+            for st in group:
+                self._queued(st, t_adm)
             prompts = np.zeros((len(group), bucket), np.int32)
             for i, st in enumerate(group):
                 prompts[i, :st.req.prompt_len] = st.req.prompt
             last = np.asarray([st.req.prompt_len - 1 for st in group])
-            first, cache = self._prefill(
-                torch.tensor(prompts, device=self.device),
-                torch.tensor(last, device=self.device))
-            self.stats["prefill_calls"] += 1
-            first = first.cpu().numpy()
-            self.stats["host_syncs"] += 1
-            for i, st in enumerate(group):
-                one = tuple(_batch_row(blk, i) for blk in cache)
-                self.kv.admit(st.slot, one, st.req.prompt_len,
-                              st.req.total_len)
-                self._first_token(st, int(first[i]))
+            with spans.span("serve.prefill",
+                            tokens=int(last.sum()) + len(group)):
+                first, cache = self._prefill(
+                    torch.tensor(prompts, device=self.device),
+                    torch.tensor(last, device=self.device))
+                self.stats["prefill_calls"] += 1
+                with spans.span("serve.sync"):
+                    first = first.cpu().numpy()
+                self.stats["host_syncs"] += 1
+                for i, st in enumerate(group):
+                    one = tuple(_batch_row(blk, i) for blk in cache)
+                    self.kv.admit(st.slot, one, st.req.prompt_len,
+                                  st.req.total_len)
+                    self._first_token(st, int(first[i]))
 
     def _admit_prefix(self, st: RequestState) -> None:
         """Prefix-cache admission: share the resident prompt prefix, feed
@@ -296,23 +310,27 @@ class ServeEngine:
         the next arrival. A cold miss prefills alone. A plan gone stale
         since the gate (pages reclaimed meanwhile) requeues."""
         req = st.req
+        t_adm = spans.now_ns()
         plan = self.kv.prefix.plan(req.prompt, req.total_len)
         if plan.cached_len == 0:
             ps = self.ccfg.page_size
             if pages_needed(req.total_len, ps) > self.kv.available_pages:
                 self.sched.requeue(st)
                 return
+            self._queued(st, t_adm)
             s0 = req.prompt_len
             bucket = -(-s0 // ps) * ps if self._pad_buckets else s0
             prompt = np.zeros((1, bucket), np.int32)
             prompt[0, :s0] = req.prompt
-            first, cache = self._prefill(
-                torch.tensor(prompt, device=self.device),
-                torch.tensor([s0 - 1], device=self.device))
-            self.stats["prefill_calls"] += 1
-            first = int(first.cpu()[0])
-            self.stats["host_syncs"] += 1
-            self.kv.admit(st.slot, cache, s0, req.total_len)
+            with spans.span("serve.prefill", rid=req.rid, tokens=s0):
+                first, cache = self._prefill(
+                    torch.tensor(prompt, device=self.device),
+                    torch.tensor([s0 - 1], device=self.device))
+                self.stats["prefill_calls"] += 1
+                with spans.span("serve.sync"):
+                    first = int(first.cpu()[0])
+                self.stats["host_syncs"] += 1
+                self.kv.admit(st.slot, cache, s0, req.total_len)
             self.kv.register_prompt(st.slot, req.prompt)
             self.stats["cache_miss_tokens"] += s0
             self._first_token(st, first)
@@ -322,6 +340,7 @@ class ServeEngine:
         except MemoryError:
             self.sched.requeue(st)
             return
+        self._queued(st, t_adm)
         self.stats["cache_hit_tokens"] += plan.cached_len
         self.stats["cache_miss_tokens"] += req.prompt_len - plan.cached_len
         first = self._feed_suffix(st.slot, req.prompt[plan.cached_len:])
@@ -334,29 +353,32 @@ class ServeEngine:
         to this slot (the others point at the null page with length 0, so
         co-resident requests are untouched). The last token's logits give
         the first generated token, where cold prefill reads them."""
-        b = self.ccfg.num_slots
-        tbl = np.zeros_like(self.kv.page_table)
-        tbl[slot] = self.kv.page_table[slot]
-        tbl_dev = torch.tensor(tbl, device=self.device)
-        nxt = None
-        for t in np.asarray(suffix, np.int32):
-            toks = np.zeros((b, 1), np.int32)
-            toks[slot, 0] = int(t)
-            lens = np.zeros((b,), np.int32)
-            lens[slot] = self.kv.kv_lens[slot]
-            nxt = self._decode(torch.tensor(toks, device=self.device),
-                               torch.tensor(lens, device=self.device),
-                               tbl_dev)
-            self.kv.note_host_len(slot, int(self.kv.kv_lens[slot]) + 1)
-            self.stats["suffix_steps"] += 1
-        self.stats["host_syncs"] += 1
-        return int(nxt.cpu()[slot])
+        with spans.span("serve.suffix", rid=self.sched.active[slot].req.rid,
+                        tokens=len(suffix)):
+            b = self.ccfg.num_slots
+            tbl = np.zeros_like(self.kv.page_table)
+            tbl[slot] = self.kv.page_table[slot]
+            tbl_dev = torch.tensor(tbl, device=self.device)
+            nxt = None
+            for t in np.asarray(suffix, np.int32):
+                toks = np.zeros((b, 1), np.int32)
+                toks[slot, 0] = int(t)
+                lens = np.zeros((b,), np.int32)
+                lens[slot] = self.kv.kv_lens[slot]
+                nxt = self._decode(torch.tensor(toks, device=self.device),
+                                   torch.tensor(lens, device=self.device),
+                                   tbl_dev)
+                self.kv.note_host_len(slot, int(self.kv.kv_lens[slot]) + 1)
+                self.stats["suffix_steps"] += 1
+            self.stats["host_syncs"] += 1
+            with spans.span("serve.sync"):
+                return int(nxt.cpu()[slot])
 
     def _first_token(self, st: RequestState, tok: int) -> None:
         st.pending = tok
         st.generated.append(tok)
         if st.ttft is None:
-            st.ttft = time.monotonic() - st.t_submit
+            st.ttft = (spans.now_ns() - st.t_submit_ns) * 1e-9
         if st.done:             # max_new_tokens == 1: no decode needed
             self._retire(st.slot)
 
@@ -465,64 +487,77 @@ class ServeEngine:
     def step(self) -> None:
         """One serving step: admit -> preempt (sla) -> decode superstep ->
         commit/retire."""
-        self.sched.clock += 1.0
-        self._admit()
-        self._preempt()
-        self.stats["cow_forks"] = self.kv.cow_forks
-        self.stats["swapped_pages"] = self.kv.swapped_pages
-        if self.kv.prefix is not None:
-            self.stats["prefix_evictions"] = self.kv.prefix.evictions
-        if not self.sched.active:
-            return
-        if self.superstep_k == 1:
-            self._step_single()
-            return
+        with spans.span("serve.step"):
+            self.sched.clock += 1.0
+            self._admit()
+            self._preempt()
+            self.stats["cow_forks"] = self.kv.cow_forks
+            self.stats["swapped_pages"] = self.kv.swapped_pages
+            if self.kv.prefix is not None:
+                self.stats["prefix_evictions"] = self.kv.prefix.evictions
+            if not self.sched.active:
+                return
+            if self.superstep_k == 1:
+                self._step_single()
+            else:
+                self._step_super()
+
+    def _step_super(self) -> None:
+        """One superstep of k decodes, k the least budget left (capped)."""
         k = self.sched.superstep_k(self.superstep_k)
         if k == 0:      # pragma: no cover - active slots always have budget
             return
-        toks = np.zeros((self.ccfg.num_slots,), np.int32)
-        remaining = np.zeros((self.ccfg.num_slots,), np.int32)
-        for slot, st in self.sched.active.items():
-            toks[slot] = st.pending
-            remaining[slot] = st.req.max_new_tokens - len(st.generated)
-        out, new_lens = self._superstep(
-            torch.tensor(toks, device=self.device), self.kv.kv_lens_dev,
-            self.kv.page_table_dev,
-            torch.tensor(remaining, device=self.device), k)
-        self.stats["decode_steps"] += k
-        self.stats["supersteps"] += 1
-        active = list(self.sched.active)
-        self.kv.commit_tokens(active, k, new_lens)
-        out = out.cpu().numpy()          # (K, B): the one boundary sync
-        self.stats["host_syncs"] += 1
-        self.stats["table_uploads"] = self.kv.table_uploads
-        for slot in active:
-            st = self.sched.active[slot]
-            st.generated.extend(int(t) for t in out[:, slot])
-            st.pending = int(out[-1, slot])
-            if st.done:
-                self._retire(slot)
+        with spans.span("serve.superstep", k=k):
+            toks = np.zeros((self.ccfg.num_slots,), np.int32)
+            remaining = np.zeros((self.ccfg.num_slots,), np.int32)
+            for slot, st in self.sched.active.items():
+                toks[slot] = st.pending
+                remaining[slot] = st.req.max_new_tokens - len(st.generated)
+            out, new_lens = self._superstep(
+                torch.tensor(toks, device=self.device), self.kv.kv_lens_dev,
+                self.kv.page_table_dev,
+                torch.tensor(remaining, device=self.device), k)
+            self.stats["decode_steps"] += k
+            self.stats["supersteps"] += 1
+            active = list(self.sched.active)
+            with spans.span("serve.commit"):
+                self.kv.commit_tokens(active, k, new_lens)
+            with spans.span("serve.sync"):
+                out = out.cpu().numpy()      # (K, B): the one boundary sync
+            self.stats["host_syncs"] += 1
+            self.stats["table_uploads"] = self.kv.table_uploads
+            with spans.span("serve.commit"):
+                for slot in active:
+                    st = self.sched.active[slot]
+                    st.generated.extend(int(t) for t in out[:, slot])
+                    st.pending = int(out[-1, slot])
+                    if st.done:
+                        self._retire(slot)
 
     def _step_single(self) -> None:
         """The original one-token host loop (superstep_k=1 conformance)."""
-        toks = np.zeros((self.ccfg.num_slots, 1), np.int32)
-        for slot, st in self.sched.active.items():
-            toks[slot, 0] = st.pending
-        nxt = self._decode(torch.tensor(toks, device=self.device),
-                           self.kv.kv_lens_dev, self.kv.page_table_dev)
-        self.stats["decode_steps"] += 1
-        self.stats["supersteps"] += 1
-        active = list(self.sched.active)
-        self.kv.commit_token(active)     # each slot's pending token landed
-        nxt = nxt.cpu().numpy()
-        self.stats["host_syncs"] += 1
-        self.stats["table_uploads"] = self.kv.table_uploads
-        for slot in active:
-            st = self.sched.active[slot]
-            st.pending = int(nxt[slot])
-            st.generated.append(st.pending)
-            if st.done:
-                self._retire(slot)
+        with spans.span("serve.superstep", k=1):
+            toks = np.zeros((self.ccfg.num_slots, 1), np.int32)
+            for slot, st in self.sched.active.items():
+                toks[slot, 0] = st.pending
+            nxt = self._decode(torch.tensor(toks, device=self.device),
+                               self.kv.kv_lens_dev, self.kv.page_table_dev)
+            self.stats["decode_steps"] += 1
+            self.stats["supersteps"] += 1
+            active = list(self.sched.active)
+            with spans.span("serve.commit"):
+                self.kv.commit_token(active)    # each pending token landed
+            with spans.span("serve.sync"):
+                nxt = nxt.cpu().numpy()
+            self.stats["host_syncs"] += 1
+            self.stats["table_uploads"] = self.kv.table_uploads
+            with spans.span("serve.commit"):
+                for slot in active:
+                    st = self.sched.active[slot]
+                    st.pending = int(nxt[slot])
+                    st.generated.append(st.pending)
+                    if st.done:
+                        self._retire(slot)
 
     # ------------------------------------------------------------------
     def run(self, max_steps: int = 100_000) -> Dict[int, np.ndarray]:

@@ -32,12 +32,12 @@ the prefill/eviction/swap against the paged cache.
 from __future__ import annotations
 
 import dataclasses
-import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.serve.kv_cache import PagedCacheConfig, SwapState, pages_needed
 
 POLICIES = ("fifo", "sla")
@@ -68,8 +68,9 @@ class RequestState:
     generated: List[int] = dataclasses.field(default_factory=list)
     pending: Optional[int] = None       # produced but not yet in the cache
     arrival: float = 0.0                # scheduler clock at submit
-    t_submit: float = 0.0               # wall clock at submit
-    ttft: Optional[float] = None        # wall seconds submit -> 1st token
+    t_submit_ns: int = 0                # span clock (spans.now_ns) at submit
+    ttft: Optional[float] = None        # seconds submit -> 1st token, on
+                                        # the same clock
     swap: Optional[SwapState] = None    # host KV image while preempted
     preemptions: int = 0
 
@@ -113,7 +114,7 @@ class Scheduler:
                 f"{self.ccfg.num_pages - 1}")))
             return False
         self.waiting.append(RequestState(req=req, arrival=self.clock,
-                                         t_submit=time.monotonic()))
+                                         t_submit_ns=spans.now_ns()))
         return True
 
     def _score(self, st: RequestState):
